@@ -1,0 +1,535 @@
+#!/usr/bin/env python3
+"""GPU smoke run of the torch port (vclust_tpu_torch) on one CUDA card.
+
+Run from the root of a checkout: `python3 chip_smoke.py [--seed N]`.
+
+Phases, each printing one JSON line; any failure exits non-zero:
+  1. build  - nvcc builds every kernel of csrc/ (one process per source,
+              all at once) and the build seconds are printed;
+  2. kx     - the extension kernel through its entry point `batched_extend`
+              on ~65,536 jobs over related example genomes plus edge cases
+              (sequence ends, an N run, an identical run longer than one
+              span, one longer than the 262,144-base cap); kernel == plain
+              bit for bit, and both == ops/lz_parse_py._extend on a sample;
+  3. k1     - the occupancy-count kernel on (a) the replicated example
+              corpus (1,536 genomes), (b) a weighted corpus with weights
+              above 255, (c) a synthetic index of 16,384 genomes from
+              --seed; kernel == host count on (a) and (b), == plain on all;
+  4. main   - the CLI main path on the card: prefilter on 48 genomes (K1
+              must launch; fltr.txt == a host-backend run byte for byte;
+              K1 on the same index == plain and == the full host count
+              matrix), align --filter, cluster; then the example corpus, whose
+              fltr.txt and clusters.tsv must equal example/output/;
+  5. the `kernels` line: every kernel with its launches on its path, error
+     against its plain version, times and bound.
+The card's name and power limit (nvidia-smi) precede the last line, which
+is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+"""
+
+import argparse
+import json
+import os
+import pathlib
+import subprocess
+import sys
+import tempfile
+import time
+
+REPO = pathlib.Path(__file__).resolve().parent
+
+# H100 SXM peaks (NVIDIA data sheet, dense): memory rate and the rates the
+# bounds below use. The data sheet's 67 TFLOP/s float32 rate outside the
+# tensor cores counts 128 fp32 lanes per SM; an SM has 64 int32 lanes, so
+# its int32 rate is half of that.
+HBM_BYTES_PER_S = 3.35e12
+INT8_TENSOR_OPS_PER_S = 1979e12
+INT32_SIMT_OPS_PER_S = 33.5e12
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def fail(msg: str) -> None:
+    raise AssertionError(msg)
+
+
+def time_ms(fn, reps: int) -> float:
+    """CUDA-event time of `fn`, the mean of `reps` calls after a warm-up."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+# --------------------------------------------------------------------------
+# Phase 2: KX
+# --------------------------------------------------------------------------
+
+RELATED = [('NC_010807', 'NC_010807.alt1'), ('NC_010807', 'NC_010807.alt2'),
+           ('NC_010807', 'NC_010807.alt3'), ('NC_005091', 'NC_005091.alt1'),
+           ('NC_005091', 'NC_005091.alt2'), ('NC_025457', 'NC_025457.alt1'),
+           ('NC_025457', 'NC_025457.alt2'), ('NC_002486', 'NC_002486.alt')]
+IDENT_LEN = 300_000
+N_RUN_AT = 150_000
+ORACLE_JOBS = 4000   # random jobs also checked against the host oracle
+
+
+def kx_jobs(rng, n_jobs: int = 65536):
+    """(q, r, qi, ri, edge): q and r concatenate related genome pairs of
+    example/fna (joined by N runs) and end with one shared 300,000-base
+    segment (with a 7-base N run in q's copy); jobs start at shared 16-mer
+    seeds of the pairs, at random offsets, and at the edge cases."""
+    import numpy as np
+    from vclust_tpu_torch.core.kmers import _window_values
+    from vclust_tpu_torch.core.seq import encode
+    from vclust_tpu_torch.io.fasta import read_fasta
+    from vclust_tpu_torch.utils.data import example_dir
+    fna = example_dir() / 'fna'
+
+    def codes(name):
+        return np.concatenate([encode(r.seq)
+                               for r in read_fasta(fna / f'{name}.fna')])
+
+    gap = np.full(64, 4, np.int8)
+    q_parts, r_parts, seeds = [], [], []
+    qo = ro = 0
+    for a, b in RELATED:
+        ca, cb = codes(a), codes(b)
+        va = _window_values(np.where(ca < 4, ca, 0), 16)
+        vb = _window_values(np.where(cb < 4, cb, 0), 16)
+        ub, first_b = np.unique(vb, return_index=True)
+        hit = np.isin(va, ub)
+        pa = np.flatnonzero(hit)
+        pb = first_b[np.searchsorted(ub, va[pa])]
+        seeds.append(np.stack([pa + qo, pb + ro], axis=1))
+        q_parts += [ca, gap]
+        r_parts += [cb, gap]
+        qo += len(ca) + len(gap)
+        ro += len(cb) + len(gap)
+    ident = rng.integers(0, 4, IDENT_LEN).astype(np.int8)
+    q_ident = ident.copy()
+    q_ident[N_RUN_AT:N_RUN_AT + 7] = 4
+    q = np.concatenate(q_parts + [q_ident])
+    r = np.concatenate(r_parts + [ident])
+    qs, rs = qo, ro                       # start of the shared segment
+    nq, nr = len(q), len(r)
+    edge = np.array([
+        [qs, rs],                                   # hits the cap
+        [qs + IDENT_LEN - 2500, rs + IDENT_LEN - 2500],  # > 1 span, to end
+        [qs + N_RUN_AT - 500, rs + N_RUN_AT - 500],     # across the N run
+        [nq - 10, nr - 10], [nq - 1, rs], [qs, nr - 1], [0, 0],
+        [nq, 0], [0, nr],                           # empty extensions
+    ], dtype=np.int64)
+    seeds = np.concatenate(seeds)
+    n_seeded = (n_jobs - len(edge)) * 3 // 4
+    pick = rng.choice(len(seeds), n_seeded, replace=len(seeds) < n_seeded)
+    n_rand = n_jobs - len(edge) - n_seeded
+    rand = np.stack([rng.integers(0, qs, n_rand),
+                     rng.integers(0, rs, n_rand)], axis=1)
+    jobs = np.concatenate([edge, seeds[pick], rand]).astype(np.int32)
+    return q, r, jobs[:, 0].copy(), jobs[:, 1].copy(), len(edge)
+
+
+def union_len(starts, lens) -> int:
+    """Positions covered by the intervals [start, start + len)."""
+    import numpy as np
+    keep = lens > 0
+    s, e = starts[keep], starts[keep] + lens[keep]
+    if not len(s):
+        return 0
+    order = np.argsort(s)
+    s, e = s[order], e[order]
+    reach = np.maximum.accumulate(e)
+    new = np.ones(len(s), bool)
+    new[1:] = s[1:] > reach[:-1]
+    grp = np.cumsum(new) - 1
+    lo = s[new]
+    hi = np.zeros(len(lo), np.int64)
+    np.maximum.at(hi, grp, e)
+    return int((hi - lo).sum())
+
+
+def phase_kx(torch, dev, rng):
+    import numpy as np
+    from vclust_tpu_torch.ops import extend as kx
+    from vclust_tpu_torch.ops.lz_parse_py import AlignParams, _extend
+    p = AlignParams()
+    q, r, qi, ri, n_edge = kx_jobs(rng)
+    nq, nr = len(q), len(r)
+    q2d, r2d = kx.pad_codes(q), kx.pad_codes(r)
+
+    # The path: the library entry point, counted from 0.
+    kx.extend.launches = 0
+    lens, matches = kx.batched_extend(q2d, r2d, qi, ri, nq, nr,
+                                      p.aw, p.am, p.ar, device=dev)
+    launches = kx.extend.launches
+
+    # Kernel against plain, on the same device tensors.
+    args = [torch.from_numpy(np.ascontiguousarray(a, np.int32).reshape(-1)
+                             ).to(dev) for a in (q2d, r2d, qi, ri)]
+    k_len, k_match = kx.extend(*args, nq, nr, p.aw, p.am, p.ar)
+    pl_len, pl_match, scanned = kx.extend_plain(
+        *args, nq, nr, p.aw, p.am, p.ar, return_scanned=True)
+    torch.cuda.synchronize()
+    err = max(int((k_len - pl_len).abs().max()),
+              int((k_match - pl_match).abs().max()))
+    if err or not (np.array_equal(lens, pl_len.cpu().numpy())
+                   and np.array_equal(matches, pl_match.cpu().numpy())):
+        fail(f'KX kernel != plain (max abs err {err})')
+    cap = kx.CAP
+    if (int(lens[0]), int(matches[0])) != (cap, cap - 7):
+        fail(f'KX cap job gave {(int(lens[0]), int(matches[0]))}')
+
+    # Both against the host oracle on a sample (the cap job excluded: the
+    # oracle has no cap).
+    sample = np.concatenate([np.arange(1, n_edge), rng.choice(
+        np.arange(n_edge, len(qi)), ORACLE_JOBS, replace=False)])
+    t0 = time.perf_counter()
+    for k in sample:
+        exp = _extend(q, r, int(qi[k]), int(ri[k]), 0, p)
+        if (int(lens[k]), int(matches[k])) != exp:
+            fail(f'KX job {k} ({qi[k]}, {ri[k]}): kernel '
+                 f'{(int(lens[k]), int(matches[k]))} != oracle {exp}')
+    oracle_s = time.perf_counter() - t0
+
+    ms = time_ms(lambda: kx.extend(*args, nq, nr, p.aw, p.am, p.ar), 5)
+    plain_ms = time_ms(
+        lambda: kx.extend_plain(*args, nq, nr, p.aw, p.am, p.ar), 1)
+    sc = scanned.cpu().numpy()
+    # Least work: the distinct code bytes the jobs read (int32 codes, each
+    # input read once) plus the job arrays and outputs; one compare a base.
+    nbytes = 4 * (union_len(qi.astype(np.int64), sc)
+                  + union_len(ri.astype(np.int64), sc)) + 16 * len(qi)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = float(sc.sum()) / INT32_SIMT_OPS_PER_S * 1e3
+    row = dict(
+        name='extend', route='cuda', source='vclust_tpu_torch/csrc/extend.cu',
+        replaces='vclust_tpu/ops/extend_pallas.py:68',
+        launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=max(t_bytes, t_ops),
+        bound_by='bytes' if t_bytes >= t_ops else 'operations',
+        library_ms=None)
+    emit(dict(phase='kx', jobs=int(len(qi)), nq=nq, nr=nr,
+              bases_scanned=int(sc.sum()), cap_job=[cap, cap - 7],
+              kernel_eq_plain=True, oracle_jobs=int(len(sample)),
+              oracle_eq=True, oracle_seconds=oracle_s, path_launches=launches,
+              ms=ms, plain_ms=plain_ms, bound_ms=row['bound_ms']))
+    return row
+
+
+# --------------------------------------------------------------------------
+# Phase 3: K1
+# --------------------------------------------------------------------------
+
+def bench_sets():
+    """bench.py:187-199: the example k-mer sets replicated 128 times with
+    offsets (1,536 genomes)."""
+    import numpy as np
+    from vclust_tpu_torch.models.input import load_genomes
+    from vclust_tpu_torch.models.prefilter import genome_kmer_set
+    from vclust_tpu_torch.utils.data import example_path
+    genomes, _ = load_genomes(example_path('multifasta.fna'))
+    base = [genome_kmer_set(g, 25, 1.0) for g in genomes]
+    sets = []
+    for rep in range(128):
+        off = np.uint64(rep * 1_000_003)
+        sets += [(s + off) if rep else s for s in base]
+    return sets
+
+
+def weighted_sets():
+    """bench.py:124-134: 6 genomes with dense sharing, weights above 255."""
+    import numpy as np
+    rng = np.random.default_rng(7)
+    universe = np.unique(rng.integers(0, 2 ** 50, 20000).astype(np.uint64))
+    return [np.sort(np.unique(rng.choice(universe, 16000)))
+            for _ in range(6)]
+
+
+def synthetic_index(seed: int, n: int = 16384, n_patterns: int = 65536):
+    """A random pattern index: n genomes, patterns of 2-256 distinct
+    genomes, weights 1-70,000."""
+    import numpy as np
+    from vclust_tpu_torch.ops.prefilter import index_from_numpy
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(2, 257, n_patterns).astype(np.int32)
+    gids = np.concatenate([np.sort(rng.choice(n, ln, replace=False))
+                           for ln in lens]).astype(np.int32)
+    weights = rng.integers(1, 70001, n_patterns).astype(np.int64)
+    occ_w = np.bincount(gids, weights=np.repeat(weights, lens), minlength=n)
+    sizes = occ_w.astype(np.int64) + rng.integers(0, 1000, n)
+    return index_from_numpy(n, sizes, gids, lens, weights)
+
+
+def k1_case(torch, dev, name, index, host=None):
+    import numpy as np
+    from vclust_tpu_torch.ops import prefilter as pf
+    n = index.n
+    n_limbs, chunks = pf.device_chunks(index, dev)
+    counts = torch.zeros((n, n), dtype=torch.int32, device=dev)
+
+    def run_kernel():
+        counts.zero_()
+        for gids, offs, w in chunks:
+            pf.occupancy_count(counts, gids, offs, w, n_limbs)
+
+    def run_plain():
+        out = torch.zeros((n, n), dtype=torch.int32, device=dev)
+        for gids, offs, w in chunks:
+            pf.occupancy_count_plain(out, gids, offs, w)
+        return out
+
+    run_kernel()
+    plain = run_plain()
+    torch.cuda.synchronize()
+    err = int((counts.long() - plain.long()).abs().max()) if n else 0
+    if err:
+        fail(f'K1 {name}: kernel != plain (max abs err {err})')
+    got = counts.cpu().numpy().astype(np.int64)
+    np.fill_diagonal(got, index.sizes)
+    del plain
+    res = dict(case=name, n=n, patterns=int(len(index.lens)),
+               nnz=int(len(index.gids)), chunks=len(chunks), n_limbs=n_limbs,
+               max_abs_err=err)
+    if host is not None:
+        ok = host(got)
+        res['host_eq'] = ok
+        if not ok:
+            fail(f'K1 {name}: kernel != host count')
+    ms = time_ms(run_kernel, 2)
+    plain_ms = time_ms(run_plain, 1)
+    pairs = n * (n - 1) / 2
+    rows = sum(int(w.numel()) for _, _, w in chunks)
+    nbytes = 4 * (len(index.gids) + rows + len(chunks) + rows) + 8 * n * n
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * rows * n * n / INT8_TENSOR_OPS_PER_S * 1e3
+    res.update(ms=ms, pairs_per_s=pairs / (ms / 1e3), plain_ms=plain_ms,
+               bound_ms=max(t_bytes, t_ops),
+               bound_by='bytes' if t_bytes >= t_ops else 'operations',
+               library_ms=k1_library_ms(torch, dev, index, chunks, n_limbs))
+    return res
+
+
+def k1_library_ms(torch, dev, index, chunks, n_limbs) -> float:
+    """Yardstick only, never called by the port: torch.matmul on the bf16
+    occupancy, one product per chunk and weight byte, with the reduced-
+    precision bf16 reduction switched off. Operand building is not timed."""
+    n = index.n
+    prev = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    total = 0.0
+    try:
+        for gids, offs, w in chunks:
+            ng = w.numel()
+            rows = torch.repeat_interleave(
+                torch.arange(ng, device=dev), (offs[1:] - offs[:-1]).long())
+            occ = torch.zeros((ng, n), dtype=torch.bfloat16, device=dev)
+            occ[rows, gids.long()] = 1
+            occ_t = occ.T
+            ops = [(occ * ((w >> (8 * l)) & 255).to(torch.bfloat16)[:, None])
+                   for l in range(n_limbs)]
+            for b in ops:
+                total += time_ms(lambda: torch.matmul(occ_t, b), 1)
+            del occ, ops
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            prev
+    return total
+
+
+def phase_k1(torch, dev, seed: int):
+    import numpy as np
+    from vclust_tpu_torch.ops import prefilter as pf
+    rng = np.random.default_rng(seed)
+
+    sets = bench_sets()
+    idx_a = pf.PrefilterIndex(sets)
+    n = len(sets)
+    sample = np.concatenate([
+        np.stack(np.triu_indices(24, 1), axis=1),
+        rng.integers(0, n, (3000, 2))])
+
+    def host_a(got):
+        # The host count from the index, exact for every pair, and the
+        # sort-merge intersection on a sample of pairs.
+        if not np.array_equal(got, pf._counts_from_index_host(idx_a)):
+            return False
+        return all(got[i, j] == len(np.intersect1d(
+            sets[i], sets[j], assume_unique=True)) if i != j
+            else got[i, i] == len(sets[i]) for i, j in sample)
+
+    w_sets = weighted_sets()
+    idx_b = pf.PrefilterIndex(w_sets)
+    if idx_b.weights.max() <= 255:
+        fail('weighted corpus must exceed one byte limb')
+
+    def host_b(got):
+        return np.array_equal(got, pf.shared_kmer_counts_host(w_sets))
+
+    a = k1_case(torch, dev, 'a_bench_1536', idx_a, host_a)
+    emit(dict(phase='k1', **a))
+    b = k1_case(torch, dev, 'b_weighted', idx_b, host_b)
+    emit(dict(phase='k1', **b))
+    c = k1_case(torch, dev, 'c_synthetic_16384', synthetic_index(seed))
+    emit(dict(phase='k1', **c))
+    return c, max(a['max_abs_err'], b['max_abs_err'], c['max_abs_err'])
+
+
+# --------------------------------------------------------------------------
+# Phase 4: the CLI main path
+# --------------------------------------------------------------------------
+
+def mutant_corpus():
+    """bench.py:33-45: the 12 example genomes plus 3 mutants of each at 5%
+    substitutions (48 genomes)."""
+    import numpy as np
+    from vclust_tpu_torch.models.input import Genome, load_genomes
+    from vclust_tpu_torch.utils.data import example_path
+    genomes, _ = load_genomes(example_path('multifasta.fna'))
+    rng = np.random.default_rng(0)
+    acgt = np.frombuffer(b'ACGT', dtype='S1')
+    corpus = list(genomes)
+    for rep in range(1, 4):
+        for g in genomes:
+            s = np.frombuffer(g.seqs[0], dtype='S1').copy()
+            mask = rng.random(len(s)) < 0.05
+            s[mask] = acgt[rng.integers(0, 4, mask.sum())]
+            corpus.append(Genome(name=f'{g.name}.r{rep}', seqs=[s.tobytes()]))
+    return corpus
+
+
+def cli(*argv):
+    from vclust_tpu_torch.cli import main
+    main([str(a) for a in argv])
+
+
+def phase_main(torch, dev, work: pathlib.Path):
+    import numpy as np
+    from vclust_tpu_torch.io.fasta import FastaRecord, write_fasta
+    from vclust_tpu_torch.io.formats import write_fltr
+    from vclust_tpu_torch.models.prefilter import (build_kmer_sets,
+                                                   run_prefilter)
+    from vclust_tpu_torch.ops import extend as kx
+    from vclust_tpu_torch.ops import prefilter as pf
+    from vclust_tpu_torch.utils.data import example_dir
+    corpus = mutant_corpus()
+    fasta = work / 'corpus48.fna'
+    write_fasta(fasta, [FastaRecord(g.name, g.name, g.seqs[0])
+                        for g in corpus])
+    fltr, ani, ids, clusters = (work / f for f in (
+        'fltr.txt', 'ani.tsv', 'ani.ids.tsv', 'clusters.tsv'))
+
+    pf.occupancy_count.launches = 0
+    kx.extend.launches = 0
+    t0 = time.perf_counter()
+    cli('prefilter', '-i', fasta, '-o', fltr, '-v', '0')
+    t_prefilter = time.perf_counter() - t0
+    launches = {'occupancy_count': pf.occupancy_count.launches,
+                'extend': kx.extend.launches}
+    if launches['occupancy_count'] < 1:
+        fail('the CLI prefilter did not launch K1')
+    host = work / 'fltr_host.txt'
+    write_fltr(host, run_prefilter(corpus, backend='host'))
+    if fltr.read_bytes() != host.read_bytes():
+        fail('fltr.txt (device) != fltr.txt (host backend)')
+
+    # K1 at the shape the CLI gave it (the same index, chunked the same
+    # way), held against its plain version and against the full host count
+    # matrix: fltr.txt keeps only the pairs above its cuts.
+    sets = build_kmer_sets(corpus, 25, 1.0)
+    idx = pf.PrefilterIndex(sets)
+    by_index = pf._counts_from_index_host(idx)
+    k1_main = k1_case(torch, dev, 'main_cli_48', idx, lambda got: (
+        np.array_equal(got, by_index)
+        and np.array_equal(got, pf.shared_kmer_counts_host(sets))))
+    emit(dict(phase='k1', **k1_main))
+
+    t0 = time.perf_counter()
+    cli('align', '-i', fasta, '-o', ani, '--filter', fltr,
+        '--filter-threshold', '0.7', '-v', '0')
+    cli('cluster', '-i', ani, '--ids', ids, '-o', clusters,
+        '--metric', 'tani', '--tani', '0.95', '-v', '0')
+    t_align_cluster = time.perf_counter() - t0
+    n_pairs = sum(1 for _ in open(ani)) - 1
+    n_clusters = len({ln.split('\t')[1] for ln in
+                      clusters.read_text().splitlines()[1:]})
+
+    ex = example_dir()
+    gold = ex / 'output'
+    efltr, eani, eids, eclu = (work / f for f in (
+        'ex_fltr.txt', 'ex_ani.tsv', 'ex_ani.ids.tsv', 'ex_clusters.tsv'))
+    cli('prefilter', '-i', ex / 'multifasta.fna', '-o', efltr, '-v', '0')
+    cli('align', '-i', ex / 'multifasta.fna', '-o', eani, '--filter', efltr,
+        '--filter-threshold', '0.7', '-v', '0')
+    cli('cluster', '-i', eani, '--ids', eids, '-o', eclu, '--metric', 'tani',
+        '--tani', '0.95', '-v', '0')
+    if efltr.read_bytes() != (gold / 'fltr.txt').read_bytes():
+        fail('example fltr.txt != example/output/fltr.txt')
+    if eclu.read_bytes() != (gold / 'clusters.tsv').read_bytes():
+        fail('example clusters.tsv != example/output/clusters.tsv')
+    emit(dict(phase='main', genomes=len(corpus), path_launches=launches,
+              fltr_eq_host=True, ani_rows=n_pairs, clusters=n_clusters,
+              prefilter_s=t_prefilter, align_cluster_s=t_align_cluster,
+              example_fltr_eq_golden=True, example_clusters_eq_golden=True))
+    return launches, k1_main
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    ap.add_argument('--seed', type=int, default=0)
+    args = ap.parse_args()
+    if not (REPO / 'vclust_tpu_torch').is_dir():
+        sys.exit('chip_smoke.py must run from a checkout of the repository')
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit('CUDA is not available: chip_smoke.py needs a GPU')
+    sys.path.insert(0, str(REPO))
+    from vclust_tpu_torch.ops import cuda
+    from vclust_tpu_torch.utils.logging import create_logger
+    create_logger(0)
+    os.environ['VCLUST_TORCH_DEVICE'] = 'cuda'
+    dev = torch.device('cuda')
+
+    t0 = time.perf_counter()
+    build_s = cuda.build()
+    emit(dict(phase='build', seconds=build_s, sources=list(cuda.SOURCES),
+              ptxas={k: [ln for ln in v.splitlines() if 'registers' in ln
+                         or 'spill' in ln] for k, v in cuda.build_log.items()}))
+    kx_row = phase_kx(torch, dev, np.random.default_rng(args.seed))
+    c, k1_err = phase_k1(torch, dev, args.seed)
+    with tempfile.TemporaryDirectory(prefix='vclust_smoke_') as tmp:
+        launches, k1_main = phase_main(torch, dev, pathlib.Path(tmp))
+    k1_row = dict(
+        name='occupancy_count', route='cuda',
+        source='vclust_tpu_torch/csrc/occupancy.cu',
+        replaces='vclust_tpu/ops/prefilter.py:277',
+        launches=launches['occupancy_count'],
+        max_abs_err=max(k1_err, k1_main['max_abs_err']),
+        ms=c['ms'], plain_ms=c['plain_ms'], bound_ms=c['bound_ms'],
+        bound_by=c['bound_by'], library_ms=c['library_ms'],
+        at='case c: n=16384, 65536 patterns',
+        main_shape={key: k1_main[key] for key in (
+            'n', 'patterns', 'chunks', 'max_abs_err', 'ms', 'plain_ms',
+            'bound_ms', 'bound_by', 'library_ms')})
+    kx_row['at'] = 'the kx phase jobs'
+    emit({'kernels': [kx_row, k1_row], 'seconds': time.perf_counter() - t0})
+    smi = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True, check=True)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    emit({'ok': True, 'device': {'platform': 'gpu',
+                                 'kind': torch.cuda.get_device_name(0),
+                                 'count': torch.cuda.device_count()}})
+
+
+if __name__ == '__main__':
+    main()

@@ -1,0 +1,261 @@
+"""The torch port's device ops against the JAX package, bit for bit.
+
+On a box without CUDA the wrappers take their plain torch versions (the
+tensors lie on the CPU); the JAX side runs on the CPU as its own tests run
+it. Inputs are made from seeds with numpy and handed to both packages.
+The CUDA kernels themselves are held against these plain versions on the
+card by tests/test_torch_kernels.py and chip_smoke.py.
+"""
+
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+sys.path.insert(0, '.')
+
+from vclust_tpu.ops import prefilter as jpf                       # noqa: E402
+from vclust_tpu.ops.cc import connected_components_device as jcc  # noqa: E402
+from vclust_tpu.ops.lz_parse_py import AlignParams, _extend       # noqa: E402
+from vclust_tpu_torch.ops import cc as tcc                         # noqa: E402
+from vclust_tpu_torch.ops import extend as tx                      # noqa: E402
+from vclust_tpu_torch.ops import prefilter as tpf                  # noqa: E402
+
+
+def _carry(ji):
+    """The JAX package's index, carried across as numpy arrays."""
+    return tpf.index_from_numpy(ji.n, ji.sizes, ji.gids, ji.lens, ji.weights,
+                                ji.n_groups)
+
+
+def _weighted_sets():
+    # bench.py:124-134: dense sharing among 6 genomes -> weights > 255.
+    rng = np.random.default_rng(7)
+    universe = np.unique(rng.integers(0, 2 ** 50, 20000).astype(np.uint64))
+    return [np.sort(np.unique(rng.choice(universe, 16000)))
+            for _ in range(6)]
+
+
+def _random_sets(n=40):
+    rng = np.random.default_rng(11)
+    universe = rng.choice(2 ** 40, size=3000, replace=False).astype(np.uint64)
+    return [np.sort(universe[rng.random(len(universe))
+                             < rng.uniform(0.05, 0.5)]) for _ in range(n)]
+
+
+@pytest.fixture(scope='module')
+def corpora():
+    return {'weighted': _weighted_sets(), 'random40': _random_sets()}
+
+
+# Small chunks so the count runs over many chunks (nnz_chunk must hold n).
+CHUNKS = dict(rows_chunk=256, nnz_chunk=2048)
+
+
+@pytest.mark.parametrize('name', ['weighted', 'random40'])
+def test_k1_plain_matches_jax(corpora, name):
+    sets = corpora[name]
+    ji = jpf.PrefilterIndex(sets)
+    want = jpf.shared_kmer_counts_indexed(ji, engine='device', **CHUNKS)
+    ti = _carry(ji)
+    got = tpf.shared_kmer_counts_indexed(ti, engine='device', device='cpu',
+                                         **CHUNKS)
+    assert np.array_equal(got, want)
+    assert np.array_equal(got, jpf.shared_kmer_counts_host(sets))
+    if name == 'weighted':
+        assert ji.weights.max() > 255
+    else:
+        _, chunks = tpf.device_chunks(ti, 'cpu', **CHUNKS)
+        assert len(chunks) > 1
+
+
+def test_k1_chunks_match_jax(corpora):
+    """Same chunking rules, so chunks match one to one."""
+    ji = jpf.PrefilterIndex(corpora['random40'])
+    for rows_chunk, nnz_chunk in ((256, 2048), (131072, 524288)):
+        rc = max(1024, min(rows_chunk, (1 << 28) // (4 * (ji.n + 1))))
+        rc, nc = jpf._adapt_chunks(ji.gids, ji.lens, ji.n, rc, nnz_chunk)
+        _, want = jpf._chunk_groups(ji.lens, rc, nc)
+        _, got = tpf.device_chunks(_carry(ji), 'cpu', rows_chunk, nnz_chunk)
+        assert [int(w.numel()) for _, _, w in got] == \
+            [hi - lo for lo, hi in want]
+
+
+def test_k1_weight_of_exactly_one_byte_limb_more():
+    """A largest weight of exactly 256 needs two byte limbs; the count
+    stays exact (equal to the host accumulation)."""
+    idx = tpf.index_from_numpy(3, [10, 10, 10], [0, 1, 1, 2], [2, 2],
+                               [256, 5])
+    assert tpf._n_limbs(idx.weights) == 2
+    got = tpf.shared_kmer_counts_indexed(idx, engine='device', device='cpu')
+    assert np.array_equal(got, tpf._counts_from_index_host(idx))
+    assert got[0, 1] == 256
+
+
+def test_k1_shared_counts_dispatch(corpora):
+    sets = corpora['random40']
+    want = jpf.shared_kmer_counts_host(sets)
+    assert np.array_equal(
+        tpf.shared_kmer_counts(sets, backend='host'), want)
+    assert np.array_equal(
+        tpf.shared_kmer_counts(sets, device='cpu'), want)
+
+
+def test_k1_wrapper_checks():
+    counts = torch.zeros((4, 4), dtype=torch.int32)
+    gids = torch.tensor([0, 1, 2], dtype=torch.int32)
+    offs = torch.tensor([0, 3], dtype=torch.int32)
+    w = torch.tensor([5], dtype=torch.int32)
+    tpf.occupancy_count(counts, gids, offs, w, 1)
+    assert counts[0, 1] == 5 and counts[2, 2] == 5 and counts[3, 3] == 0
+    with pytest.raises(TypeError):
+        tpf.occupancy_count(counts.long(), gids, offs, w, 1)
+    with pytest.raises(ValueError):
+        tpf.occupancy_count(counts, gids, offs, w, 4)
+    with pytest.raises(ValueError):
+        tpf.occupancy_count(counts.t(), gids, offs, w, 1)
+
+
+def test_batch_store_blocks_match_dense(tmp_path, corpora):
+    sets = corpora['random40']
+    dense = jpf.shared_kmer_counts_host(sets)
+    store = tpf.BatchIndexStore(tmp_path)
+    for lo in range(0, len(sets), 15):
+        store.add_batch(sets[lo:lo + 15], lo)
+    out = np.zeros_like(dense)
+    nb = len(store.batches)
+    for i in range(nb):
+        for j in range(i, nb):
+            ro, co, block = store.pair_block(i, j, device='cpu')
+            out[ro:ro + block.shape[0], co:co + block.shape[1]] = block
+            out[co:co + block.shape[1], ro:ro + block.shape[0]] = block.T
+    assert np.array_equal(out, dense)
+
+
+# --------------------------------------------------------------------------
+# KX
+# --------------------------------------------------------------------------
+
+@pytest.fixture(scope='module')
+def seqs():
+    # tests/test_extend_pallas.py's sequences.
+    rng = np.random.default_rng(0)
+    ref = rng.integers(0, 4, 1500).astype(np.int8)
+    q = ref.copy()
+    sub = rng.random(len(q)) < 0.05
+    q[sub] = (q[sub] + rng.integers(1, 4, sub.sum()).astype(np.int8)) % 4
+    q[700:707] = 4   # N run
+    return q, ref
+
+
+def _check_kx(q, r, jobs, p):
+    qi = np.array([a for a, _ in jobs], np.int32)
+    ri = np.array([b for _, b in jobs], np.int32)
+    lens, matches = tx.batched_extend(tx.pad_codes(q), tx.pad_codes(r), qi,
+                                      ri, len(q), len(r), p.aw, p.am, p.ar,
+                                      device='cpu')
+    got = list(zip(lens.tolist(), matches.tolist()))
+    assert got == [_extend(q, r, a, b, 0, p) for a, b in jobs]
+
+
+def test_kx_matches_oracle(seqs):
+    q, ref = seqs
+    rng = np.random.default_rng(1)
+    jobs = [(int(rng.integers(0, len(q) - 50)),) * 2 for _ in range(8)]
+    jobs += [(int(rng.integers(0, len(q) - 50)),
+              int(rng.integers(0, len(ref) - 50))) for _ in range(8)]
+    _check_kx(q, ref, jobs, AlignParams())
+
+
+def test_kx_sequence_ends(seqs):
+    q, ref = seqs
+    jobs = [(len(q) - 10, len(ref) - 10), (len(q) - 1, 0),
+            (0, len(ref) - 1), (0, 0), (len(q), 0), (0, len(ref))]
+    _check_kx(q, ref, jobs, AlignParams())
+
+
+def test_kx_long_exact():
+    rng = np.random.default_rng(2)
+    ref = rng.integers(0, 4, 2500).astype(np.int8)
+    _check_kx(ref.copy(), ref, [(0, 0), (1, 1), (1200, 1200)],
+              AlignParams())
+
+
+@pytest.mark.parametrize('aw,am,ar', [(15, 7, 3), (1, 0, 1), (32, 10, 32),
+                                      (8, 3, 5)])
+def test_kx_random_jobs(seqs, aw, am, ar):
+    q, ref = seqs
+    rng = np.random.default_rng(aw * 100 + ar)
+    jobs = [(int(a),) * 2 for a in rng.integers(0, len(q), 150)]
+    jobs += [(int(a), int(b)) for a, b in zip(rng.integers(0, len(q), 150),
+                                              rng.integers(0, len(ref), 150))]
+    _check_kx(q, ref, jobs, AlignParams(aw=aw, am=am, ar=ar))
+
+
+def test_kx_cap():
+    """An identical run longer than the cap stops at CAP bases."""
+    n = tx.CAP + 3000
+    codes = np.random.default_rng(3).integers(0, 4, n).astype(np.int8)
+    lens, matches = tx.batched_extend(
+        tx.pad_codes(codes), tx.pad_codes(codes), np.array([0, 5], np.int32),
+        np.array([0, 5], np.int32), n, n, device='cpu')
+    assert lens.tolist() == [tx.CAP, tx.CAP]
+    assert matches.tolist() == [tx.CAP, tx.CAP]
+
+
+def test_kx_wrapper_checks(seqs):
+    q, ref = seqs
+    with pytest.raises(ValueError):
+        tx.batched_extend(tx.pad_codes(q), tx.pad_codes(ref),
+                          np.zeros(1, np.int32), np.zeros(1, np.int32),
+                          len(q), len(ref), aw=33, device='cpu')
+    with pytest.raises(ValueError):
+        tx.batched_extend(tx.pad_codes(q), tx.pad_codes(ref),
+                          np.array([-1], np.int32), np.zeros(1, np.int32),
+                          len(q), len(ref), device='cpu')
+    t = torch.zeros(4, dtype=torch.int64)
+    with pytest.raises(TypeError):
+        tx.extend(t, t, t, t, 4, 4)
+    empty = tx.batched_extend(tx.pad_codes(q), tx.pad_codes(ref),
+                              np.empty(0, np.int32), np.empty(0, np.int32),
+                              len(q), len(ref), device='cpu')
+    assert [len(x) for x in empty] == [0, 0]
+
+
+# --------------------------------------------------------------------------
+# Connected components
+# --------------------------------------------------------------------------
+
+def _union_find(n, edges):
+    parent = list(range(n))
+
+    def find(x):
+        while parent[x] != x:
+            parent[x] = parent[parent[x]]
+            x = parent[x]
+        return x
+
+    for a, b in edges:
+        ra, rb = find(int(a)), find(int(b))
+        if ra != rb:
+            parent[max(ra, rb)] = min(ra, rb)
+    return np.array([find(i) for i in range(n)])
+
+
+@pytest.mark.parametrize('n,n_edges,seed', [(500, 300, 3), (2000, 1900, 4),
+                                            (64, 500, 5)])
+def test_cc_matches_jax_and_union_find(n, n_edges, seed):
+    rng = np.random.default_rng(seed)
+    edges = rng.integers(0, n, (n_edges, 2)).astype(np.int32)
+    got = tcc.connected_components_device(n, edges, device='cpu')
+    assert got.dtype == np.int32
+    assert np.array_equal(got, jcc(n, edges))
+    assert np.array_equal(got, _union_find(n, edges))
+
+
+def test_cc_empty():
+    assert tcc.connected_components_device(
+        0, np.empty((0, 2)), device='cpu').tolist() == []
+    assert tcc.connected_components_device(
+        3, np.empty((0, 2)), device='cpu').tolist() == [0, 1, 2]

@@ -1,0 +1,111 @@
+"""Build, load and launch the port's hand-written CUDA kernels (csrc/*.cu).
+
+Each source is compiled by nvcc for `sm_90a` into a shared library with a
+plain C interface in the port's build directory, at first use, and loaded
+with ctypes. `build()` starts one nvcc per source, all at once. Each C
+entry point launches on the stream it is given, allocates nothing, and
+returns `cudaGetLastError()` after its launches; `check` raises when that
+code is not 0.
+"""
+
+import ctypes
+import os
+import shutil
+import time
+
+import torch
+
+from ..utils.build import (BUILD_DIR, CSRC_DIR, finish_compile, is_stale,
+                           start_compile)
+
+SOURCES = ('occupancy', 'extend')
+NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
+              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+
+_libs = {}
+# Compiler output (ptxas register and shared-memory report) per source,
+# filled by build().
+build_log = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which('nvcc') or '/usr/local/cuda/bin/nvcc'
+    if not os.path.exists(path):
+        raise RuntimeError('nvcc not found: the CUDA kernels cannot be built')
+    return path
+
+
+def lib_path(name: str):
+    return BUILD_DIR / f'lib{name}.so'
+
+
+def build(names=SOURCES) -> float:
+    """Compile the stale sources among `names` in parallel; returns the
+    wall seconds. Raises with the compiler's output if any fails."""
+    t0 = time.perf_counter()
+    jobs = []
+    for name in names:
+        src, lib = CSRC_DIR / f'{name}.cu', lib_path(name)
+        if is_stale(lib, src):
+            jobs.append((name, lib, *start_compile(
+                [_nvcc(), *NVCC_FLAGS, str(src)], lib)))
+    errors = []
+    for name, lib, proc, tmp in jobs:
+        ok, log = finish_compile(proc, tmp, lib)
+        build_log[name] = log
+        if not ok:
+            errors.append(f'nvcc failed for csrc/{name}.cu:\n{log}')
+    if errors:
+        raise RuntimeError('\n'.join(errors))
+    return time.perf_counter() - t0
+
+
+def is_built(name: str) -> bool:
+    return not is_stale(lib_path(name), CSRC_DIR / f'{name}.cu')
+
+
+def library(name: str, signatures):
+    """The loaded library of csrc/<name>.cu, built if needed.
+    signatures: {C function name: argtypes}; every function returns int."""
+    lib = _libs.get(name)
+    if lib is None:
+        build((name,))
+        lib = ctypes.CDLL(str(lib_path(name)))
+        for fn, argtypes in signatures.items():
+            f = getattr(lib, fn)
+            f.argtypes = list(argtypes)
+            f.restype = ctypes.c_int
+        lib.vk_error_string.argtypes = [ctypes.c_int]
+        lib.vk_error_string.restype = ctypes.c_char_p
+        _libs[name] = lib
+    return lib
+
+
+def check(lib, rc: int, what: str) -> None:
+    if rc:
+        raise RuntimeError(f'{what}: CUDA error {rc}: '
+                           f'{lib.vk_error_string(rc).decode()}')
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def require(t: torch.Tensor, name: str, dtype, ndim: int,
+            device: torch.device) -> None:
+    """Wrapper-side argument check: dtype, rank, device, contiguity."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f'{name} must be a torch.Tensor')
+    if t.dtype != dtype:
+        raise TypeError(f'{name} must be {dtype}, got {t.dtype}')
+    if t.dim() != ndim:
+        raise ValueError(f'{name} must have {ndim} dimension(s), '
+                         f'got shape {tuple(t.shape)}')
+    if t.device != device:
+        raise ValueError(f'{name} is on {t.device}, expected {device}')
+    if not t.is_contiguous():
+        raise ValueError(f'{name} must be contiguous')
