@@ -14,13 +14,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
   3. k1     - the occupancy-count kernel on (a) the replicated example
               corpus (1,536 genomes), (b) a weighted corpus with weights
               above 255, (c) a synthetic index of 16,384 genomes from
-              --seed; kernel == host count on (a) and (b), == plain on all;
-  4. main   - the CLI main path on the card: prefilter on 48 genomes (K1
+              --seed; kernel == host count on (a) and (b), == plain on all.
+              Each K1 line gives the limb products issued (one per k-block
+              and limb of its class) against the index-wide limb count on
+              every k-block, the split-K factor, and the kernel's own
+              device time (`device_ms`, torch.profiler) beside its event
+              time; (c) also times one launch a chunk (`ms_per_chunk`)
+              against one a pass of chunks (`ms`: counts added once);
+  4. cc     - device connected components (ops/cc.py:_cc_run, torch ops)
+              through single linkage on 200,000 nodes, == host union-find,
+              with its time and bytes bound;
+  5. main   - the CLI main path on the card: prefilter on 48 genomes (K1
               must launch; fltr.txt == a host-backend run byte for byte;
               K1 on the same index == plain and == the full host count
               matrix), align --filter, cluster; then the example corpus, whose
               fltr.txt and clusters.tsv must equal example/output/;
-  5. the `kernels` line: every kernel with its launches on its path, error
+  6. the `kernels` line: every kernel with its launches on its path, error
      against its plain version, times and bound.
 The card's name and power limit (nvidia-smi) precede the last line, which
 is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -54,6 +63,22 @@ def fail(msg: str) -> None:
     raise AssertionError(msg)
 
 
+def ptxas_summary(log: str) -> dict:
+    """Each kernel's register and spill lines from nvcc's `-Xptxas -v`
+    output, and its wgmma performance warnings (C75xx, e.g. products
+    serialized for want of registers), by entry-function name."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        if 'Compiling entry function' in ln:
+            name = ln.split("'")[1]
+        elif '(C75' in ln and "'" in ln:
+            out.setdefault(ln.split("'")[1], []).append(
+                ln.split(':', 1)[-1].strip().split(' for the function')[0])
+        elif name and ('Used ' in ln or 'spill' in ln):
+            out.setdefault(name, []).append(ln.split(':', 1)[-1].strip())
+    return out
+
+
 def time_ms(fn, reps: int) -> float:
     """CUDA-event time of `fn`, the mean of `reps` calls after a warm-up."""
     import torch
@@ -67,6 +92,22 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int):
+    """Device time of `fn` by torch.profiler: its kernels' and memsets' own
+    time, the mean of `reps` calls after a warm-up; None when the profiler
+    saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages())
+    return us / 1e3 / reps if us else None
 
 
 # --------------------------------------------------------------------------
@@ -269,22 +310,22 @@ def synthetic_index(seed: int, n: int = 16384, n_patterns: int = 65536):
     return index_from_numpy(n, sizes, gids, lens, weights)
 
 
-def k1_case(torch, dev, name, index, host=None):
+def k1_case(torch, dev, name, index, host=None, per_chunk=False):
     import numpy as np
     from vclust_tpu_torch.ops import prefilter as pf
     n = index.n
-    n_limbs, chunks = pf.device_chunks(index, dev)
+    n_limbs, passes = pf.device_chunks(index, dev)
     counts = torch.zeros((n, n), dtype=torch.int32, device=dev)
 
-    def run_kernel():
+    def run_kernel(passes=passes, counts=counts):
         counts.zero_()
-        for gids, offs, w in chunks:
-            pf.occupancy_count(counts, gids, offs, w, n_limbs)
+        for c in passes:
+            pf.occupancy_count(counts, c)
 
     def run_plain():
         out = torch.zeros((n, n), dtype=torch.int32, device=dev)
-        for gids, offs, w in chunks:
-            pf.occupancy_count_plain(out, gids, offs, w)
+        for c in passes:
+            pf.occupancy_count_plain(out, c.gids, c.offs, c.weights)
         return out
 
     run_kernel()
@@ -296,48 +337,80 @@ def k1_case(torch, dev, name, index, host=None):
     got = counts.cpu().numpy().astype(np.int64)
     np.fill_diagonal(got, index.sizes)
     del plain
+    # Limb products the kernel issues (one per k-block and limb of its
+    # class) against the index-wide limb count on every k-block.
+    n_kblocks = sum(int(c.kb_limbs.numel()) for c in passes)
+    splits = sorted({c.split for c in passes})
     res = dict(case=name, n=n, patterns=int(len(index.lens)),
-               nnz=int(len(index.gids)), chunks=len(chunks), n_limbs=n_limbs,
+               nnz=int(len(index.gids)),
+               chunks=sum(len(c.parts) for c in passes), passes=len(passes),
+               n_limbs=n_limbs, k_blocks=n_kblocks,
+               limb_products=sum(int(c.kb_limbs.sum()) for c in passes),
+               limb_products_without_classes=n_limbs * n_kblocks,
+               split=splits[0] if len(splits) == 1 else splits,
+               tiles=int(len(pf.k1_tiles(n))),
+               tiles_full_square=(-(-n // pf.K1_TILE)) ** 2,
                max_abs_err=err)
     if host is not None:
         ok = host(got)
         res['host_eq'] = ok
         if not ok:
             fail(f'K1 {name}: kernel != host count')
-    ms = time_ms(run_kernel, 2)
+    reps = 2 if n >= 4096 else 20
+    ms = time_ms(run_kernel, reps)
+    if per_chunk:
+        # What adding counts once a pass saves: one launch a chunk, as
+        # with passes of one chunk each (== the result above).
+        pass_bytes, pf._K1_PASS_BYTES = pf._K1_PASS_BYTES, 0
+        try:
+            each = pf.device_chunks(index, dev)[1]
+        finally:
+            pf._K1_PASS_BYTES = pass_bytes
+        apart = torch.zeros_like(counts)
+        run_kernel(each, apart)
+        if not torch.equal(apart, counts):
+            fail(f'K1 {name}: one launch a chunk != passes')
+        res['ms_per_chunk'] = time_ms(lambda: run_kernel(each, apart), reps)
+        del apart, each
+    # The kernel's own device time (counts are not zeroed in between: the
+    # sums above are already checked).
+    res['device_ms'] = device_ms(
+        lambda: [pf.occupancy_count(counts, c) for c in passes], reps)
     plain_ms = time_ms(run_plain, 1)
     pairs = n * (n - 1) / 2
-    rows = sum(int(w.numel()) for _, _, w in chunks)
-    nbytes = 4 * (len(index.gids) + rows + len(chunks) + rows) + 8 * n * n
+    rows = sum(int(c.weights.numel()) for c in passes)
+    nbytes = 4 * (len(index.gids) + rows + len(passes) + rows) + 8 * n * n
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = 2.0 * rows * n * n / INT8_TENSOR_OPS_PER_S * 1e3
     res.update(ms=ms, pairs_per_s=pairs / (ms / 1e3), plain_ms=plain_ms,
                bound_ms=max(t_bytes, t_ops),
                bound_by='bytes' if t_bytes >= t_ops else 'operations',
-               library_ms=k1_library_ms(torch, dev, index, chunks, n_limbs))
+               library_ms=k1_library_ms(torch, dev, index, passes, n_limbs,
+                                        reps))
     return res
 
 
-def k1_library_ms(torch, dev, index, chunks, n_limbs) -> float:
+def k1_library_ms(torch, dev, index, passes, n_limbs, reps) -> float:
     """Yardstick only, never called by the port: torch.matmul on the bf16
-    occupancy, one product per chunk and weight byte, with the reduced-
-    precision bf16 reduction switched off. Operand building is not timed."""
+    occupancy, one product per pass and weight byte, with the reduced-
+    precision bf16 reduction switched off, each timed over `reps` calls as
+    the kernel is. Operand building is not timed."""
     n = index.n
     prev = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     total = 0.0
     try:
-        for gids, offs, w in chunks:
-            ng = w.numel()
+        for c in passes:
+            ng = c.weights.numel()
             rows = torch.repeat_interleave(
-                torch.arange(ng, device=dev), (offs[1:] - offs[:-1]).long())
+                torch.arange(ng, device=dev), (c.offs[1:] - c.offs[:-1]).long())
             occ = torch.zeros((ng, n), dtype=torch.bfloat16, device=dev)
-            occ[rows, gids.long()] = 1
+            occ[rows, c.gids.long()] = 1
             occ_t = occ.T
-            ops = [(occ * ((w >> (8 * l)) & 255).to(torch.bfloat16)[:, None])
-                   for l in range(n_limbs)]
+            ops = [(occ * ((c.weights >> (8 * l)) & 255).to(
+                torch.bfloat16)[:, None]) for l in range(n_limbs)]
             for b in ops:
-                total += time_ms(lambda: torch.matmul(occ_t, b), 1)
+                total += time_ms(lambda: torch.matmul(occ_t, b), reps)
             del occ, ops
     finally:
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
@@ -378,13 +451,77 @@ def phase_k1(torch, dev, seed: int):
     emit(dict(phase='k1', **a))
     b = k1_case(torch, dev, 'b_weighted', idx_b, host_b)
     emit(dict(phase='k1', **b))
-    c = k1_case(torch, dev, 'c_synthetic_16384', synthetic_index(seed))
+    c = k1_case(torch, dev, 'c_synthetic_16384', synthetic_index(seed),
+                per_chunk=True)
     emit(dict(phase='k1', **c))
     return c, max(a['max_abs_err'], b['max_abs_err'], c['max_abs_err'])
 
 
 # --------------------------------------------------------------------------
-# Phase 4: the CLI main path
+# Phase 4: device connected components (torch ops, no kernel)
+# --------------------------------------------------------------------------
+
+CC_NODES = 200_000
+CC_EDGE_DRAWS = 150_000
+
+
+def union_find(n: int, edges):
+    """Host union-find labels: the smallest member id of each component."""
+    import numpy as np
+    parent = list(range(n))
+
+    def find(x):
+        while parent[x] != x:
+            parent[x] = parent[parent[x]]
+            x = parent[x]
+        return x
+
+    for a, b in edges.tolist():
+        ra, rb = find(a), find(b)
+        if ra != rb:
+            parent[max(ra, rb)] = min(ra, rb)
+    return np.array([find(i) for i in range(n)])
+
+
+def phase_cc(torch, dev, seed: int):
+    """ops/cc.py:_cc_run on the path single linkage takes from 50,000
+    objects up (models/cluster.py:40, `_single`): 200,000 nodes, ~150,000
+    edges between ids less than 64 apart (tens of thousands of components,
+    the largest of a few thousand nodes), labels == the host union-find's."""
+    import numpy as np
+    from vclust_tpu_torch.models import cluster as mc
+    from vclust_tpu_torch.ops import cc
+    rng = np.random.default_rng(seed)
+    n = CC_NODES
+    a = rng.integers(0, n, CC_EDGE_DRAWS)
+    b = a + rng.integers(1, 64, len(a))
+    edges = np.unique(np.stack([a, b], axis=1)[b < n], axis=0)
+    if n < mc._DEVICE_SINGLE_MIN_NODES:
+        fail('the cc graph is below the device path\'s size')
+    t0 = time.perf_counter()
+    labels = np.asarray(mc._single(n, edges, None, None, mc.ClusterParams(),
+                                   dev))
+    path_s = time.perf_counter() - t0
+    want = union_find(n, edges)
+    if not np.array_equal(labels, want):
+        fail('device connected components != host union-find')
+    e_d = torch.from_numpy(edges).to(dev)
+    ms = time_ms(lambda: cc._cc_run(e_d, n), 5)
+    # Least bytes: the int64 edges read once, the int64 labels written once.
+    bound_ms = (edges.nbytes + 8 * n) / HBM_BYTES_PER_S * 1e3
+    sizes = np.bincount(want, minlength=n)
+    res = dict(phase='cc', nodes=n, edges=int(len(edges)),
+               components=int((sizes > 0).sum()),
+               largest_component=int(sizes.max()),
+               path='models/cluster.py:_single', path_s=path_s,
+               labels_eq_union_find=True, ms=ms, bound_ms=bound_ms,
+               bound_by='bytes')
+    emit(res)
+    return res
+
+
+# --------------------------------------------------------------------------
+# Phase 5: the CLI main path
 # --------------------------------------------------------------------------
 
 def mutant_corpus():
@@ -502,10 +639,10 @@ def main():
     t0 = time.perf_counter()
     build_s = cuda.build()
     emit(dict(phase='build', seconds=build_s, sources=list(cuda.SOURCES),
-              ptxas={k: [ln for ln in v.splitlines() if 'registers' in ln
-                         or 'spill' in ln] for k, v in cuda.build_log.items()}))
+              ptxas={k: ptxas_summary(v) for k, v in cuda.build_log.items()}))
     kx_row = phase_kx(torch, dev, np.random.default_rng(args.seed))
     c, k1_err = phase_k1(torch, dev, args.seed)
+    phase_cc(torch, dev, args.seed)
     with tempfile.TemporaryDirectory(prefix='vclust_smoke_') as tmp:
         launches, k1_main = phase_main(torch, dev, pathlib.Path(tmp))
     k1_row = dict(
@@ -517,9 +654,14 @@ def main():
         ms=c['ms'], plain_ms=c['plain_ms'], bound_ms=c['bound_ms'],
         bound_by=c['bound_by'], library_ms=c['library_ms'],
         at='case c: n=16384, 65536 patterns',
+        limb_products=c['limb_products'],
+        limb_products_without_classes=c['limb_products_without_classes'],
+        split=c['split'], device_ms=c['device_ms'],
+        ms_per_chunk=c['ms_per_chunk'],
         main_shape={key: k1_main[key] for key in (
-            'n', 'patterns', 'chunks', 'max_abs_err', 'ms', 'plain_ms',
-            'bound_ms', 'bound_by', 'library_ms')})
+            'n', 'patterns', 'chunks', 'passes', 'max_abs_err', 'ms',
+            'device_ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms',
+            'limb_products', 'limb_products_without_classes', 'split')})
     kx_row['at'] = 'the kx phase jobs'
     emit({'kernels': [kx_row, k1_row], 'seconds': time.perf_counter() - t0})
     smi = subprocess.run(

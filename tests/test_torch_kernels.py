@@ -29,11 +29,19 @@ def cuda_device():
 
 
 def _index(seed, n, n_patterns, max_len, max_w):
+    """A random index; max_w='mixed' draws one, two and three-byte weights
+    (edges included) in equal shares, so chunks hold every limb class."""
     rng = np.random.default_rng(seed)
     lens = rng.integers(2, max_len + 1, n_patterns).astype(np.int32)
     gids = np.concatenate([np.sort(rng.choice(n, ln, replace=False))
                            for ln in lens])
-    weights = rng.integers(1, max_w + 1, n_patterns)
+    if max_w == 'mixed':
+        lo = np.array([1, 256, 65536])[rng.integers(0, 3, n_patterns)]
+        weights = np.minimum(lo * rng.integers(1, 256, n_patterns),
+                             2 ** 24 - 1)
+        weights[:4] = [255, 256, 65535, 2 ** 24 - 1]
+    else:
+        weights = rng.integers(1, max_w + 1, n_patterns)
     return tpf.index_from_numpy(n, np.full(n, 10 ** 6), gids, lens, weights)
 
 
@@ -49,26 +57,63 @@ def _seqs(seed=0, n=3000):
 
 def _k1_both(index, device, **chunking):
     n = index.n
-    n_limbs, chunks = tpf.device_chunks(index, device, **chunking)
+    _, chunks = tpf.device_chunks(index, device, **chunking)
     k = torch.zeros((n, n), dtype=torch.int32, device=device)
     p = torch.zeros_like(k)
-    for gids, offs, w in chunks:
-        tpf.occupancy_count(k, gids, offs, w, n_limbs)
-        tpf.occupancy_count_plain(p, gids, offs, w)
-    return k, p, len(chunks)
+    for c in chunks:
+        tpf.occupancy_count(k, c)
+        tpf.occupancy_count_plain(p, c.gids, c.offs, c.weights)
+    return k, p, chunks
+
+
+# rows_chunk 1024: chunks of at most 8 k-blocks, one launch each
+SMALL_CHUNKS = 'small'
+# the same chunks merged into passes, as many as fit one launch
+MERGED = 'merged'
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize('n,n_patterns,max_len,max_w', [
-    (6, 40, 6, 300), (70, 3000, 20, 255), (200, 5000, 64, 70000),
-    (1000, 300, 256, 2 ** 24 - 1)])
-def test_k1_kernel_matches_plain(cuda_device, n, n_patterns, max_len, max_w):
+@pytest.mark.parametrize('n,n_patterns,max_len,max_w,chunking', [
+    (6, 40, 6, 300, SMALL_CHUNKS), (70, 3000, 20, 255, SMALL_CHUNKS),
+    (200, 5000, 64, 70000, SMALL_CHUNKS),
+    (1000, 300, 256, 2 ** 24 - 1, SMALL_CHUNKS),
+    # ragged and diagonal tiles
+    (33, 2000, 20, 70000, SMALL_CHUNKS), (48, 2500, 30, 300, SMALL_CHUNKS),
+    (65, 1500, 40, 'mixed', SMALL_CHUNKS), (130, 3000, 64, 70000, None),
+    (200, 800, 100, 2 ** 24 - 1, None),
+    # one chunk of > 6,000 patterns on 48 genomes: one tile, split-K; and
+    # of 40,000, whose CTAs walk 3 k-blocks: TMA loads of a 48-row tile
+    (48, 6100, 30, 70000, None), (48, 40000, 30, 70000, None),
+    # every limb class in one chunk
+    (300, 4000, 50, 'mixed', None),
+    # many chunks, one launch each or all in one pass (whose diagonal sums
+    # stay below 2^31, where the plain version's float64 sums convert)
+    (200, 24000, 20, 'mixed', SMALL_CHUNKS),
+    (200, 24000, 20, 70000, MERGED),
+    # occupancy scattered and loaded by TMA (`k1_from_coo` false): split-K
+    # with n % 4 == 0 and != 0 epilogues, and 153 tiles without split-K
+    (520, 6000, 200, 70000, None), (1001, 3000, 64, 'mixed', None),
+    (2101, 1500, 100, 70000, None)])
+def test_k1_kernel_matches_plain(cuda_device, monkeypatch, n, n_patterns,
+                                 max_len, max_w, chunking):
     idx = _index(n + n_patterns, n, n_patterns, min(max_len, n), max_w)
-    k, p, n_chunks = _k1_both(idx, cuda_device, rows_chunk=1024,
-                              nnz_chunk=max(2048, n + 1))
+    kw = {}
+    if chunking is not None:
+        kw = dict(rows_chunk=1024, nnz_chunk=max(2048, n + 1))
+    if chunking == SMALL_CHUNKS:
+        monkeypatch.setattr(tpf, '_K1_PASS_BYTES', 0)
+    k, p, chunks = _k1_both(idx, cuda_device, **kw)
     torch.cuda.synchronize()
     assert torch.equal(k, p)
-    assert n_chunks >= 1
+    assert torch.equal(k, k.T)
+    if n_patterns > 6000 and chunking is None:
+        assert len(chunks) == 1 and chunks[0].split > 1
+    if max_w == 'mixed' and chunking is None:
+        assert set(torch.cat([c.kb_limbs for c in chunks]).tolist()) == \
+            {1, 2, 3}
+    if n_patterns >= 24000 and chunking is not None:
+        assert (len(chunks) >= 20 if chunking == SMALL_CHUNKS else
+                len(chunks) == 1 and len(chunks[0].parts) >= 20)
 
 
 @pytest.mark.gpu

@@ -12,6 +12,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
 sys.path.insert(0, '.')
 
@@ -63,23 +64,60 @@ def test_k1_plain_matches_jax(corpora, name):
                                          **CHUNKS)
     assert np.array_equal(got, want)
     assert np.array_equal(got, jpf.shared_kmer_counts_host(sets))
+    # The count above ran over chunks whose patterns are in weight-byte
+    # order (the order K1 takes them in), merged into passes.
+    _, chunks = tpf.device_chunks(ti, 'cpu', **CHUNKS)
+    for c in chunks:
+        for w in torch.split(c.weights, c.parts):
+            assert np.all(np.diff(tpf._weight_bytes(w.numpy())) >= 0)
     if name == 'weighted':
         assert ji.weights.max() > 255
+        assert {c.n_limbs for c in chunks} == {2}
     else:
-        _, chunks = tpf.device_chunks(ti, 'cpu', **CHUNKS)
-        assert len(chunks) > 1
+        assert len(chunks) == 1 and len(chunks[0].parts) > 1
 
 
-def test_k1_chunks_match_jax(corpora):
-    """Same chunking rules, so chunks match one to one."""
-    ji = jpf.PrefilterIndex(corpora['random40'])
+def _check_chunks_match_jax(ji, pass_bytes):
+    """K1's passes hold the JAX package's chunks, whole, one to one and in
+    order: same patterns and entries in each. Returns (passes, chunks) for
+    small and for default chunks."""
+    out = []
     for rows_chunk, nnz_chunk in ((256, 2048), (131072, 524288)):
         rc = max(1024, min(rows_chunk, (1 << 28) // (4 * (ji.n + 1))))
         rc, nc = jpf._adapt_chunks(ji.gids, ji.lens, ji.n, rc, nnz_chunk)
         _, want = jpf._chunk_groups(ji.lens, rc, nc)
         _, got = tpf.device_chunks(_carry(ji), 'cpu', rows_chunk, nnz_chunk)
-        assert [int(w.numel()) for _, _, w in got] == \
+        assert [p for c in got for p in c.parts] == \
             [hi - lo for lo, hi in want]
+        for c in got:
+            ng = int(c.weights.numel())
+            assert len(c.parts) == 1 or \
+                ji.n * -(-ng // tpf.K1_KBLOCK) * tpf.K1_KBLOCK <= pass_bytes
+        weights = torch.cat([c.weights for c in got]).numpy()
+        lens = torch.cat([c.offs.diff() for c in got]).numpy()
+        for lo, hi in want:
+            assert sorted(weights[lo:hi]) == sorted(ji.weights[lo:hi])
+            assert lens[lo:hi].sum() == ji.lens[lo:hi].sum()
+        out.append((len(got), len(want)))
+    return out
+
+
+def test_k1_chunks_match_jax(corpora):
+    """Same chunking rules, so chunks match one to one; at this size every
+    chunk fits one pass."""
+    ji = jpf.PrefilterIndex(corpora['random40'])
+    assert [p for p, _ in _check_chunks_match_jax(
+        ji, tpf._K1_PASS_BYTES)] == [1, 1]
+
+
+@pytest.mark.parametrize('pass_bytes', [0, 40 * 1024])
+def test_k1_passes_are_runs_of_whole_chunks(corpora, monkeypatch,
+                                            pass_bytes):
+    """Smaller passes: one chunk each (0), or runs of a few chunks."""
+    monkeypatch.setattr(tpf, '_K1_PASS_BYTES', pass_bytes)
+    ji = jpf.PrefilterIndex(corpora['random40'])
+    passes, chunks = _check_chunks_match_jax(ji, pass_bytes)[0]
+    assert passes == chunks if pass_bytes == 0 else 1 < passes < chunks
 
 
 def test_k1_weight_of_exactly_one_byte_limb_more():
@@ -103,18 +141,84 @@ def test_k1_shared_counts_dispatch(corpora):
 
 
 def test_k1_wrapper_checks():
+    idx = tpf.index_from_numpy(4, [9] * 4, [0, 1, 2], [3], [5])
+    _, (chunk,) = tpf.device_chunks(idx, 'cpu')
     counts = torch.zeros((4, 4), dtype=torch.int32)
-    gids = torch.tensor([0, 1, 2], dtype=torch.int32)
-    offs = torch.tensor([0, 3], dtype=torch.int32)
-    w = torch.tensor([5], dtype=torch.int32)
-    tpf.occupancy_count(counts, gids, offs, w, 1)
+    tpf.occupancy_count(counts, chunk)
     assert counts[0, 1] == 5 and counts[2, 2] == 5 and counts[3, 3] == 0
     with pytest.raises(TypeError):
-        tpf.occupancy_count(counts.long(), gids, offs, w, 1)
+        tpf.occupancy_count(counts.long(), chunk)
     with pytest.raises(ValueError):
-        tpf.occupancy_count(counts, gids, offs, w, 4)
+        tpf.occupancy_count(counts, chunk._replace(n_limbs=4))
     with pytest.raises(ValueError):
-        tpf.occupancy_count(counts.t(), gids, offs, w, 1)
+        tpf.occupancy_count(counts.t(), chunk)
+    with pytest.raises(ValueError):
+        tpf.occupancy_count(torch.zeros((5, 5), dtype=torch.int32), chunk)
+    with pytest.raises(ValueError):
+        tpf.occupancy_count(counts, chunk._replace(kb_limbs=torch.ones(
+            2, dtype=torch.int32)))
+    with pytest.raises(ValueError):
+        tpf.occupancy_count(counts, chunk._replace(parts=(2,)))
+
+
+EDGE_WEIGHTS = [1, 255, 256, 65535, 65536, 2 ** 24 - 1]
+
+
+@settings(max_examples=60, deadline=None)
+@given(st.lists(st.one_of(st.sampled_from(EDGE_WEIGHTS),
+                          st.integers(1, 2 ** 24 - 1)),
+                min_size=1, max_size=700))
+def test_k1_limb_plan_covers_every_weight(weights):
+    """Each k-block's limb count covers the bytes of every weight in it (and
+    is their largest byte count); the limb bytes rebuild each weight."""
+    w = np.sort(np.asarray(weights, np.int64), kind='stable')
+    w = w[np.argsort(tpf._weight_bytes(w), kind='stable')]
+    wbytes, kb_limbs = tpf.k1_limb_plan(w)
+    kb = np.arange(len(w)) // tpf.K1_KBLOCK
+    nbytes = np.array([(int(x).bit_length() + 7) // 8 for x in w])
+    assert len(kb_limbs) == -(-len(w) // tpf.K1_KBLOCK)
+    assert np.all(kb_limbs[kb] >= nbytes)
+    assert np.array_equal(kb_limbs, [nbytes[kb == k].max()
+                                     for k in range(len(kb_limbs))])
+    flat = wbytes.transpose(0, 2, 1).reshape(-1, 3).astype(np.int64)
+    rebuilt = flat[:, 0] + (flat[:, 1] << 8) + (flat[:, 2] << 16)
+    assert np.array_equal(rebuilt[:len(w)], w)
+    assert not rebuilt[len(w):].any()
+    # Within a chunk in weight-byte order, the limb counts only grow.
+    assert np.all(np.diff(kb_limbs) >= 0)
+
+
+@pytest.mark.parametrize('n,nkb,n_sms', [
+    (48, 48, 132), (48, 1, 132), (33, 7, 132), (200, 40, 132),
+    (1536, 19, 132), (1000, 3, 132), (2049, 5, 132), (16384, 31, 132),
+    (300, 64, 8)])
+def test_k1_work_covers_each_upper_tile_and_kblock_once(n, nkb, n_sms):
+    rng = np.random.default_rng(n + nkb)
+    kb_limbs = np.sort(rng.integers(1, 4, nkb)).astype(np.int32)
+    tiles = tpf.k1_tiles(n)
+    work, split = tpf.k1_work(tiles, kb_limbs, n_sms)
+    nt = -(-n // tpf.K1_TILE)
+    cover = np.zeros((nt, nt, nkb), np.int64)
+    for ti, tj, lo, hi in work:
+        assert ti <= tj and lo < hi
+        cover[ti, tj, lo:hi] += 1
+    upper = np.triu(np.ones((nt, nt), bool))
+    assert np.all(cover[upper] == 1) and not cover[~upper].any()
+    assert len(work) == len(tiles) * split
+    # Split-K when the tiles are fewer than the SMs: enough k ranges to
+    # give each SM a CTA, as the k-blocks allow (equal limb products may
+    # merge a few ranges).
+    want = 1 if len(tiles) >= n_sms else min(nkb, -(-n_sms // len(tiles)))
+    assert split <= want and (split == want or split > want // 2)
+    if want == nkb:
+        assert split == nkb    # one k-block a CTA
+    # One tile of many k-blocks split a k-block a CTA is small enough to
+    # build from the COO; CTAs of many k-blocks are not.
+    if len(tiles) == 1 and nkb >= 40:
+        assert tpf.k1_from_coo(work, 50_000)
+        assert not tpf.k1_from_coo(work, tpf._K1_COO_READS + 1)
+    if split == 1 and nkb > tpf._K1_COO_KBLOCKS:
+        assert not tpf.k1_from_coo(work, 1000)
 
 
 def test_batch_store_blocks_match_dense(tmp_path, corpora):

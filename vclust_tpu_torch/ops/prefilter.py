@@ -5,14 +5,20 @@ The host builds kmer-db's pattern-compressed incidence index (reference
 contract vclust.py:915-1055; SURVEY.md section 2.4): per distinct genome
 set ("pattern") of the k-mers shared by >= 2 genomes, its genome ids and
 its multiplicity weight. The device turns it into exact pair counts,
-chunk by chunk, with kernel K1 (csrc/occupancy.cu):
+pass by pass, with kernel K1 (csrc/occupancy.cu):
 
     counts[i, j] += sum_r occ[r, i] * w[r] * occ[r, j]
 
 over a {0,1} (patterns x genomes) occupancy, accumulated in int32. The
 chunking is the JAX package's (`_adapt_chunks`, `_chunk_groups` and the
 rows_chunk cap), so chunks match one to one, and the result equals its
-rint(f32) counts bit for bit.
+rint(f32) counts bit for bit. Consecutive chunks whose occupancy fits at
+once form one pass, one K1 launch, so counts are added once a pass.
+Inside a chunk the patterns are put in the order of their weights' byte
+counts, and the host plans the kernel's work (`device_chunks`): the limb
+count of each k-block, the list of tiles on or above the diagonal, split
+along k when they are fewer than the SMs, and whether the kernel builds
+the occupancy from the COO.
 
 `occupancy_count` is K1's wrapper: CPU tensors take
 `occupancy_count_plain` (the scatter and a float64 product, exact for
@@ -22,6 +28,7 @@ integers below 2^53), CUDA tensors launch the kernel or raise.
 
 import ctypes
 import pathlib
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -33,12 +40,28 @@ from ..utils.device import resolve_device
 # engine/backend is 'auto', as in the JAX package.
 _HOST_MAX_GENOMES = 32
 
+# K1's output tile edge and k-block (patterns), as in csrc/occupancy.cu,
+# and the tile rows of one band of its work order.
+K1_TILE = 128
+K1_KBLOCK = 128
+_K1_BAND = 8
+# SMs of an H100 SXM: the work list made for CPU tensors is an H100's.
+_H100_SMS = 132
+
+# Limits of K1's occupancy build from the COO (`k1_from_coo`).
+_K1_COO_KBLOCKS = 2
+_K1_COO_READS = 1 << 20
+# Occupancy bytes (genomes x patterns rounded up to k-blocks) of one K1
+# pass: consecutive chunks are merged up to this size, so counts are added
+# once a pass, not once a chunk (at 16,384 genomes on an H100, 17 chunks
+# as 17 launches took ~8 ms more than as one pass; PERF.md). Below
+# 2^31, so a pass's entries fit int32 offsets.
+_K1_PASS_BYTES = 3 << 29
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    'k1_count_chunk': [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p,
-                                               ctypes.c_int64, ctypes.c_int,
-                                               ctypes.c_int, ctypes.c_int,
-                                               ctypes.c_void_p,
-                                               ctypes.c_void_p],
+    'k1_count_chunk': [_P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _P, _I,
+                       _P, _P],
 }
 
 
@@ -298,35 +321,74 @@ def occupancy_count_plain(counts, gids, offs, weights, n_limbs=None):
     return counts
 
 
-def occupancy_count(counts, gids, offs, weights, n_limbs: int):
-    """K1 wrapper, one chunk: counts (n, n) int32 += occ^T diag(w) occ for
-    the chunk's patterns r, whose genome ids are gids[offs[r]:offs[r+1]]
-    (ids in [0, n); offs int32 starting at 0); weights int32 below 2^24
-    with at most n_limbs bytes (1..3). CPU tensors take the plain version,
-    CUDA tensors the kernel (or raise). Updates counts in place."""
+class K1Chunk(NamedTuple):
+    """One K1 pass: the COO of a run of consecutive chunks, each chunk's
+    patterns in weight-byte order, and the host's plan for it."""
+    n: int                  # genomes: counts is n x n
+    parts: tuple            # patterns of each chunk in the pass, in order
+    gids: torch.Tensor      # int32 genome ids of the ng patterns
+    offs: torch.Tensor      # int32 (ng + 1) offsets of the patterns in gids
+    weights: torch.Tensor   # int32 (ng) pattern weights, below 2^24
+    wbytes: torch.Tensor    # uint8 (nkb, 3, 128): byte l of each weight
+    kb_limbs: torch.Tensor  # int32 (nkb): limb count of each k-block
+    work: torch.Tensor      # int32 (items, 4): (ti, tj, kb_lo, kb_hi)
+    n_limbs: int            # the largest of kb_limbs
+    split: int              # k ranges a tile (1: no split-K)
+    from_coo: bool          # occupancy built from the COO (`k1_from_coo`)
+
+
+def occupancy_count(counts, chunk: K1Chunk):
+    """K1 wrapper, one pass: counts (n, n) int32 += occ^T diag(w) occ for
+    the pass's patterns r, whose genome ids are gids[offs[r]:offs[r+1]]
+    (ids in [0, n); offs starting at 0). The pass comes from
+    `device_chunks`. CPU tensors take the plain version, one chunk at a
+    time (as the JAX package bounds its memory), CUDA tensors the kernel
+    (or raise). Updates counts in place."""
     dev = counts.device
     cuda.require(counts, 'counts', torch.int32, 2, dev)
-    for name, x in (('gids', gids), ('offs', offs), ('weights', weights)):
-        cuda.require(x, name, torch.int32, 1, dev)
+    for name, dtype, ndim in (('gids', torch.int32, 1),
+                              ('offs', torch.int32, 1),
+                              ('weights', torch.int32, 1),
+                              ('wbytes', torch.uint8, 3),
+                              ('kb_limbs', torch.int32, 1),
+                              ('work', torch.int32, 2)):
+        cuda.require(getattr(chunk, name), name, dtype, ndim, dev)
     n = counts.shape[0]
-    ng = offs.numel() - 1
-    if counts.shape != (n, n):
-        raise ValueError(f'counts must be square, got {tuple(counts.shape)}')
-    if weights.numel() != ng or ng < 1:
+    ng = chunk.offs.numel() - 1
+    nkb = -(-ng // K1_KBLOCK)
+    if counts.shape != (n, n) or n != chunk.n:
+        raise ValueError(f'counts must be {chunk.n} x {chunk.n}, got '
+                         f'{tuple(counts.shape)}')
+    if chunk.weights.numel() != ng or ng < 1:
         raise ValueError('weights must hold one entry per pattern (>= 1)')
-    if not 1 <= n_limbs <= 3:
-        raise ValueError(f'n_limbs must be 1..3, got {n_limbs}')
+    if (chunk.kb_limbs.numel() != nkb
+            or tuple(chunk.wbytes.shape) != (nkb, 3, K1_KBLOCK)
+            or chunk.work.shape[1] != 4 or chunk.work.shape[0] < 1
+            or sum(chunk.parts) != ng):
+        raise ValueError('the chunk plan does not fit its patterns')
+    if not 1 <= chunk.n_limbs <= 3:
+        raise ValueError(f'n_limbs must be 1..3, got {chunk.n_limbs}')
     if dev.type == 'cpu':
-        return occupancy_count_plain(counts, gids, offs, weights)
+        lo = 0
+        for part in chunk.parts:
+            offs = chunk.offs[lo:lo + part + 1]
+            occupancy_count_plain(counts, chunk.gids[offs[0]:offs[-1]],
+                                  offs - offs[0],
+                                  chunk.weights[lo:lo + part])
+            lo += part
+        return counts
     if dev.type != 'cuda':
         raise ValueError(f'unsupported device {dev}')
-    n_pad = -(-n // 64) * 64
-    ld = -(-ng // 32) * 32
-    occ = torch.empty((n_pad, ld), dtype=torch.uint8, device=dev)
+    # Scratch occupancy, n x k bytes, unless the kernel builds it.
+    occ = (None if chunk.from_coo else
+           torch.empty((n, nkb * K1_KBLOCK), dtype=torch.uint8, device=dev))
     lib = cuda.library('occupancy', _SIGNATURES)
-    rc = lib.k1_count_chunk(cuda.ptr(gids), cuda.ptr(offs), cuda.ptr(weights),
-                            ng, cuda.ptr(occ), ld, n, n_pad, n_limbs,
-                            cuda.ptr(counts), cuda.stream(counts))
+    rc = lib.k1_count_chunk(
+        cuda.ptr(chunk.gids), cuda.ptr(chunk.offs), ng, cuda.ptr(chunk.wbytes),
+        cuda.ptr(chunk.kb_limbs), nkb, cuda.ptr(chunk.work),
+        chunk.work.shape[0], int(chunk.split > 1), chunk.n_limbs,
+        int(chunk.from_coo), None if occ is None else cuda.ptr(occ), n,
+        cuda.ptr(counts), cuda.stream(counts))
     cuda.check(lib, rc, 'k1_count_chunk')
     occupancy_count.launches += 1
     return counts
@@ -356,10 +418,82 @@ def _n_limbs(weights: np.ndarray) -> int:
     return max(1, (int(weights.max(initial=1)).bit_length() + 7) // 8)
 
 
+def _weight_bytes(weights) -> np.ndarray:
+    """Byte count (1..3) of each weight below 2^24."""
+    w = np.asarray(weights, np.int64)
+    return (1 + (w > 0xFF) + (w > 0xFFFF)).astype(np.int32)
+
+
+def k1_limb_plan(weights):
+    """K1's limb arrays for one chunk whose patterns are in weight-byte
+    order: wbytes (nkb, 3, 128) uint8, byte l of each pattern's weight by
+    128-pattern k-block (0 past the chunk's end), and kb_limbs (nkb) int32,
+    the largest byte count in each k-block: the limb products it issues."""
+    ng = len(weights)
+    nkb = -(-ng // K1_KBLOCK)
+    w = np.zeros(nkb * K1_KBLOCK, np.int64)
+    w[:ng] = weights
+    nb = np.zeros(nkb * K1_KBLOCK, np.int32)
+    nb[:ng] = _weight_bytes(weights)
+    w = w.reshape(nkb, K1_KBLOCK)
+    wbytes = np.stack([(w >> (8 * l)) & 0xFF for l in range(3)], axis=1)
+    return (wbytes.astype(np.uint8),
+            nb.reshape(nkb, K1_KBLOCK).max(axis=1).astype(np.int32))
+
+
+def k1_tiles(n: int) -> np.ndarray:
+    """K1's output tiles (ti, tj), ti <= tj, of an n x n count: the tiles on
+    or above the diagonal, in bands of _K1_BAND tile rows, column by column
+    within a band, so that the tiles in flight at once share operands."""
+    nt = -(-n // K1_TILE)
+    ti, tj = np.triu_indices(nt)
+    order = np.lexsort((ti, tj, ti // _K1_BAND))
+    return np.stack([ti[order], tj[order]], axis=1)
+
+
+def k1_work(tiles: np.ndarray, kb_limbs: np.ndarray, n_sms: int):
+    """K1's work list: (items, 4) int32 rows (ti, tj, kb_lo, kb_hi), one
+    CTA each, and the split factor. When the tiles are fewer than the SMs,
+    each tile's k-blocks are cut into contiguous ranges of about equal limb
+    products (split-K), enough of them to give every SM a CTA, and the
+    kernel adds with atomics."""
+    nkb = len(kb_limbs)
+    split = (1 if len(tiles) >= n_sms
+             else min(nkb, -(-n_sms // len(tiles))))
+    if split == nkb:
+        bounds = np.arange(nkb + 1)
+    else:
+        cum = np.cumsum(kb_limbs)
+        cuts = np.searchsorted(cum, cum[-1] * np.arange(1, split) / split) + 1
+        bounds = np.unique(np.concatenate([[0], np.clip(cuts, 1, nkb - 1),
+                                           [nkb]]))
+    lo, hi = bounds[:-1], bounds[1:]
+    work = np.column_stack([np.repeat(tiles, len(lo), axis=0),
+                            np.tile(lo, len(tiles)), np.tile(hi, len(tiles))])
+    return work.astype(np.int32), len(lo)
+
+
+def k1_from_coo(work: np.ndarray, nnz: int) -> bool:
+    """Whether K1 builds a chunk's occupancy in shared memory from the COO:
+    when every CTA walks at most _K1_COO_KBLOCKS k-blocks (the build runs
+    a k-block at a time on the producer warpgroup, latency-bound) and the
+    COO, read once per tile, stays small. Else a memset and a scatter
+    build it in device memory for TMA."""
+    n_tiles = len(np.unique(work[:, :2], axis=0))
+    return (int((work[:, 3] - work[:, 2]).max()) <= _K1_COO_KBLOCKS
+            and n_tiles * nnz <= _K1_COO_READS)
+
+
 def device_chunks(index: 'PrefilterIndex', device, rows_chunk: int = 131072,
                   nnz_chunk: int = 524288):
-    """The index's chunks as K1 inputs on `device`, chunked as the JAX
-    package chunks it. Returns (n_limbs, [(gids, offs, weights), ...])."""
+    """The index's chunks as K1 inputs on `device`: chunked as the JAX
+    package chunks it, each chunk's patterns reordered by the byte count of
+    their weight (integer sums do not depend on order), consecutive chunks
+    merged into passes (`_k1_passes`), each pass with K1's plan
+    (`k1_limb_plan`, `k1_work` for this device's SMs; for the CPU, an
+    H100's). Returns (n_limbs, [K1Chunk, ...]), one K1Chunk a pass, n_limbs
+    the index's largest weight byte count."""
+    device = torch.device(device)
     n = index.n
     sg, shared_lens, weights = index.gids, index.lens, index.weights
     rows_chunk = max(1024, min(rows_chunk, (1 << 28) // (4 * (n + 1))))
@@ -370,18 +504,66 @@ def device_chunks(index: 'PrefilterIndex', device, rows_chunk: int = 131072,
         return 1, []
     assert weights.max(initial=0) < (1 << 24), 'pattern weight overflow'
     cum, chunks = _chunk_groups(shared_lens, rows_chunk, nnz_chunk)
-    gids_d = torch.from_numpy(np.ascontiguousarray(sg, np.int32)).to(device)
-    w_d = torch.from_numpy(weights.astype(np.int32)).to(device)
-    offs_all = np.concatenate([cum[g_lo:g_hi + 1] - cum[g_lo]
-                               for g_lo, g_hi in chunks]).astype(np.int32)
-    offs_d = torch.from_numpy(offs_all).to(device)
-    out, o = [], 0
-    for g_lo, g_hi in chunks:
-        ng = g_hi - g_lo
-        out.append((gids_d[int(cum[g_lo]):int(cum[g_hi])],
-                    offs_d[o:o + ng + 1], w_d[g_lo:g_hi]))
-        o += ng + 1
-    return _n_limbs(weights), out
+    # Weight-byte order inside each chunk (chunks are contiguous, in order).
+    sizes = [g_hi - g_lo for g_lo, g_hi in chunks]
+    order = np.lexsort((_weight_bytes(weights),
+                        np.repeat(np.arange(len(chunks)), sizes)))
+    lens = np.asarray(shared_lens, np.int64)[order]
+    weights = np.asarray(weights)[order]
+    starts = np.zeros(len(lens), np.int64)
+    np.cumsum(lens[:-1], out=starts[1:])
+    gather = np.repeat(cum[:-1][order] - starts, lens) + np.arange(cum[-1])
+    sg = np.asarray(sg)[gather]
+    cum = np.append(starts, cum[-1])   # chunk bounds stay where they were
+
+    n_sms = (torch.cuda.get_device_properties(device).multi_processor_count
+             if device.type == 'cuda' else _H100_SMS)
+    tiles = k1_tiles(n)
+    passes = [(p[0][0], p[-1][1], tuple(hi - lo for lo, hi in p))
+              for p in _k1_passes(n, chunks)]
+    plans = []
+    for g_lo, g_hi, _ in passes:
+        wbytes, kb_limbs = k1_limb_plan(weights[g_lo:g_hi])
+        work, split = k1_work(tiles, kb_limbs, n_sms)
+        plans.append((wbytes, kb_limbs, work, split,
+                      k1_from_coo(work, int(cum[g_hi] - cum[g_lo]))))
+
+    def upload(parts, dtype):
+        return torch.from_numpy(np.ascontiguousarray(
+            np.concatenate(parts), dtype)).to(device)
+
+    gids_d = upload([sg], np.int32)
+    w_d = upload([weights], np.int32)
+    offs_d = upload([cum[g_lo:g_hi + 1] - cum[g_lo]
+                     for g_lo, g_hi, _ in passes], np.int32)
+    wb_d = upload([p[0] for p in plans], np.uint8)
+    kbl_d = upload([p[1] for p in plans], np.int32)
+    work_d = upload([p[2] for p in plans], np.int32)
+    out, o, kb, it = [], 0, 0, 0
+    for (g_lo, g_hi, parts), (_, kb_limbs, work, split, from_coo) in zip(
+            passes, plans):
+        ng, nkb = g_hi - g_lo, len(kb_limbs)
+        out.append(K1Chunk(
+            n, parts, gids_d[int(cum[g_lo]):int(cum[g_hi])],
+            offs_d[o:o + ng + 1], w_d[g_lo:g_hi], wb_d[kb:kb + nkb],
+            kbl_d[kb:kb + nkb], work_d[it:it + len(work)],
+            int(kb_limbs.max()), split, from_coo))
+        o, kb, it = o + ng + 1, kb + nkb, it + len(work)
+    return _n_limbs(index.weights), out
+
+
+def _k1_passes(n: int, chunks):
+    """Runs of consecutive chunks whose occupancy (n x their patterns,
+    rounded up to k-blocks) fits _K1_PASS_BYTES together; a chunk that
+    does not fit alone is a pass of its own."""
+    passes = [[chunks[0]]]
+    for lo, hi in chunks[1:]:
+        kb = -(-(hi - passes[-1][0][0]) // K1_KBLOCK)
+        if n * kb * K1_KBLOCK <= _K1_PASS_BYTES:
+            passes[-1].append((lo, hi))
+        else:
+            passes.append([(lo, hi)])
+    return passes
 
 
 def shared_kmer_counts_indexed(index: 'PrefilterIndex',
@@ -401,10 +583,10 @@ def shared_kmer_counts_indexed(index: 'PrefilterIndex',
         return np.zeros((0, 0), dtype=np.int64)
     if engine == 'auto' and n <= _HOST_MAX_GENOMES:
         return _counts_from_index_host(index)
-    n_limbs, chunks = device_chunks(index, dev, rows_chunk, nnz_chunk)
+    _, chunks = device_chunks(index, dev, rows_chunk, nnz_chunk)
     counts = torch.zeros((n, n), dtype=torch.int32, device=dev)
-    for gids, offs, weights in chunks:
-        occupancy_count(counts, gids, offs, weights, n_limbs)
+    for chunk in chunks:
+        occupancy_count(counts, chunk)
     out = counts.cpu().numpy().astype(np.int64)
     np.fill_diagonal(out, index.sizes)
     return out
