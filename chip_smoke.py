@@ -29,13 +29,25 @@ Phases, each printing one JSON line; any failure exits non-zero:
               K1 on the same index == plain and == the full host count
               matrix), align --filter, cluster; then the example corpus, whose
               fltr.txt and clusters.tsv must equal example/output/;
-  6. the `kernels` line: every kernel with its launches on its path, error
+  6. align_v3 - the v3 align pipe (ops/align_gpu.py:_all2all_single_v3)
+              on bench.py's 48-genome corpus (1,128 pairs, buckets 49,152
+              and 65,536) and its contig corpus (128 x 3,500 bases, 8,128
+              pairs, bucket 4,096), K2 and K3 counted from 0 around each
+              run: aggregates and records == the same function with the
+              plain K2 and K3, bit for bit; warm pairs/s, index seconds,
+              peak device memory and a profiler breakdown of one warm run;
+              the max |dtANI| against the native C++ engine (printed, not
+              held); then K2 and K3 alone on one full dispatch at 65,536
+              (== plain, with ms, device_ms, plain_ms, bound; library_ms for
+              K2), and the time of each stage of that dispatch;
+  7. the `kernels` line: every kernel with its launches on its path, error
      against its plain version, times and bound.
 The card's name and power limit (nvidia-smi) precede the last line, which
 is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 import argparse
+import contextlib
 import json
 import os
 import pathlib
@@ -53,6 +65,10 @@ REPO = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 INT8_TENSOR_OPS_PER_S = 1979e12
 INT32_SIMT_OPS_PER_S = 33.5e12
+# Issue slots of the int32 pipe: 64 lanes per SM x 132 SMs x 1.98 GHz, one
+# instruction per lane and clock (a population count takes 4 slots: 16 per
+# SM and clock).
+INT32_SLOTS_PER_S = INT32_SIMT_OPS_PER_S / 2
 
 
 def emit(obj) -> None:
@@ -619,6 +635,356 @@ def phase_main(torch, dev, work: pathlib.Path):
     return launches, k1_main
 
 
+# --------------------------------------------------------------------------
+# Phase 6: the v3 align pipe, K2 and K3
+# --------------------------------------------------------------------------
+
+def contig_corpus(n: int = 128, length: int = 3500, families: int = 16):
+    """bench.py:94-109: `families` random base contigs, each with variants
+    at 2-10% substitutions (128 contigs of 3,500 bases)."""
+    import numpy as np
+    from vclust_tpu_torch.models.input import Genome
+    rng = np.random.default_rng(3)
+    acgt = np.frombuffer(b'ACGT', dtype='S1')
+    bases = [acgt[rng.integers(0, 4, length)] for _ in range(families)]
+    corpus = []
+    for i in range(n):
+        s = bases[i % families].copy()
+        mask = rng.random(length) < rng.uniform(0.02, 0.10)
+        s[mask] = acgt[rng.integers(0, 4, mask.sum())]
+        corpus.append(Genome(name=f'c{i}', seqs=[s.tobytes()]))
+    return corpus
+
+
+def align_inputs(corpus):
+    """Codes in ids order and all pairs (i < j), as bench.py's
+    bench_align_tpu builds them."""
+    import numpy as np
+    from vclust_tpu_torch.models.align import _genome_codes, order_objects
+    codes = [_genome_codes(corpus[i]) for i in order_objects(corpus)]
+    n = len(codes)
+    pairs = np.array([(i, j) for i in range(n) for j in range(i + 1, n)],
+                     dtype=np.int32)
+    return codes, pairs
+
+
+@contextlib.contextmanager
+def plain_k2_k3(ag):
+    """Inside: the pipe calls the plain K2 and K3 (same tensors, same
+    device) instead of the kernels."""
+    saved = ag.stage1_pack, ag.band_counts
+    ag.stage1_pack, ag.band_counts = ag.stage1_pack_plain, \
+        ag.band_counts_plain
+    try:
+        yield
+    finally:
+        ag.stage1_pack, ag.band_counts = saved
+
+
+def profile_breakdown(torch, fn, top: int = 10) -> dict:
+    """One call of `fn` under torch.profiler (device activity only): its
+    wall time, the device time of its kernels and memory operations, their
+    share of the wall time (the device's busy share) and the largest
+    entries by device time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ka = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    dev_us = sum(e.self_device_time_total for e in ka)
+    ka.sort(key=lambda e: -e.self_device_time_total)
+    return dict(wall_ms=wall * 1e3, device_ms=dev_us / 1e3,
+                busy_share=dev_us / 1e6 / wall if wall else None,
+                top=[[e.key[:60], e.self_device_time_total / 1e3, e.count]
+                     for e in ka[:top]])
+
+
+def align_v3_corpus(torch, dev, name, corpus, ag, reps: int = 3):
+    import numpy as np
+    codes, pairs = align_inputs(corpus)
+    lens = [len(c) for c in codes]
+    members = {}
+    for i, j in pairs.tolist():
+        kb = max(ag._pad_bucket(lens[i]), ag._pad_bucket(lens[j]))
+        members.setdefault(kb, set()).update((i, j))
+    t0 = time.perf_counter()
+    idx = ag.GenomeIndex(codes, device=dev)
+    for kb, gids in sorted(members.items()):
+        idx.ensure_v3(kb, gids)
+    torch.cuda.synchronize()
+    index_s = time.perf_counter() - t0
+
+    # The path, counted from 0.
+    torch.cuda.reset_peak_memory_stats()
+    ag.stage1_pack.launches = 0
+    ag.band_counts.launches = 0
+    t0 = time.perf_counter()
+    got = ag._all2all_single_v3(codes, pairs, index=idx,
+                                keep_alignments=True)
+    first_s = time.perf_counter() - t0
+    launches = {'stage1_pack': ag.stage1_pack.launches,
+                'band_counts': ag.band_counts.launches}
+    peak = torch.cuda.max_memory_allocated()
+    if min(launches.values()) < 1:
+        fail(f'align_v3 {name}: K2 or K3 did not launch ({launches})')
+
+    # The same function with the plain K2 and K3.
+    with plain_k2_k3(ag):
+        want = ag._all2all_single_v3(codes, pairs, index=idx,
+                                     keep_alignments=True)
+    for what, a, b in (('aggregates', got[0], want[0]),
+                       ('record counts', got[1][1], want[1][1]),
+                       ('records', got[1][0], want[1][0])):
+        if a.shape != b.shape or not np.array_equal(a, b):
+            fail(f'align_v3 {name}: {what}, kernels != plain')
+    out = got[0]
+    if out.shape != (len(pairs), 6) or (out < 0).any():
+        fail(f'align_v3 {name}: malformed aggregates')
+
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        agg = ag._all2all_single_v3(codes, pairs, index=idx)
+        walls.append(time.perf_counter() - t0)
+    if not np.array_equal(agg, out):
+        fail(f'align_v3 {name}: aggregates differ between runs')
+    prof = profile_breakdown(
+        torch, lambda: ag._all2all_single_v3(codes, pairs, index=idx))
+    return dict(phase='align_v3', corpus=name, genomes=len(codes),
+                pairs=int(len(pairs)), buckets=sorted(members),
+                index_s=index_s, first_run_s=first_s, warm_s=walls,
+                pairs_per_s=len(pairs) / min(walls), path_launches=launches,
+                peak_mem_gib=peak / 2 ** 30,
+                aligned_pairs=int((out[:, 0] + out[:, 3] > 0).sum()),
+                records=int(len(got[1][0])), kernels_eq_plain=True,
+                profile=prof), codes, pairs, idx, out
+
+
+def native_dtani(codes, pairs, out) -> dict:
+    """|tANI(v3) - tANI(native C++ engine)| over the pairs: its max, the
+    pair where it is largest, and the pairs above 0.01."""
+    import numpy as np
+    from vclust_tpu_torch.ops import lz_native
+    from vclust_tpu_torch.ops.lz_parse_py import AlignParams
+    agg, _ = lz_native.all2all_native(codes, pairs, AlignParams(),
+                                      n_threads=os.cpu_count() or 1)
+    lens = np.array([len(c) for c in codes], np.float64)
+    den = lens[pairs[:, 0]] + lens[pairs[:, 1]]
+    t_v3 = (out[:, 1] + out[:, 4]) / den
+    t_nat = (agg[:, 1] + agg[:, 4]) / den
+    d = np.abs(t_v3 - t_nat)
+    k = int(d.argmax())
+    return dict(max_abs_dtani_vs_native=float(d[k]),
+                worst_pair=[int(pairs[k, 0]), int(pairs[k, 1])],
+                worst_tani_v3_native=[float(t_v3[k]), float(t_nat[k])],
+                pairs_dtani_over_0_01=int((d > 0.01).sum()))
+
+
+def cpu_reference_check(dev, ag, codes, pairs, out, n: int = 8) -> dict:
+    """The pipe on the card against the same pipe on the CPU (plain K2 and
+    K3; equal to the JAX package's by tests/test_torch_align_v3.py) for the
+    pairs among the first `n` genomes, aggregates and records; the card's
+    aggregates there also equal the full run's."""
+    import numpy as np
+    keep = (pairs[:, 0] < n) & (pairs[:, 1] < n)
+    sub = pairs[keep]
+    gpu = ag._all2all_single_v3(codes[:n], sub, device=dev,
+                                keep_alignments=True)
+    cpu = ag._all2all_single_v3(codes[:n], sub, device='cpu',
+                                keep_alignments=True)
+    if not (np.array_equal(gpu[0], cpu[0]) and np.array_equal(gpu[0],
+                                                              out[keep])
+            and np.array_equal(gpu[1][1], cpu[1][1])
+            and np.array_equal(gpu[1][0], cpu[1][0])):
+        fail(f'align_v3: the card != the CPU on {len(sub)} pairs')
+    return dict(cpu_eq_pairs=int(len(sub)), cpu_eq_records=int(
+        len(cpu[1][0])))
+
+
+def align_v3_dispatch(torch, dev, ag, idx, codes, seed: int, kb=65536):
+    """K2 and K3 alone on one full dispatch at bucket `kb` (B rows of
+    K = 8 queries from the path's arena), each against its plain version;
+    then the time of each stage of that dispatch."""
+    import numpy as np
+    b = idx.bucket[(kb, 'v3')]
+    g3 = ag._v3_geom(kb, kb)
+    K = ag.K_QUERIES
+    B = ag._dispatch_rows(kb, K, dev, False)
+    rng = np.random.default_rng(seed)
+    long_ = [g for g in b['rows'] if ag._pad_bucket(len(codes[g])) == kb]
+    refs = [long_[w % len(long_)] for w in range(B)]
+    r_rows = torch.tensor([b['rows'][g] for g in refs], dtype=torch.int32,
+                          device=dev)
+    rlens = torch.tensor([len(codes[g]) for g in refs], dtype=torch.int32,
+                         device=dev)
+    q_rows = torch.from_numpy(rng.integers(
+        0, len(b['rows']), (B, K)).astype(np.int32)).to(dev)
+    s1 = (b['qocc'], b['rocc'], r_rows, q_rows)
+    tasks = B * K
+    M2, H = b['qocc'].shape[1:]
+    NRB = b['rocc'].shape[1]
+
+    # K2
+    got = ag.stage1_pack(*s1)
+    want = ag.stage1_pack_plain(*s1)
+    torch.cuda.synchronize()
+    k2_err = max(int((g - w).abs().max()) for g, w in zip(got, want))
+    if k2_err:
+        fail(f'K2 != plain at bucket {kb} (max abs err {k2_err})')
+    cnt1, g1, cnt2, g2 = ag._stage1_v3(*s1)
+    with plain_k2_k3(ag):
+        if not all(torch.equal(x, y) for x, y in zip(
+                (cnt1, g1, cnt2, g2), ag._stage1_v3(*s1))):
+            fail('K2: cnt1, g1, cnt2, g2 != plain')
+    k2_ms = time_ms(lambda: ag.stage1_pack(*s1), 5)
+    k2_dev = device_ms(lambda: ag.stage1_pack(*s1), 5)
+    k2_plain = time_ms(lambda: ag.stage1_pack_plain(*s1), 1)
+    ops = 2.0 * tasks * M2 * NRB * H
+    # The arena rows the dispatch reads, each once, and the three outputs.
+    nbytes = (len(torch.unique(q_rows)) * M2 * H
+              + len(torch.unique(r_rows)) * NRB * H
+              + 3 * tasks * (M2 // 2) * 4)
+    t_ops = ops / INT8_TENSOR_OPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    k2 = dict(name='stage1_pack', route='cuda',
+              source='vclust_tpu_torch/csrc/align_v3.cu',
+              replaces='vclust_tpu/ops/align_tpu.py:1108',
+              max_abs_err=k2_err, ms=k2_ms, device_ms=k2_dev,
+              plain_ms=k2_plain, bound_ms=max(t_ops, t_bytes),
+              bound_by='operations' if t_ops >= t_bytes else 'bytes',
+              library_ms=k2_library_ms(torch, *s1),
+              at=f'bucket {kb}: B={B} rows x K={K}, 2*NQB={M2}, NRB={NRB}, '
+                 f'H={H}', int8_ops=ops)
+
+    # K3, on the windows stage 2 builds for this dispatch.
+    win, _ = ag._band_windows(b, r_rows, rlens, g1, g2, g3)
+    wins = win.view(len(ag.BAND_TAGS), -1, g3['WIN'])
+    qb = b['fwd'][q_rows.long()].view(-1, ag.FINE)
+    got = ag.band_counts(wins, qb)
+    want = ag.band_counts_plain(wins, qb)
+    torch.cuda.synchronize()
+    k3_err = max(int((got[0].int() - want[0].int()).abs().max()),
+                 int((got[1] - want[1]).abs().max()))
+    if k3_err:
+        fail(f'K3 != plain at bucket {kb} (max abs err {k3_err})')
+    k3_ms = time_ms(lambda: ag.band_counts(wins, qb), 5)
+    k3_dev = device_ms(lambda: ag.band_counts(wins, qb), 5)
+    k3_plain = time_ms(lambda: ag.band_counts_plain(wins, qb), 1)
+    n = qb.shape[0]
+    band = g3['BAND']
+    # The cheapest sequence: bases as bit planes (low bit, high bit,
+    # valid), 32 a word, so one word a fine block, band and shift: 3
+    # funnel shifts align the window's planes, 3 LOP3 give the valid
+    # matches, a population count (4 slots) and 3 for the packed election
+    # max; 13 int32 slots. The windows and query bases read once, counts
+    # and election written.
+    ops = 13.0 * len(ag.BAND_TAGS) * n * band
+    nbytes = wins.numel() + qb.numel() + len(ag.BAND_TAGS) * n * band + 4 * n
+    t_ops = ops / INT32_SLOTS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    k3 = dict(name='band_counts', route='cuda',
+              source='vclust_tpu_torch/csrc/align_v3.cu',
+              replaces='vclust_tpu/ops/align_tpu.py:1175',
+              max_abs_err=k3_err, ms=k3_ms, device_ms=k3_dev,
+              plain_ms=k3_plain, bound_ms=max(t_ops, t_bytes),
+              bound_by='operations' if t_ops >= t_bytes else 'bytes',
+              library_ms=None,
+              at=f'bucket {kb}: {n} fine blocks x 4 bands x {band} shifts',
+              int32_slots=ops)
+    del win, wins, got, want
+
+    # Each stage of the dispatch (kernels on), and the back half (K4's
+    # torch ops) alone, with its bytes bound: the two flag arrays read once.
+    p = ag.AlignParams()
+    kw = dict(mqd=p.mqd, mrd=p.mrd, reg=p.reg)
+    tb, sm = ag.V3_TBAND, ag.V3_SMIN
+    el = ag._bands_v3(b, r_rows, rlens, q_rows, cnt1, g1, cnt2, g2, tb, sm,
+                      g3)
+    m1, m0, sw, A, S, D, Ap, Sp, Dp = ag._propagate_v3(el, g3)
+    N = tasks
+    flat = [x.reshape((N,) + x.shape[2:]) for x in (m1, m0, sw, A, S, D, Ap,
+                                                    Sp, Dp)]
+    rl = rlens[:, None].expand(B, K).reshape(N)
+
+    def back(with_alns=False):
+        return ag._blocks_to_measures(*flat, rl, Lq=kb, with_alns=with_alns,
+                                      **kw)
+
+    stages = dict(
+        stage1_ms=time_ms(lambda: ag._stage1_v3(*s1), 3),
+        bands_ms=time_ms(lambda: ag._bands_v3(
+            b, r_rows, rlens, q_rows, cnt1, g1, cnt2, g2, tb, sm, g3), 3),
+        propagate_ms=time_ms(lambda: ag._propagate_v3(el, g3), 3),
+        back_half_ms=time_ms(back, 3),
+        back_half_records_ms=time_ms(lambda: back(True), 3),
+        row_core_ms=time_ms(lambda: ag._row_core_v3(
+            b, r_rows, rlens, q_rows, tb, sm, Lq=kb, Lr=kb, K=K, **kw), 3))
+    k4 = dict(name='_blocks_to_measures', route='torch ops',
+              ms=stages['back_half_ms'],
+              bound_ms=2.0 * N * kb / HBM_BYTES_PER_S * 1e3,
+              bound_by='bytes')
+    emit(dict(phase='align_v3_dispatch', bucket=kb, rows=B, K=K,
+              k2=k2, k3=k3, k4=k4, stages=stages))
+    return k2, k3
+
+
+def k2_library_ms(torch, qocc, rocc, r_rows, q_rows) -> float:
+    """Yardstick only, never called by the port: bf16 torch.matmul over
+    the same chunks of 512 reference blocks plus torch packed maxes, with
+    the reduced-precision bf16 reduction off (counts <= 64 are exact in
+    bf16). Operand building is not timed."""
+    qf = qocc[q_rows.long()].to(torch.bfloat16)
+    NRB = rocc.shape[1]
+    chunks = [(lo, rocc[r_rows.long(), lo:lo + 512].to(
+        torch.bfloat16).transpose(1, 2)[:, None].contiguous())
+        for lo in range(0, NRB, 512)]
+
+    def run():
+        outs = None
+        for lo, rf in chunks:
+            Mc = torch.matmul(qf, rf).to(torch.int32)
+            Ma, Mb = Mc[:, :, 0::2], Mc[:, :, 1::2]
+            rr = torch.arange(lo, lo + Mc.shape[-1], dtype=torch.int32,
+                              device=Mc.device)
+            part = [(((Ma + Mb) << 13) | rr).amax(-1),
+                    ((Ma << 13) | rr).amax(-1), ((Mb << 13) | rr).amax(-1)]
+            outs = part if outs is None else [
+                torch.maximum(x, y) for x, y in zip(outs, part)]
+        return outs
+
+    prev = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        return time_ms(run, 3)
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            prev
+
+
+def phase_align_v3(torch, dev, seed: int):
+    from vclust_tpu_torch.ops import align_gpu as ag
+    res48, codes, pairs, idx, out = align_v3_corpus(
+        torch, dev, 'genomes48', mutant_corpus(), ag)
+    res48.update(cpu_reference_check(dev, ag, codes, pairs, out))
+    res48.update(native_dtani(codes, pairs, out))
+    emit(res48)
+    k2, k3 = align_v3_dispatch(torch, dev, ag, idx, codes, seed)
+    del idx
+    res_c = align_v3_corpus(torch, dev, 'contigs128', contig_corpus(), ag)[0]
+    emit(res_c)
+    for row in (k2, k3):
+        key = row['name']
+        row['launches'] = res48['path_launches'][key] + \
+            res_c['path_launches'][key]
+        row['launches_by_corpus'] = {
+            'genomes48': res48['path_launches'][key],
+            'contigs128': res_c['path_launches'][key]}
+    return k2, k3
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--seed', type=int, default=0)
@@ -663,7 +1029,9 @@ def main():
             'device_ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms',
             'limb_products', 'limb_products_without_classes', 'split')})
     kx_row['at'] = 'the kx phase jobs'
-    emit({'kernels': [kx_row, k1_row], 'seconds': time.perf_counter() - t0})
+    k2_row, k3_row = phase_align_v3(torch, dev, args.seed)
+    emit({'kernels': [kx_row, k1_row, k2_row, k3_row],
+          'seconds': time.perf_counter() - t0})
     smi = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True, check=True)

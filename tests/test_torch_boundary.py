@@ -88,7 +88,7 @@ def _entry_points():
     from vclust_tpu_torch.models.cluster import ClusterParams, run_cluster
     from vclust_tpu_torch.models.input import load_genomes
     from vclust_tpu_torch.models.prefilter import run_prefilter
-    from vclust_tpu_torch.ops import cc, extend, prefilter
+    from vclust_tpu_torch.ops import align_gpu, cc, extend, prefilter
     gold = FASTA_FILE.parent / 'output'
     return {
         'shared_kmer_counts': lambda: prefilter.shared_kmer_counts(_sets()),
@@ -101,6 +101,8 @@ def _entry_points():
             np.zeros(1, np.int32), np.zeros(1, np.int32), 10, 10),
         'connected_components': lambda: cc.connected_components_device(
             3, np.array([[0, 1]])),
+        'all2all_v3': lambda: align_gpu._all2all_single_v3(
+            [np.zeros(100, np.int8)] * 2, np.array([[0, 1]])),
         'run_prefilter': lambda: run_prefilter(
             load_genomes(FASTA_FILE)[0]),
         'run_cluster': lambda: run_cluster(
@@ -112,7 +114,8 @@ def _entry_points():
 @pytest.mark.parametrize('name', ['shared_kmer_counts',
                                   'shared_kmer_counts_indexed',
                                   'batched_extend', 'connected_components',
-                                  'run_prefilter', 'run_cluster'])
+                                  'all2all_v3', 'run_prefilter',
+                                  'run_cluster'])
 def test_entry_point_without_device_raises(monkeypatch, name):
     _no_cuda(monkeypatch)
     with pytest.raises(RuntimeError, match='CUDA is not available'):
@@ -152,3 +155,4 @@ def test_build_dir_is_ignored():
     assert 'vclust_tpu_torch/_build/' in ignored
     assert pathlib.Path(PKG / 'csrc' / 'occupancy.cu').exists()
     assert pathlib.Path(PKG / 'csrc' / 'extend.cu').exists()
+    assert pathlib.Path(PKG / 'csrc' / 'align_v3.cu').exists()

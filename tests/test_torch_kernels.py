@@ -17,6 +17,7 @@ import torch
 
 sys.path.insert(0, '.')
 
+from vclust_tpu_torch.ops import align_gpu as tav  # noqa: E402
 from vclust_tpu_torch.ops import extend as tx      # noqa: E402
 from vclust_tpu_torch.ops import prefilter as tpf  # noqa: E402
 
@@ -132,6 +133,87 @@ def test_kx_kernel_matches_plain(cuda_device):
         assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
+def _stage1_inputs(seed, K, M2, NRB, H, rows=3, zero=False, ties=False):
+    """Random {0,1} arenas for K2: (qocc, rocc, r_rows, q_rows). zero:
+    all-zero rows in both arenas; ties: reference rows repeated, so counts
+    tie between reference blocks (the larger block must win)."""
+    rng = np.random.default_rng(seed)
+    G = 5
+    qocc = (rng.random((G, M2, H)) < 0.04).astype(np.int8)
+    rocc = (rng.random((G, NRB, H)) < 0.02).astype(np.int8)
+    # Rows of shared buckets, so the maxima are not all noise.
+    qocc[:, :, :64] |= (rng.random((G, M2, 1)) < 0.5).astype(np.int8)
+    rocc[:, :, :64] |= (rng.random((G, NRB, 1)) < 0.5).astype(np.int8)
+    if zero:
+        qocc[1] = 0
+        rocc[:, ::3] = 0
+    if ties:
+        rocc[:, 1::2] = rocc[:, 0:-1:2][:, :NRB // 2]
+    r_rows = rng.integers(0, G, rows).astype(np.int32)
+    q_rows = rng.integers(0, G, (rows, K)).astype(np.int32)
+    if zero:
+        q_rows[0, 0] = 1
+    return [torch.from_numpy(a) for a in (qocc, rocc, r_rows, q_rows)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('K,M2,NRB,H,case', [
+    (8, 64, 128, 2048, None), (1, 1024, 2048, 2048, None),
+    # NRB not a multiple of 512 or of the 128-block tile; 2*NQB not of 64
+    (8, 80, 700, 2048, None), (1, 96, 200, 256, None),
+    (8, 64, 600, 1024, 'zero'), (1, 128, 520, 2048, 'zero'),
+    (8, 192, 512, 2048, 'ties'), (1, 64, 300, 512, 'ties')])
+def test_k2_kernel_matches_plain(cuda_device, K, M2, NRB, H, case):
+    args = [a.to(cuda_device) for a in _stage1_inputs(
+        K * NRB + M2, K, M2, NRB, H, zero=case == 'zero',
+        ties=case == 'ties')]
+    before = tav.stage1_pack.launches
+    got = tav.stage1_pack(*args)
+    want = tav.stage1_pack_plain(*args)
+    torch.cuda.synchronize()
+    assert tav.stage1_pack.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    if case == 'ties':
+        assert ((got[0] & 8191) % 2 == 1).float().mean() > 0.9
+
+
+def _band_inputs(seed, n, win, ties=False):
+    """K3 inputs: windows of four bands over codes 0-4 (N runs in both),
+    and query blocks copied from the windows at random shifts. ties: the
+    four bands hold the same window, of period 4, so counts tie across
+    bands and shifts."""
+    rng = np.random.default_rng(seed)
+    wins = rng.integers(0, 4, (4, n, win)).astype(np.int8)
+    wins[:, :, 40:47] = 4
+    if ties:
+        wins[:] = np.tile(rng.integers(0, 4, (1, n, 4)), (1, 1, win // 4))
+    shift = rng.integers(0, win - 32, n)
+    qb = wins[rng.integers(0, 4, (n, 1)), np.arange(n)[:, None],
+              shift[:, None] + np.arange(32)]
+    sub = rng.random(qb.shape) < 0.15
+    qb[sub] = rng.integers(0, 5, sub.sum())
+    qb[::7, 3:9] = 4
+    return torch.from_numpy(np.ascontiguousarray(wins)), torch.from_numpy(
+        np.ascontiguousarray(qb))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('n,win,ties', [(5000, 256, False), (777, 128, False),
+                                        (300, 544, False), (1000, 256, True)])
+def test_k3_kernel_matches_plain(cuda_device, n, win, ties):
+    wins, qb = (a.to(cuda_device) for a in _band_inputs(n + win, n, win,
+                                                          ties))
+    before = tav.band_counts.launches
+    cnt, bb = tav.band_counts(wins, qb)
+    want_cnt, want_bb = tav.band_counts_plain(wins, qb)
+    torch.cuda.synchronize()
+    assert tav.band_counts.launches == before + 1
+    assert torch.equal(cnt, want_cnt) and torch.equal(bb, want_bb)
+    if ties:
+        assert ((bb & 3072) == 3072).all()
+
+
 @pytest.mark.gpu
 def test_kernel_launches_counted(cuda_device):
     q, ref = _seqs()
@@ -157,3 +239,17 @@ def test_cpu_tensors_take_the_plain_version():
                       np.zeros(3, np.int32), np.zeros(3, np.int32), len(q),
                       len(ref), device='cpu')
     assert tx.extend.launches == before
+
+
+def test_cpu_tensors_take_the_plain_k2_and_k3():
+    """K2 and K3 wrappers answer CPU tensors with their plain versions,
+    without a launch."""
+    before = (tav.stage1_pack.launches, tav.band_counts.launches)
+    args = _stage1_inputs(3, 4, 80, 300, 256, ties=True)
+    for g, w in zip(tav.stage1_pack(*args), tav.stage1_pack_plain(*args)):
+        assert torch.equal(g, w)
+    wins, qb = _band_inputs(4, 200, 256)
+    for g, w in zip(tav.band_counts(wins, qb),
+                    tav.band_counts_plain(wins, qb)):
+        assert torch.equal(g, w)
+    assert (tav.stage1_pack.launches, tav.band_counts.launches) == before

@@ -1,0 +1,1053 @@
+"""Batched device aligner, v3 pipe: the port of the JAX package's ops/align_tpu.py.
+
+The `engine='tpu'` align path of the JAX package runs two front ends that
+share one back half; this module ports the default one, v3, as the JAX
+package's `_all2all_single(..., pipe='v3')` computes it, bit for bit:
+
+1. **Index** (`GenomeIndex.ensure_v3`, `_index_block_v3`): per genome and
+   length bucket, {0,1} occupancies of hashed canonical 8-mers over query
+   half-blocks of V3_WQ/2 bases (`qocc`) and reference blocks of 32
+   (`rocc`), and wide window rows of both strands (`roww_f`, `roww_r`).
+2. **Stage 1** (`_stage1_v3`, kernel K2 in csrc/align_v3.cu): the product
+   qocc . rocc^T with a packed max over reference blocks for the half-sum
+   and each half, then the dissenting-half rule: two candidate reference
+   blocks per query block.
+3. **Stages 2-4** (`_bands_v3`, kernel K3): around each candidate, on both
+   strands, the match counts of every fine block of 32 query bases at
+   BAND diagonal shifts, and the election of the best (count, candidate,
+   strand, shift) per fine block.
+4. **Stages 5-6** (`_propagate_v3`, torch ops): neighbour propagation read
+   from the band counts, then the final match flags from the windows.
+5. **Back half** (`_blocks_to_measures`, torch ops; its kernel K4 is still
+   to come): single-switch refinement, breaks, anchored-match chaining,
+   segmentation, aggregates and, with_alns, the per-segment records.
+
+A dispatch is R rows of one reference and K queries each (the JAX
+package's vmap over rows is the leading dimension here). Its TPU-only
+mechanisms are kept in semantics only: the hierarchical cummax is
+`torch.cummax`, the where-tree slices are gathers, and the dispatch size
+comes from a bound on live device bytes (`_dispatch_rows`).
+
+`stage1_pack` (K2) and `band_counts` (K3) are the kernel wrappers: CPU
+tensors take `stage1_pack_plain` / `band_counts_plain`, CUDA tensors
+launch the kernel or raise. Each wrapper's `launches` counts its kernel
+launches. Entry point: `_all2all_single_v3`, on `cuda` unless the caller
+asks for the CPU (utils/device.py).
+"""
+
+import os
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from . import cuda
+from .lz_parse_py import AlignParams
+from ..core.seq import revcomp_codes
+from ..utils.device import resolve_device
+from ..utils.logging import get_logger
+
+
+def _env_num(name, default, lo, hi, cast=int):
+    """Tuning-knob parser with validation: malformed or out-of-range
+    values raise a clear error at import (the JAX package's names and
+    ranges, so a user's settings carry over)."""
+    raw = os.environ.get(name)
+    if raw is None:
+        return default
+    try:
+        v = cast(raw)
+    except ValueError:
+        raise ValueError(f'{name}={raw!r} is not a valid {cast.__name__}')
+    if not (lo <= v <= hi):
+        raise ValueError(f'{name}={v} out of range [{lo}, {hi}]')
+    return v
+
+
+SEED_K = _env_num('VCLUST_ALIGN_SEEDK', 8, 4, 8)
+K_QUERIES = 8       # queries sharing one reference per dispatch row
+FINE = 32           # fine block width (rearrangement-boundary resolution)
+EXT_ITERS = _env_num('VCLUST_ALIGN_EXTI', 3, 0, 16)
+#                     neighbor-diagonal propagation passes
+EXT_MIN = _env_num('VCLUST_ALIGN_EXTMIN', 17, 1, 32)
+#                     matches (of FINE) a propagated diagonal must reach
+EXT_MARGIN = _env_num('VCLUST_ALIGN_EXTMARGIN', 4, 0, 32)
+#                     propagated diagonal must beat an elected one by this
+MSL = 7             # consecutive matches forming a seed run (chains)
+MAL = 11            # consecutive matches able to OPEN a region
+AW = 39             # max distance from a seed run for a match to chain
+AW_WIN = 15         # approximate-extension window length (density rule)
+AM = 7              # max mismatches tolerated inside the window
+
+BIG = 2 ** 30
+
+# Longest genome the device engine indexes (the JAX package's bound, from
+# its v2 seed pack); pairs touching a longer genome raise.
+MAX_TPU_LEN = 1 << 20
+
+_BUCKETS = sorted({4096 << i for i in range(8)}
+                  | {6144 << i for i in range(8)})
+
+V3_H = _env_num('VCLUST_ALIGN_V3_H', 2048, 256, 16384)
+#                    hashed canonical-seed buckets of the occupancies
+V3_WQ = _env_num('VCLUST_ALIGN_V3_WQ', 128, 64, 512)
+#                    stage-1 query block width (multiple of 32)
+V3_SMIN = _env_num('VCLUST_ALIGN_V3_SMIN', 5, 1, 512)
+#                    stage-1 shared-seed count a coarse candidate needs
+V3_TBAND = _env_num('VCLUST_ALIGN_V3_TBAND', 17, 1, 32)
+#                    base matches (of FINE) the band winner needs to elect
+V3_MAX_BUCKET = _env_num('VCLUST_ALIGN_V3_MAXB', 131072, 4096, 1 << 20)
+#                    largest bucket of the v3 pipe (the JAX package sends
+#                    larger ones to its v2 pipe, not yet ported)
+V3_CONT = _env_num('VCLUST_ALIGN_V3_CONT', 6, 0, 32)
+#                    continuity slack of neighbour adoption
+MAX_ARENA = _env_num('VCLUST_ALIGN_MAX_ARENA', 0, 0, 1 << 30)
+#                    bound on genomes resident per bucket arena (0 = none);
+#                    larger groups split over disposable sub-arenas
+
+# The packed maxes: stage 1 packs (count << 13) | reference block, the
+# band election (count << 12) | 2048 (candidate 1) | 1024 (forward) | shift.
+_RB_BITS = 13
+_T_BITS = 9
+# Election tags of the four bands, in the order of `_bands_v3`: candidate
+# 1 forward, candidate 1 reverse, candidate 2 forward, candidate 2 reverse.
+BAND_TAGS = (3072, 2048, 1024, 0)
+_BAND_IS_RC = (False, True, False, True)
+
+# Live device bytes one dispatch may hold (`_dispatch_rows`). On an H100
+# the 48-genome corpus aligns 2.26x the pairs/s of 0.5 GiB at 2 GiB, and
+# 8 GiB adds 19% more (tools/v3_dispatch_probe.py).
+_LIVE_BYTES = 2 << 30
+# Bytes a query position of a row holds live in stages 5-6 and the back
+# half, without and with records (the int64 sort of the keys): the peak
+# of one dispatch at bucket 65,536 less the bands' windows and counts is
+# 91.6 and 143.8 bytes a position on an H100 (tools/v3_dispatch_probe.py).
+_BYTES_PER_POS = 92
+_BYTES_PER_POS_RECORDS = 144
+
+
+def _pad_bucket(n: int) -> int:
+    for b in _BUCKETS:
+        if n <= b:
+            return b
+    return -(-n // 131072) * 131072
+
+
+def _v3_geom(Lq, Lr):
+    """Shapes of the v3 pipe at buckets (Lq, Lr). Raises ValueError where
+    the packed maxes would truncate: BAND above 512 shifts (V3_WQ > 416;
+    the election keeps 9 bits of shift) or more than 2^13 reference blocks
+    (the stage-1 pack keeps 13 bits of block)."""
+    WQ = V3_WQ
+    if WQ > 416:
+        raise ValueError(
+            f'VCLUST_ALIGN_V3_WQ={WQ}: the band election packs the shift in '
+            f'9 bits, so V3_WQ + 96 shifts must stay <= 512 (V3_WQ <= 416)')
+    if WQ % FINE or Lq % WQ:
+        raise ValueError(f'VCLUST_ALIGN_V3_WQ={WQ} must be a multiple of '
+                         f'{FINE} that divides the bucket ({Lq})')
+    if Lr // FINE > 1 << _RB_BITS:
+        raise ValueError(
+            f'bucket {Lr} has {Lr // FINE} reference blocks: stage 1 packs '
+            f'the block in 13 bits (<= {(1 << _RB_BITS) * FINE} bases); '
+            f'lower VCLUST_ALIGN_V3_MAXB')
+    BAND = WQ + 96          # diagonal shifts evaluated per fine block
+    WIN = BAND + FINE       # per-fine-block window width
+    ROWW = -(-(WQ - 16 + WIN) // 32) * 32   # wide window row width
+    return dict(WQ=WQ, BAND=BAND, WIN=WIN, ROWW=ROWW,
+                NQB=Lq // WQ, NRB=Lr // FINE, FPB=WQ // FINE)
+
+
+def kmer_vals(codes: torch.Tensor, k: int) -> torch.Tensor:
+    """Packed k-mer value at every position along the last axis (int32);
+    -1 where the window contains a non-ACGT code or runs past the end."""
+    L = codes.shape[-1]
+    c = codes.to(torch.int32)
+    cp = torch.cat([c, torch.full(c.shape[:-1] + (k,), 4, dtype=torch.int32,
+                                  device=c.device)], dim=-1)
+    vals = torch.zeros_like(c)
+    bad = torch.zeros(c.shape, dtype=torch.bool, device=c.device)
+    for j in range(k):
+        cj = cp[..., j:j + L]
+        bad = bad | (cj >= 4)
+        vals = (vals << 2) | torch.where(bad, 0, cj)
+    return torch.where(bad, -1, vals)
+
+
+def _canon_hash(vals: torch.Tensor) -> torch.Tensor:
+    """Hash bucket of the canonical 8-mer for packed values (int32, -1 =
+    invalid): min(v, revcomp(v)) through a Knuth multiplicative hash,
+    the uint32 multiply-shift done in int64 with an explicit 32-bit mask.
+    Returns -1 for invalid positions."""
+    rc = torch.zeros_like(vals)
+    t = vals
+    for _ in range(SEED_K):
+        rc = (rc << 2) | ((t & 3) ^ 3)
+        t = t >> 2
+    vc = torch.minimum(vals, rc).to(torch.int64) & 0xFFFFFFFF
+    shift = 32 - int(np.log2(V3_H))
+    h = ((vc * 2654435761) & 0xFFFFFFFF) >> shift
+    return torch.where(vals >= 0, h.to(torch.int32), -1)
+
+
+def _index_block_v3(fwd, rc, k: int, Lp: int):
+    """Per-genome v3 device index for one bucket chunk: canonical
+    occupancies (query half-blocks of WQ/2, reference blocks of FINE) and
+    the wide window rows of both strands. fwd/rc: (G, Lp) int8 codes.
+    Returns qocc (G, 2*NQB, H), rocc (G, NRB, H), roww_f and roww_r
+    (G, NRB, ROWW), all int8."""
+    g3 = _v3_geom(Lp, Lp)
+    WQ, NQB, NRB, ROWW = g3['WQ'], g3['NQB'], g3['NRB'], g3['ROWW']
+    G = fwd.shape[0]
+    dev = fwd.device
+    h = _canon_hash(kmer_vals(fwd, k)).to(torch.int64)     # (G, Lp)
+    gi = torch.arange(G, device=dev)[:, None]
+    pos = torch.arange(Lp, device=dev)[None, :]
+
+    # The JAX package's scatter normalizes indices NumPy-style, so the -1
+    # of an invalid position (an N, or the padding past a genome's end)
+    # marks bucket H - 1; kept for parity (ROADMAP section 3, R8).
+    h = torch.where(h >= 0, h, h + V3_H)
+
+    def occupancy(blocks, width):
+        # Index-put of ones; blocks past the end land in one spare slot
+        # that is cut off (the scatter's mode='drop').
+        blk = pos // width
+        size = G * blocks * V3_H
+        flat = torch.where(blk < blocks, (gi * blocks + blk) * V3_H + h,
+                           size)
+        occ = torch.zeros(size + 1, dtype=torch.int8, device=dev)
+        occ[flat.reshape(-1)] = 1
+        return occ[:size].view(G, blocks, V3_H)
+
+    qocc = occupancy(2 * NQB, WQ // 2)
+    rocc = occupancy(NRB, FINE)
+
+    def rows(codes):
+        lead = torch.full((G, WQ + 32), 4, dtype=torch.int8, device=dev)
+        tail = torch.full((G, ROWW), 4, dtype=torch.int8, device=dev)
+        P = torch.cat([lead, codes, tail], dim=1)
+        # row r holds P[32 r : 32 r + ROWW]
+        return P.unfold(1, ROWW, 32)[:, :NRB].contiguous()
+
+    return qocc, rocc, rows(fwd), rows(rc)
+
+
+# Genomes indexed at once (bounds the index build's temporaries).
+_INDEX_ROWS_CHUNK = 512
+
+
+class GenomeIndex:
+    """Device-resident per-bucket genome arena for the v3 pipe: padded
+    codes, canonical occupancies and wide window rows. Buckets build
+    lazily, at exactly the bucket sizes the pairs need, and each
+    (bucket, genome set) build is cached on the index."""
+
+    def __init__(self, codes_list: Sequence[np.ndarray], device=None):
+        self.device = resolve_device(device)
+        self.codes = [np.asarray(c, dtype=np.int8) for c in codes_list]
+        self.lens = np.array([len(c) for c in self.codes], dtype=np.int32)
+        self.bucket = {}   # (Lp, 'v3') -> dict of stacked arrays + row map
+        # Genomes beyond the engine's position range are not indexed;
+        # pairs touching them raise.
+        self.oversized = {i for i, c in enumerate(self.codes)
+                          if len(c) > MAX_TPU_LEN}
+
+    def ensure_v3(self, Lp: int, gids, cache: bool = True) -> dict:
+        """v3 arrays for bucket Lp covering at least genomes `gids`.
+        cache=False builds a disposable exact-member sub-arena (the
+        MAX_ARENA path) that is neither stored nor merged."""
+        key = (Lp, 'v3')
+        cur = self.bucket.get(key) if cache else None
+        need = set(int(g) for g in gids)
+        if cur is not None and need <= cur['rows'].keys():
+            return cur
+        members = sorted(need | (set(cur['rows']) if cur else set()))
+        G = len(members)
+        fwd = np.full((G, Lp), 4, dtype=np.int8)
+        rc = np.full((G, Lp), 4, dtype=np.int8)
+        rows = {}
+        for row, i in enumerate(members):
+            fwd[row, :self.lens[i]] = self.codes[i]
+            rc[row, :self.lens[i]] = revcomp_codes(self.codes[i])
+            rows[i] = row
+        fwd_d = torch.from_numpy(fwd).to(self.device)
+        rc_d = torch.from_numpy(rc).to(self.device)
+        ch = _INDEX_ROWS_CHUNK
+        parts = [_index_block_v3(fwd_d[lo:lo + ch], rc_d[lo:lo + ch],
+                                 SEED_K, Lp) for lo in range(0, G, ch)]
+        qocc, rocc, roww_f, roww_r = (
+            torch.cat(xs, dim=0) if len(xs) > 1 else xs[0]
+            for xs in zip(*parts))
+        d = dict(fwd=fwd_d, qocc=qocc, rocc=rocc, roww_f=roww_f,
+                 roww_r=roww_r, rows=rows)
+        if cache:
+            self.bucket[key] = d
+        return d
+
+
+_ARENA_KEYS = ('fwd', 'qocc', 'rocc', 'roww_f', 'roww_r')
+
+
+def index_v3_from_numpy(d: dict, device=None) -> dict:
+    """The port's bucket dict from the arrays of a JAX-package
+    `ensure_v3` dict (each converted with np.asarray): the same arena,
+    row for row, on `device` (default cuda, see utils/device)."""
+    dev = resolve_device(device)
+    out = {k: torch.from_numpy(np.array(d[k], dtype=np.int8)).to(dev)
+           for k in _ARENA_KEYS}
+    out['rows'] = {int(g): int(r) for g, r in d['rows'].items()}
+    return out
+
+
+# --------------------------------------------------------------------------
+# elementwise helpers (static shifts / dilations along the last axis)
+# --------------------------------------------------------------------------
+
+def _sh_r(x, k, fill):
+    """x shifted right by k along the last axis (out[i] = x[i-k])."""
+    if k == 0:
+        return x
+    pad = torch.full(x.shape[:-1] + (k,), fill, dtype=x.dtype,
+                     device=x.device)
+    return torch.cat([pad, x[..., :-k]], dim=-1)
+
+
+def _sh_l(x, k, fill):
+    if k == 0:
+        return x
+    pad = torch.full(x.shape[:-1] + (k,), fill, dtype=x.dtype,
+                     device=x.device)
+    return torch.cat([x[..., k:], pad], dim=-1)
+
+
+def _dilate_back(x, n):
+    """OR of x shifted right by 0..n (bool): any true in [i-n, i]."""
+    y = x
+    p = 1
+    while p * 2 <= n + 1:
+        y = y | _sh_r(y, p, False)
+        p *= 2
+    if p <= n:
+        y = y | _sh_r(y, n + 1 - p, False)
+    return y
+
+
+def _dilate_fwd(x, n):
+    y = x
+    p = 1
+    while p * 2 <= n + 1:
+        y = y | _sh_l(y, p, False)
+        p *= 2
+    if p <= n:
+        y = y | _sh_l(y, n + 1 - p, False)
+    return y
+
+
+def _run_positions(m, run_len):
+    """Positions inside a run of >= run_len consecutive matches."""
+    start = m
+    for j in range(1, run_len):
+        start = start & _sh_l(m, j, False)
+    return _dilate_back(start, run_len - 1)
+
+
+def _win_sum(m_i32, n):
+    """Trailing-window sum over the last n positions: out[i] =
+    sum(m[i-n+1 .. i]), from log-decomposed shifted partial sums."""
+    sums = {1: m_i32}
+    p = 1
+    while p * 2 <= n:
+        sums[p * 2] = sums[p] + _sh_r(sums[p], p, 0)
+        p *= 2
+    out = None
+    off = 0
+    while n:
+        q = 1 << (n.bit_length() - 1)
+        part = _sh_r(sums[q], off, 0)
+        out = part if out is None else out + part
+        off += q
+        n -= q
+    return out
+
+
+def _hcummax(x, reverse=False):
+    """Cummax along the last axis (the JAX package's blocked scan, which
+    exists for the TPU, computes the same)."""
+    if reverse:
+        return torch.cummax(x.flip(-1), dim=-1).values.flip(-1)
+    return torch.cummax(x, dim=-1).values
+
+
+def _ffill_idx(flag, iota):
+    """Index of the most recent True at or before each position (-1 if
+    none), along the last axis."""
+    return _hcummax(torch.where(flag, iota, -1))
+
+
+def _rev_next_idx(flag, iota, none_val):
+    """Smallest index >= i with flag (none_val if none)."""
+    neg = _hcummax(torch.where(flag, -iota, -BIG), reverse=True)
+    return torch.where(neg > -BIG, -neg, none_val)
+
+
+def _tree_slice(w, t, out_width):
+    """w[..., t:t+out_width] for per-element t (the JAX package's
+    where-tree of static slices, as a gather). t: w.shape[:-1]."""
+    idx = t.to(torch.int64)[..., None] + torch.arange(
+        out_width, device=w.device)
+    return torch.gather(w, -1, idx)
+
+
+# --------------------------------------------------------------------------
+# the shared back half
+# --------------------------------------------------------------------------
+
+def _maxseg(Lq: int, reg: int) -> int:
+    """Records kept per directed pair (the JAX package's MAXSEG)."""
+    return min(Lq // max(reg, 16) + 8, 2048)
+
+
+def _blocks_to_measures(m1, m0, switchable, A, S, D, Ap, Sp, Dp, rlen,
+                        *, Lq, mqd, mrd, reg, with_alns=False,
+                        debug=False, debug_extra=None):
+    """Shared back half of the per-row core, over N directed pairs:
+    single-switch refinement of the per-position flags, region breaks,
+    anchored-match chaining, segmentation and aggregates (and
+    per-segment records with with_alns).
+
+    m1, m0: (N, Lq) bool; switchable, A, S, Ap, Sp: (N, NBF) bool; D, Dp:
+    (N, NBF) int32; rlen: (N,) int32. Returns agg (N, 3) int32 =
+    (n_alns, sum_match, sum_alnlen); with_alns also recs (N, MAXSEG, 6)
+    int32 (-1 rows past the last record) and the number of records each
+    pair had before the MAXSEG cap, (N,) int32."""
+    N = m1.shape[0]
+    NBF = Lq // FINE
+    dev = m1.device
+    i32 = torch.int32
+    iota = torch.arange(Lq, dtype=i32, device=dev)[None, :]
+    # --- 3. per-position match flags with single-switch refinement ------
+    m0b = m0.reshape(N * NBF, FINE).to(i32)
+    m1b = m1.reshape(N * NBF, FINE).to(i32)
+    g = torch.cumsum(m0b - m1b, dim=-1, dtype=i32)
+    gpad = torch.cat([torch.zeros((N * NBF, 1), dtype=i32, device=dev), g],
+                     dim=-1)
+    # Max-pack argmax: first position of the maximum prefix gain.
+    tpack = ((gpad + FINE) << 8) | (
+        255 - torch.arange(FINE + 1, dtype=i32, device=dev))
+    tstar = 255 - (tpack.amax(dim=-1) & 255)
+    tstar = torch.where(switchable.reshape(-1), tstar, 0)
+    posb = torch.arange(FINE, dtype=i32, device=dev)[None, :]
+    mb = torch.where(posb < tstar[:, None], m0b, m1b)
+    m = mb.reshape(N, Lq).to(torch.bool)
+
+    # --- 4. region breaks ------------------------------------------------
+    linked = A & Ap & (S == Sp) & ((D - Dp).abs() <= mrd)
+    first_blk = torch.zeros((N, NBF), dtype=torch.bool, device=dev)
+    first_blk[:, 0] = True
+    brk_blk = (A & Ap & ~linked & ~first_blk).reshape(-1)
+    Bb = brk_blk[:, None] & (posb == tstar.clamp(max=FINE - 1)[:, None])
+    Bbrk = Bb.reshape(N, Lq)
+
+    # --- 5. anchored matches (bit-dilation chains) -----------------------
+    in_run = _run_positions(m, MSL)
+    in_anchor = _run_positions(m, MAL)   # long enough to OPEN a region
+    near_run = _dilate_back(in_run, AW) | _dilate_fwd(in_run, AW)
+    w15 = _win_sum(m.to(i32), AW_WIN)
+    dense_end = w15 >= (AW_WIN - AM)
+    covered_by_dense = _dilate_fwd(dense_end, AW_WIN - 1)
+    ma = m & near_run & (covered_by_dense | in_run)
+
+    # --- 6. segmentation + aggregates (8 scans) --------------------------
+    pm_excl = _sh_r(_ffill_idx(ma, iota), 1, -1)
+    any_prev = _dilate_back(_sh_r(ma, 1, False), mqd)  # ma in [i-mqd-1,i-1]
+    lastB = _ffill_idx(Bbrk, iota)
+    crossed = (lastB >= 0) & (lastB > pm_excl)
+    seg_start = ma & (~any_prev | crossed)
+    lastS = _ffill_idx(seg_start, iota)
+    ns_after = _rev_next_idx(_sh_l(seg_start, 1, False), iota, Lq)
+    nma_strict = _rev_next_idx(_sh_l(ma, 1, False), iota, BIG)
+    e_flag = ma & (nma_strict >= ns_after)
+    lastAnchor = _ffill_idx(in_anchor, iota)
+    accept_e = e_flag & (iota - lastS + 1 >= reg) & (lastAnchor >= lastS)
+    rv = _hcummax(torch.where(e_flag, (Lq - 1 - iota) * 2 + accept_e.to(i32),
+                              -1), reverse=True)
+    accE = (rv & 1) == 1
+    lastE_excl = _sh_r(_ffill_idx(e_flag, iota), 1, -2)
+    covered = (lastS >= 0) & (lastS > lastE_excl) & (rv >= 0)
+    acc_cov = covered & accE
+    n_alns = (seg_start & acc_cov).sum(dim=-1, dtype=i32)
+    sum_match = (m & acc_cov).sum(dim=-1, dtype=i32)
+    sum_alnlen = acc_cov.sum(dim=-1, dtype=i32)
+    if debug:
+        return dict(m=m, ma=ma, acc_cov=acc_cov, A=A, S=S, D=D,
+                    seg_start=seg_start, e_flag=e_flag,
+                    n_alns=n_alns, sum_match=sum_match,
+                    sum_alnlen=sum_alnlen, **(debug_extra or {}))
+    agg = torch.stack([n_alns, sum_match, sum_alnlen], dim=-1)  # (N, 3)
+    if not with_alns:
+        return agg
+
+    # --- 7. per-segment records: each accepted segment has exactly one
+    # accepted e_flag; compact those positions with one stable sort, then
+    # decode (qstart, qend, rstart, rend, nt_match, nt_mismatch).
+    macc = (m & acc_cov).to(i32)
+    cm = torch.cumsum(macc, dim=-1, dtype=i32)     # inclusive prefix
+    cm_excl = cm - macc
+    # Per-position effective diagonal/strand (switch-point refined).
+    tq = torch.repeat_interleave(tstar.reshape(N, NBF).clamp(max=FINE),
+                                 FINE, dim=-1)
+    in_pre = (iota % FINE) < tq
+    D_eff = torch.where(in_pre, torch.repeat_interleave(Dp, FINE, dim=-1),
+                        torch.repeat_interleave(D, FINE, dim=-1))
+    S_eff = torch.where(in_pre, torch.repeat_interleave(Sp, FINE, dim=-1),
+                        torch.repeat_interleave(S, FINE, dim=-1))
+    rec = e_flag & acc_cov
+    key = torch.where(rec, iota, BIG)
+    p_start = torch.where(rec, lastS, -1)
+    k_s, perm = torch.sort(key, dim=1, stable=True)
+    MAXSEG = _maxseg(Lq, reg)
+    r_end = torch.where(k_s[:, :MAXSEG] < BIG, perm[:, :MAXSEG].to(i32), -1)
+    r_start = torch.where(r_end >= 0,
+                          torch.gather(p_start, 1, perm[:, :MAXSEG]), -1)
+
+    def g_(a, idx):
+        return torch.gather(a, 1, idx.clamp(min=0).to(torch.int64))
+
+    nt = g_(cm, r_end) - g_(cm_excl, r_start)
+    d_s = g_(D_eff, r_start)
+    d_e = g_(D_eff, r_end)
+    strand = g_(S_eff, r_start)
+    rj_s = r_start + d_s
+    rj_e = r_end + d_e
+    rl = rlen[:, None]
+    rstart = torch.where(strand, rl - 1 - rj_s, rj_s)
+    rend = torch.where(strand, rl - 1 - rj_e, rj_e)
+    alnlen = r_end - r_start + 1
+    recs = torch.stack([r_start, r_end, rstart, rend, nt, alnlen - nt],
+                       dim=-1)
+    recs = torch.where((r_start >= 0)[..., None], recs, -1)
+    return agg, recs, rec.sum(dim=-1, dtype=i32)
+
+
+# --------------------------------------------------------------------------
+# K2: stage 1
+# --------------------------------------------------------------------------
+
+_STAGE1_CHUNK = 512   # reference blocks per product of the plain version
+
+
+def stage1_pack_plain(qocc, rocc, r_rows, q_rows):
+    """Plain torch version of K2 on any device. qocc: (Gq, 2*NQB, H) int8
+    arena; rocc: (Gr, NRB, H) int8 arena; r_rows: (R,) int32 arena rows of
+    the references; q_rows: (R, K) int32 arena rows of the queries.
+
+    Per query block and over all reference blocks rr, the maxima of
+    ((Ma + Mb) << 13) | rr, (Ma << 13) | rr and (Mb << 13) | rr, where Ma
+    and Mb are the shared-bucket counts of the block's two halves with
+    reference block rr (ties go to the larger block). Returns three
+    (R, K, NQB) int32 tensors. The products are float32 over chunks of
+    512 reference blocks: sums of 0/1 below 2^24 are exact."""
+    R, K = q_rows.shape
+    M2 = qocc.shape[1]
+    NRB = rocc.shape[1]
+    qf = qocc[q_rows.to(torch.int64)].to(torch.float32)   # (R, K, M2, H)
+    rows = r_rows.to(torch.int64)
+    outs = None
+    for lo in range(0, NRB, _STAGE1_CHUNK):
+        hi = min(lo + _STAGE1_CHUNK, NRB)
+        rf = rocc[rows, lo:hi].to(torch.float32)          # (R, CH, H)
+        Mc = torch.matmul(qf, rf.transpose(1, 2)[:, None]).to(torch.int32)
+        Ma, Mb = Mc[:, :, 0::2], Mc[:, :, 1::2]
+        rr = torch.arange(lo, hi, dtype=torch.int32, device=qocc.device)
+        part = [(((Ma + Mb) << _RB_BITS) | rr).amax(dim=-1),
+                ((Ma << _RB_BITS) | rr).amax(dim=-1),
+                ((Mb << _RB_BITS) | rr).amax(dim=-1)]
+        outs = part if outs is None else [torch.maximum(a, b)
+                                          for a, b in zip(outs, part)]
+    return tuple(outs)
+
+
+def stage1_pack(qocc, rocc, r_rows, q_rows):
+    """K2 wrapper (see stage1_pack_plain for the arguments): the plain
+    version for CPU tensors, the CUDA kernel for CUDA tensors (or raise).
+    Arena rows must be in range."""
+    dev = qocc.device
+    cuda.require(qocc, 'qocc', torch.int8, 3, dev)
+    cuda.require(rocc, 'rocc', torch.int8, 3, dev)
+    cuda.require(r_rows, 'r_rows', torch.int32, 1, dev)
+    cuda.require(q_rows, 'q_rows', torch.int32, 2, dev)
+    R, K = q_rows.shape
+    M2, H = qocc.shape[1:]
+    NRB = rocc.shape[1]
+    if r_rows.shape[0] != R or rocc.shape[2] != H or M2 % 2:
+        raise ValueError('stage 1: qocc (G, 2*NQB, H), rocc (G, NRB, H), '
+                         'r_rows (R,) and q_rows (R, K) do not fit')
+    if NRB > 1 << _RB_BITS:
+        raise ValueError(f'stage 1 packs the reference block in 13 bits; '
+                         f'{NRB} blocks')
+    if dev.type == 'cpu':
+        return stage1_pack_plain(qocc, rocc, r_rows, q_rows)
+    if dev.type != 'cuda':
+        raise ValueError(f'unsupported device {dev}')
+    if H % 64:
+        raise ValueError(f'K2 needs V3_H a multiple of 64 (got {H})')
+    outs = torch.zeros((3, R, K, M2 // 2), dtype=torch.int32, device=dev)
+    if R * K and M2 and NRB:
+        lib = cuda.library('align_v3', cuda.ALIGN_V3_SIGNATURES)
+        rc = lib.k2_stage1(cuda.ptr(qocc), cuda.ptr(rocc), cuda.ptr(r_rows),
+                           cuda.ptr(q_rows), R * K, K, M2, NRB, H,
+                           cuda.ptr(outs[0]), cuda.ptr(outs[1]),
+                           cuda.ptr(outs[2]), cuda.stream(qocc))
+        cuda.check(lib, rc, 'k2_stage1')
+        stage1_pack.launches += 1
+    return outs[0], outs[1], outs[2]
+
+
+stage1_pack.launches = 0
+
+
+def _stage1_v3(qocc, rocc, r_rows, q_rows):
+    """Stage 1: (cnt1, g1, cnt2, g2), each (R, K, NQB) int32. Candidate 1
+    is the argmax of the half-sum; candidate 2 the argmax of whichever
+    half disagrees more with it (the positional mosaic rescue)."""
+    p_sum, p_a, p_b = stage1_pack(qocc, rocc, r_rows, q_rows)
+    mask = (1 << _RB_BITS) - 1
+    cnt1 = p_sum >> _RB_BITS
+    g1 = p_sum & mask
+    ga, gb = p_a & mask, p_b & mask
+    use_a = (ga - g1).abs() >= (gb - g1).abs()
+    g2 = torch.where(use_a, ga, gb)
+    cnt2 = torch.where(use_a, p_a, p_b) >> _RB_BITS   # half-block count
+    return cnt1, g1, cnt2, g2
+
+
+# --------------------------------------------------------------------------
+# K3: band counts and election
+# --------------------------------------------------------------------------
+
+def band_counts_plain(wins, qb):
+    """Plain torch version of K3 on any device: the 32-step
+    shift-compare-accumulate. wins: (4, N, WIN) int8 windows of the four
+    bands (tags BAND_TAGS); qb: (N, FINE) int8 query bases. Returns the
+    band counts (4, N, BAND) int8 of valid query bases (code < 4) equal
+    to the window base at each shift, BAND = WIN - FINE, and the election
+    (N,) int32: the max of (count << 12) | tag | shift over bands and
+    shifts (ties: candidate 1, then forward, then the larger shift)."""
+    BAND = wins.shape[2] - FINE
+    qok = qb < 4
+    acc = torch.zeros(wins.shape[:2] + (BAND,), dtype=torch.int8,
+                      device=wins.device)
+    for p in range(FINE):
+        acc += ((wins[..., p:p + BAND] == qb[None, :, p:p + 1])
+                & qok[None, :, p:p + 1]).to(torch.int8)
+    tvec = torch.arange(BAND, dtype=torch.int32, device=wins.device)
+    tags = torch.tensor(BAND_TAGS, dtype=torch.int32,
+                        device=wins.device)[:, None, None]
+    bb = ((acc.to(torch.int32) << 12) | tags | tvec).amax(dim=-1)
+    return acc, bb.amax(dim=0)
+
+
+def band_counts(wins, qb):
+    """K3 wrapper (see band_counts_plain): the plain version for CPU
+    tensors, the CUDA kernel for CUDA tensors (or raise)."""
+    dev = wins.device
+    cuda.require(wins, 'wins', torch.int8, 3, dev)
+    cuda.require(qb, 'qb', torch.int8, 2, dev)
+    n, win = wins.shape[1:]
+    if wins.shape[0] != len(BAND_TAGS) or qb.shape != (n, FINE):
+        raise ValueError('band counts: wins (4, N, WIN) and qb (N, 32) '
+                         'do not fit')
+    if not FINE < win <= (1 << _T_BITS) + FINE:
+        raise ValueError(f'band counts: WIN={win} gives more than 512 or '
+                         f'no shifts')
+    if dev.type == 'cpu':
+        return band_counts_plain(wins, qb)
+    if dev.type != 'cuda':
+        raise ValueError(f'unsupported device {dev}')
+    cnt = torch.empty((len(BAND_TAGS), n, win - FINE), dtype=torch.int8,
+                      device=dev)
+    bb = torch.empty(n, dtype=torch.int32, device=dev)
+    if n:
+        lib = cuda.library('align_v3', cuda.ALIGN_V3_SIGNATURES)
+        rc = lib.k3_bands(cuda.ptr(wins), cuda.ptr(qb), n, win,
+                          cuda.ptr(cnt), cuda.ptr(bb), cuda.stream(wins))
+        cuda.check(lib, rc, 'k3_bands')
+        band_counts.launches += 1
+    return cnt, bb
+
+
+band_counts.launches = 0
+
+
+def _band_windows(b, r_rows, rlens, g1, g2, g3):
+    """Stage 2: the windows of the four bands (candidate 1 and 2, each
+    forward at its block and reverse at its mirror block) for every fine
+    block, (4, R, K, NBF, WIN) int8, and each band's first diagonal,
+    (4, R, K, NBF) int32."""
+    WQ, WIN, NRB, FPB = g3['WQ'], g3['WIN'], g3['NRB'], g3['FPB']
+    R, K, NQB = g1.shape
+    NBF = NQB * FPB
+    dev = g1.device
+    rlen = rlens.view(R, 1, 1)
+    rr = r_rows.to(torch.int64).view(R, 1, 1)
+    fc = torch.arange(NBF, device=dev) // FPB      # coarse block of fb
+    Qs = (fc * WQ).to(torch.int32)
+
+    def mirror(g):
+        return ((rlen - 32 * g - 32) >> 5).clamp(0, NRB - 1)
+
+    wins, bases = [], []
+    for g, strand_rows in ((g1, b['roww_f']), (mirror(g1), b['roww_r']),
+                           (g2, b['roww_f']), (mirror(g2), b['roww_r'])):
+        row = strand_rows[rr, g.to(torch.int64)]             # (R,K,NQB,ROWW)
+        w = row[..., 16:].unfold(-1, WIN, 32)[..., :FPB, :]
+        wins.append(w.reshape(R, K, NBF, WIN))
+        bases.append((32 * g)[..., fc] - Qs - WQ - 16)
+    return torch.stack(wins), torch.stack(bases)
+
+
+def _bands_v3(b, r_rows, rlens, q_rows, cnt1, g1, cnt2, g2, tband, smin,
+              g3):
+    """Stages 2-4: windows, band counts (K3) and the election. Returns a
+    dict: win and cnt (4, R, K, NBF, WIN / BAND) int8, base (4, R, K, NBF)
+    int32, qb (R, K, NBF, FINE) int8, qok, and the elected cnt_best, A, S
+    (True = reverse strand) and D, each (R, K, NBF)."""
+    BAND, WIN, FPB = g3['BAND'], g3['WIN'], g3['FPB']
+    R, K, NQB = g1.shape
+    NBF = NQB * FPB
+    dev = g1.device
+    win, base = _band_windows(b, r_rows, rlens, g1, g2, g3)
+    qb = b['fwd'][q_rows.to(torch.int64)].view(R, K, NBF, FINE)
+    qok = qb < 4
+    cnt, bb = band_counts(win.view(len(BAND_TAGS), -1, WIN),
+                          qb.reshape(-1, FINE))
+    cnt = cnt.view(len(BAND_TAGS), R, K, NBF, BAND)
+    bb = bb.view(R, K, NBF)
+    cnt_best = bb >> 12
+    C1 = (bb & 2048) > 0
+    S = (bb & 1024) == 0                           # True = reverse strand
+    t_el = bb & ((1 << _T_BITS) - 1)
+    base1 = torch.where(S, base[1], base[0])
+    base_sel = torch.where(C1, base1, torch.where(S, base[3], base[2]))
+    fc = torch.arange(NBF, device=dev) // FPB
+    # cand2 carries HALF-block counts; gate it against smin/2 (>= 3).
+    gate_ok = torch.where(C1, cnt1[..., fc] >= smin,
+                          cnt2[..., fc] >= max(smin // 2, 3))
+    D = base_sel + t_el
+    # Election thresholds scale down on partial tail blocks.
+    vq = qok.sum(dim=-1, dtype=torch.int32)
+    tband_b = torch.clamp((vq * tband) // FINE, min=4).clamp(max=tband)
+    A = (cnt_best >= tband_b) & gate_ok
+    return dict(win=win, cnt=cnt, base=base, qb=qb, qok=qok,
+                cnt_best=cnt_best, A=A, S=S, D=D)
+
+
+def _propagate_v3(el, g3):
+    """Stages 5-6: neighbour propagation read from the band counts, then
+    the final flags from the windows (bands holding the same (strand,
+    diagonal) show the same reference bases, so OR-ing across containing
+    bands is exact). Returns m1, m0 (R, K, Lq) bool and switchable, A, S,
+    D, Ap, Sp, Dp (R, K, NBF)."""
+    BAND = g3['BAND']
+    cnt, win, base = el['cnt'], el['win'], el['base']
+    qb, qok = el['qb'], el['qok']
+    A, S, D = el['A'], el['S'], el['D']
+
+    def count_at(Sx, Dx):
+        out = None
+        for i, is_rc in enumerate(_BAND_IS_RC):
+            tn = Dx - base[i]
+            ok = (Sx if is_rc else ~Sx) & (tn >= 0) & (tn < BAND)
+            cv = torch.gather(cnt[i], -1, tn.clamp(0, BAND - 1).to(
+                torch.int64)[..., None])[..., 0].to(torch.int32)
+            cv = torch.where(ok, cv, -1)
+            out = cv if out is None else torch.maximum(out, cv)
+        return out
+
+    cnt_cur = torch.where(A, el['cnt_best'], -1)
+    for _ in range(EXT_ITERS):
+        for shf in (_sh_r, _sh_l):
+            Dn = shf(D, 1, 0)
+            Sn = shf(S, 1, False)
+            An = shf(A, 1, False)
+            diff = (Dn != D) | (Sn != S)
+            cn = torch.where(An & diff, count_at(Sn, Dn), -1)
+            # Tier 1: rescue; tier 2: continuity (see the JAX package).
+            better = (cn >= EXT_MIN) & (cn > cnt_cur + EXT_MARGIN)
+            cont = A & (cn >= EXT_MIN) & (cn + V3_CONT >= cnt_cur) \
+                & (cn <= cnt_cur)
+            adopt = better | cont
+            D = torch.where(adopt, Dn, D)
+            S = torch.where(adopt, Sn, S)
+            A = A | better
+            cnt_cur = torch.where(adopt, cn, cnt_cur)
+
+    def flags_at(Sx, Dx, okx):
+        m = None
+        for i, is_rc in enumerate(_BAND_IS_RC):
+            tn = Dx - base[i]
+            ok = okx & (Sx if is_rc else ~Sx) & (tn >= 0) & (tn < BAND)
+            seg = _tree_slice(win[i], tn.clamp(0, BAND - 1), FINE)
+            mx = (qb == seg) & qok & ok[..., None]
+            m = mx if m is None else m | mx
+        return m.flatten(-2)
+
+    m1 = flags_at(S, D, A)
+    Ap = _sh_r(A, 1, False)
+    Sp = _sh_r(S, 1, False)
+    Dp = _sh_r(D, 1, 0)
+    switchable = A & Ap & ((D != Dp) | (S != Sp))
+    m0 = flags_at(Sp, Dp, switchable)
+    return m1, m0, switchable, A, S, D, Ap, Sp, Dp
+
+
+def _row_core_v3(b, r_rows, rlens, q_rows, tband, smin,
+                 *, Lq, Lr, K, mqd, mrd, reg, with_alns=False, debug=False):
+    """v3 aggregates for R dispatch rows of K directed pairs sharing one
+    reference each.
+
+    b: a bucket dict (GenomeIndex.ensure_v3 or index_v3_from_numpy);
+    r_rows: (R,) int32 arena rows of the references, rlens: (R,) int32
+    their lengths; q_rows: (R, K) int32 arena rows of the queries;
+    tband/smin: the election thresholds (ints). Returns (R, K, 3) int32
+    aggregates; with_alns also (R, K, MAXSEG, 6) records and (R, K)
+    record counts before the cap; with debug the intermediates of the JAX
+    package's debug dict, each with a leading R axis."""
+    g3 = _v3_geom(Lq, Lr)
+    R = r_rows.shape[0]
+    if q_rows.shape != (R, K):
+        raise ValueError(f'q_rows must be ({R}, {K})')
+    cnt1, g1, cnt2, g2 = _stage1_v3(b['qocc'], b['rocc'], r_rows, q_rows)
+    el = _bands_v3(b, r_rows, rlens, q_rows, cnt1, g1, cnt2, g2, tband,
+                   smin, g3)
+    m1, m0, switchable, A, S, D, Ap, Sp, Dp = _propagate_v3(el, g3)
+    N = R * K
+
+    def flat(x):
+        return x.reshape((N,) + x.shape[2:])
+
+    rlen = rlens[:, None].expand(R, K).reshape(N)
+    extra = None
+    if debug:
+        extra = dict(cnt1=flat(cnt1), g1=flat(g1), cnt2=flat(cnt2),
+                     g2=flat(g2), cnt_best=flat(el['cnt_best']),
+                     band_best=[flat(c.amax(dim=-1)) for c in el['cnt']])
+    out = _blocks_to_measures(
+        flat(m1), flat(m0), flat(switchable), flat(A), flat(S), flat(D),
+        flat(Ap), flat(Sp), flat(Dp), rlen, Lq=Lq, mqd=mqd, mrd=mrd,
+        reg=reg, with_alns=with_alns, debug=debug, debug_extra=extra)
+    if debug:
+        return {k: ([x.view((R, K) + x.shape[1:]) for x in v]
+                    if isinstance(v, list) else v.view((R, K) + v.shape[1:]))
+                for k, v in out.items()}
+    if with_alns:
+        return tuple(x.view((R, K) + x.shape[1:]) for x in out)
+    return out.view(R, K, 3)
+
+
+def _group_run_v3(b, r_rows, rlens, q_rows, thresholds, *, Lq, Lr, K, mqd,
+                  mrd, reg, with_alns=False):
+    """One dispatch: the rows' arena indices (numpy) moved to the arena's
+    device, then `_row_core_v3` over all of them at once."""
+    dev = b['fwd'].device
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    return _row_core_v3(b, put(r_rows), put(rlens), put(q_rows),
+                        int(thresholds[0]), int(thresholds[1]), Lq=Lq,
+                        Lr=Lr, K=K, mqd=mqd, mrd=mrd, reg=reg,
+                        with_alns=with_alns)
+
+
+def _dispatch_rows(L: int, K: int, device: torch.device,
+                   with_alns: bool) -> int:
+    """Dispatch rows B at bucket L with K queries a row: as many as keep
+    the live bytes of one dispatch on `device` under _LIVE_BYTES. A query
+    holds the windows and counts of four bands (4*NBF*(WIN+BAND) bytes)
+    and _BYTES_PER_POS (_BYTES_PER_POS_RECORDS with records) a query
+    position for stages 5-6 and the back half; on the CPU also the plain
+    stage 1's float32 operand (2*NQB*H*4 bytes; K2 reads the int8 arena in
+    place). Results do not depend on B."""
+    g3 = _v3_geom(L, L)
+    per_pos = _BYTES_PER_POS_RECORDS if with_alns else _BYTES_PER_POS
+    per_query = 4 * (L // FINE) * (g3['WIN'] + g3['BAND']) + L * per_pos
+    if device.type == 'cpu':
+        per_query += 2 * g3['NQB'] * V3_H * 4
+    return max(1, _LIVE_BYTES // (K * per_query))
+
+
+def _group_gids(by_ref: dict) -> set:
+    """Genomes of a {ref: [(query, pair row, column), ...]} group."""
+    gids = set(by_ref)
+    for ts in by_ref.values():
+        gids.update(qi for (qi, _p, _c) in ts)
+    return gids
+
+
+def _split_group(by_ref: dict, cap: int) -> list:
+    """Partition one bucket group's {ref: tasks} map into sub-groups whose
+    genome footprint (refs + queries) stays <= cap. Greedy over refs in
+    sorted order; a single ref whose own task list exceeds the cap is
+    split across sub-groups by task chunks."""
+    subs = []
+    cur, cur_g = {}, set()
+    for ri in sorted(by_ref):
+        ts = by_ref[ri]
+        lo = 0
+        while lo < len(ts):
+            room = cap - len(cur_g) - (0 if ri in cur_g else 1)
+            picked = []
+            for t in ts[lo:]:
+                extra = 0 if t[0] in cur_g or t[0] == ri else 1
+                if room - extra < 0:
+                    break
+                room -= extra
+                picked.append(t)
+                cur_g.add(t[0])
+            if picked:
+                cur_g.add(ri)
+                cur.setdefault(ri, []).extend(picked)
+                lo += len(picked)
+            if lo < len(ts):            # ran out of room: flush
+                if cur:
+                    subs.append(cur)
+                cur, cur_g = {}, set()
+    if cur:
+        subs.append(cur)
+    return subs
+
+
+def _all2all_single_v3(codes_list: Sequence[np.ndarray], pairs: np.ndarray,
+                       params: Optional[AlignParams] = None,
+                       index: Optional[GenomeIndex] = None,
+                       keep_alignments: bool = False, device=None):
+    """All-vs-all v3 aggregates on the device for unordered candidate
+    `pairs` over ids-ordered genomes: the JAX package's
+    `_all2all_single(..., pipe='v3')` on one device. Returns int64
+    (len(pairs), 6) = (n_ji, match_ji, alnlen_ji, n_ij, match_ij,
+    alnlen_ij), as lz_native.all2all_native's aggregates.
+
+    keep_alignments=True also returns (aln_rows, aln_counts): int32 (N, 6)
+    (qstart, qend, rstart, rend, nt_match, nt_mismatch), 0-based, reverse
+    strand as rstart > rend, and (2 * len(pairs),) rows per directed task,
+    (q=j, r=i) first. Segments past the per-pair cap (MAXSEG) are dropped
+    from the rows, with a warning (aggregates stay exact).
+
+    Runs on `index.device`, else `device` (default cuda). Raises for
+    genomes longer than MAX_TPU_LEN and, since the v2 pipe is not ported,
+    for buckets above V3_MAX_BUCKET."""
+    params = params or AlignParams()
+    mqd, mrd, reg = params.mqd, params.mrd, params.reg
+    idx = index or GenomeIndex(codes_list, device=device)
+    lens = idx.lens
+    pairs = np.asarray(pairs, dtype=np.int32).reshape(-1, 2)
+
+    # Directed tasks grouped by the PAIR's max bucket (both sides padded
+    # to it), then by reference genome so each dispatch row shares its
+    # reference K ways.
+    groups: Dict[int, Dict[int, List]] = {}
+    for prow, (i, j) in enumerate(pairs):
+        i, j = int(i), int(j)
+        if i in idx.oversized or j in idx.oversized:
+            raise ValueError(
+                f'pair ({i}, {j}) touches a genome longer than '
+                f'{MAX_TPU_LEN} bases — beyond the device engine\'s '
+                f'position range; align it with the native engine')
+        kb = max(_pad_bucket(lens[i]), _pad_bucket(lens[j]))
+        if kb > V3_MAX_BUCKET:
+            raise NotImplementedError(
+                f'pair ({i}, {j}) needs bucket {kb} > V3_MAX_BUCKET '
+                f'({V3_MAX_BUCKET}): the JAX package aligns it on its v2 '
+                f'sort-join pipe, which is not yet ported (ROADMAP M3)')
+        for (qi, ri, col) in ((j, i, 0), (i, j, 3)):
+            groups.setdefault(kb, {}).setdefault(ri, []).append(
+                (qi, prow, col))
+
+    out = np.zeros((len(pairs), 6), dtype=np.int64)
+    work = []      # (kb, by_ref_subset, cacheable)
+    for kb, by_ref in sorted(groups.items()):
+        if MAX_ARENA and len(_group_gids(by_ref)) > MAX_ARENA:
+            work += [(kb, sub, False)
+                     for sub in _split_group(by_ref, max(MAX_ARENA, 2))]
+        else:
+            work.append((kb, by_ref, True))
+    thr = (V3_TBAND, V3_SMIN)
+    pending = []   # (device results, task map, record cap)
+    for kb, by_ref, cacheable in work:
+        b = idx.ensure_v3(kb, _group_gids(by_ref), cache=cacheable)
+        K = K_QUERIES
+        max_tasks = max(len(ts) for ts in by_ref.values())
+        if max_tasks < K:
+            K = max(1, 1 << (max_tasks - 1).bit_length())
+        rows = []        # (ref_idx, [task, ...] of length <= K)
+        for ri in sorted(by_ref):
+            ts = by_ref[ri]
+            for lo in range(0, len(ts), K):
+                rows.append((ri, ts[lo:lo + K]))
+        B = _dispatch_rows(kb, K, idx.device, keep_alignments)
+        n = len(rows)
+        r_rows = np.zeros(n, np.int32)
+        rlens = np.zeros(n, np.int32)
+        q_rows = np.zeros((n, K), np.int32)
+        # Per-task placement arrays double as the vectorized scatter-back
+        # map (task -> output row/direction).
+        t_w, t_i_, t_prow, t_col = [], [], [], []
+        for w, (ri, ts) in enumerate(rows):
+            r_rows[w] = b['rows'][ri]
+            rlens[w] = lens[ri]
+            for t_i, (qi, prow_, col_) in enumerate(ts):
+                q_rows[w, t_i] = b['rows'][qi]
+                t_w.append(w)
+                t_i_.append(t_i)
+                t_prow.append(prow_)
+                t_col.append(col_)
+        tmap = tuple(np.asarray(x, np.int64) for x in (t_w, t_i_, t_prow,
+                                                        t_col))
+        static = dict(Lq=kb, Lr=kb, K=K, mqd=mqd, mrd=mrd, reg=reg,
+                      with_alns=keep_alignments)
+        results = [_group_run_v3(b, r_rows[lo:lo + B], rlens[lo:lo + B],
+                                 q_rows[lo:lo + B], thr, **static)
+                   for lo in range(0, n, B)]
+        pending.append((results, tmap, _maxseg(kb, reg)))
+    task_alns = {}   # (prow, col) -> (n, 6) int32 records
+    saturated = []   # pairs whose records overflowed the cap (MAXSEG)
+    for results, tmap, maxseg in pending:   # transfers post-dispatch
+        if keep_alignments:
+            flat = np.concatenate([r[0].cpu().numpy() for r in results])
+            recs = np.concatenate([r[1].cpu().numpy() for r in results])
+            nrec = np.concatenate([r[2].cpu().numpy() for r in results])
+        else:
+            flat = np.concatenate([r.cpu().numpy() for r in results])
+        t_w, t_i_, t_prow, t_col = tmap
+        out.reshape(-1, 2, 3)[t_prow, t_col // 3] = flat[t_w, t_i_]
+        if keep_alignments:
+            for w, ti, prow, col in zip(t_w, t_i_, t_prow, t_col):
+                rr = recs[w, ti]
+                task_alns[(int(prow), int(col))] = rr[rr[:, 0] >= 0]
+                if nrec[w, ti] > maxseg:
+                    saturated.append(tuple(pairs[prow]))
+    if not keep_alignments:
+        return out
+    if saturated:
+        # Aggregates (num_alns etc.) stay exact; only the emitted rows are
+        # capped, so the row count disagrees with num_alns for these pairs.
+        get_logger().warning(
+            f'{len(saturated)} directed pair(s) overflowed the per-pair '
+            f'alignment record cap; their --out-aln rows are truncated '
+            f'(aggregates remain exact). Affected id pairs: '
+            + ', '.join(f'({i},{j})' for i, j in saturated[:8])
+            + ('...' if len(saturated) > 8 else ''))
+    counts = np.zeros(2 * len(pairs), dtype=np.int64)
+    blocks = []
+    for prow in range(len(pairs)):
+        for d, col in enumerate((0, 3)):
+            blk = task_alns.get((prow, col))
+            if blk is None:
+                blk = np.empty((0, 6), np.int32)
+            counts[2 * prow + d] = len(blk)
+            blocks.append(blk)
+    aln_rows = (np.concatenate(blocks) if blocks
+                else np.empty((0, 6), np.int32))
+    return out, (aln_rows, counts)

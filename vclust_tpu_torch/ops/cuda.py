@@ -18,9 +18,20 @@ import torch
 from ..utils.build import (BUILD_DIR, CSRC_DIR, finish_compile, is_stale,
                            start_compile)
 
-SOURCES = ('occupancy', 'extend')
+SOURCES = ('occupancy', 'extend', 'align_v3')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# The C entry points of csrc/align_v3.cu, kernels K2 and K3 of the v3 align
+# pipe (launched by ops/align_gpu.py): {function: argtypes}.
+ALIGN_V3_SIGNATURES = {
+    # qocc, rocc, r_rows, q_rows, tasks, K, M2, NRB, H, p_sum, p_a, p_b,
+    # stream
+    'k2_stage1': [_P] * 4 + [_I] * 5 + [_P] * 4,
+    # wins, qb, n, win, cnt, bb, stream
+    'k3_bands': [_P, _P, _I, _I, _P, _P, _P],
+}
 
 _libs = {}
 # Compiler output (ptxas register and shared-memory report) per source,
