@@ -29,18 +29,41 @@ Phases, each printing one JSON line; any failure exits non-zero:
               K1 on the same index == plain and == the full host count
               matrix), align --filter, cluster; then the example corpus, whose
               fltr.txt and clusters.tsv must equal example/output/;
-  6. align_v3 - the v3 align pipe (ops/align_gpu.py:_all2all_single_v3)
-              on bench.py's 48-genome corpus (1,128 pairs, buckets 49,152
-              and 65,536) and its contig corpus (128 x 3,500 bases, 8,128
-              pairs, bucket 4,096), K2 and K3 counted from 0 around each
-              run: aggregates and records == the same function with the
-              plain K2 and K3, bit for bit; warm pairs/s, index seconds,
-              peak device memory and a profiler breakdown of one warm run;
-              the max |dtANI| against the native C++ engine (printed, not
-              held); then K2 and K3 alone on one full dispatch at 65,536
-              (== plain, with ms, device_ms, plain_ms, bound; library_ms for
-              K2), and the time of each stage of that dispatch;
-  7. the `kernels` line: every kernel with its launches on its path, error
+  6. align_engine - the device align engine from the CLI: `align --engine
+              gpu --out-aln` over the 66 pairs of example/multifasta.fna
+              (K2 and K3 counted from 0 around it): ani.tsv, ani.ids.tsv
+              and ani.aln.tsv == tests/golden_torch/engine_tpu/ (the JAX
+              CLI's `--engine tpu`) byte for byte; then `--filter
+              --filter-threshold 0.7 --engine gpu` and cluster, whose
+              clusters.tsv must equal example/output/clusters.tsv. Prints
+              the hard pairs re-aligned on v2, the launches, the seconds in
+              v3, in v2 and on the host, warm pairs/s and the tANI of the 8
+              truth pairs;
+  7. align_v3 - the v3 align pipe (ops/align_gpu.py:_all2all_single(...,
+              pipe='v3')) on bench.py's 48-genome corpus (1,128 pairs,
+              buckets 49,152 and 65,536) and its contig corpus (128 x 3,500
+              bases, 8,128 pairs, bucket 4,096), K2 and K3 counted from 0
+              around each run: aggregates and records == the same function
+              with the plain K2 and K3, bit for bit; warm pairs/s, index
+              seconds, peak device memory and a profiler breakdown of one
+              warm run; the max |dtANI| against the native C++ engine
+              (printed, not held); then K2 and K3 alone on one full
+              dispatch at 65,536 (== plain, with ms, device_ms, plain_ms,
+              bound; library_ms for K2), and the time of each stage of that
+              dispatch;
+  8. align_hybrid - the engine's default all2all_gpu (v3, then v2 on the
+              hard pairs) on the 48 genomes: hard pairs, warm pairs/s with
+              and without the hybrid, busy share and top device entries
+              under the profiler, max |dtANI| against the native engine;
+              each v2 stage's time on one dispatch at 65,536;
+  9. align_v2 - the v2 pipe alone above V3_MAX_BUCKET: 4 genomes of
+              158-249 kb concatenated from example genomes plus a 5% mutant
+              each (buckets 196,608 and 262,144, 64-bit packs), all 28
+              pairs with records: == the port on the CPU for two pairs;
+              pairs/s, peak bytes, B, each stage's time on one dispatch, and
+              the live bytes a query position holds (peaks at 1 and 2 rows,
+              C = 16 and 8) against `_dispatch_rows_v2`'s constants;
+ 10. the `kernels` line: every kernel with its launches on its path, error
      against its plain version, times and bound.
 The card's name and power limit (nvidia-smi) precede the last line, which
 is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -636,7 +659,7 @@ def phase_main(torch, dev, work: pathlib.Path):
 
 
 # --------------------------------------------------------------------------
-# Phase 6: the v3 align pipe, K2 and K3
+# Phase 7: the v3 align pipe, K2 and K3
 # --------------------------------------------------------------------------
 
 def contig_corpus(n: int = 128, length: int = 3500, families: int = 16):
@@ -716,14 +739,19 @@ def align_v3_corpus(torch, dev, name, corpus, ag, reps: int = 3):
         idx.ensure_v3(kb, gids)
     torch.cuda.synchronize()
     index_s = time.perf_counter() - t0
+    # The index's least bytes: both strands' codes read once, the padded
+    # codes, occupancies and window rows written once.
+    index_bytes = sum(idx.bucket[(kb, 'v3')][k].numel() for kb in members
+                      for k in ('fwd', 'qocc', 'rocc', 'roww_f', 'roww_r')) \
+        + sum(2 * kb * len(g) for kb, g in members.items())
 
     # The path, counted from 0.
     torch.cuda.reset_peak_memory_stats()
     ag.stage1_pack.launches = 0
     ag.band_counts.launches = 0
     t0 = time.perf_counter()
-    got = ag._all2all_single_v3(codes, pairs, index=idx,
-                                keep_alignments=True)
+    got = ag._all2all_single(codes, pairs, index=idx, keep_alignments=True,
+                             pipe='v3')
     first_s = time.perf_counter() - t0
     launches = {'stage1_pack': ag.stage1_pack.launches,
                 'band_counts': ag.band_counts.launches}
@@ -733,8 +761,8 @@ def align_v3_corpus(torch, dev, name, corpus, ag, reps: int = 3):
 
     # The same function with the plain K2 and K3.
     with plain_k2_k3(ag):
-        want = ag._all2all_single_v3(codes, pairs, index=idx,
-                                     keep_alignments=True)
+        want = ag._all2all_single(codes, pairs, index=idx,
+                                  keep_alignments=True, pipe='v3')
     for what, a, b in (('aggregates', got[0], want[0]),
                        ('record counts', got[1][1], want[1][1]),
                        ('records', got[1][0], want[1][0])):
@@ -747,15 +775,18 @@ def align_v3_corpus(torch, dev, name, corpus, ag, reps: int = 3):
     walls = []
     for _ in range(reps):
         t0 = time.perf_counter()
-        agg = ag._all2all_single_v3(codes, pairs, index=idx)
+        agg = ag._all2all_single(codes, pairs, index=idx, pipe='v3')
         walls.append(time.perf_counter() - t0)
     if not np.array_equal(agg, out):
         fail(f'align_v3 {name}: aggregates differ between runs')
     prof = profile_breakdown(
-        torch, lambda: ag._all2all_single_v3(codes, pairs, index=idx))
+        torch, lambda: ag._all2all_single(codes, pairs, index=idx,
+                                          pipe='v3'))
     return dict(phase='align_v3', corpus=name, genomes=len(codes),
                 pairs=int(len(pairs)), buckets=sorted(members),
-                index_s=index_s, first_run_s=first_s, warm_s=walls,
+                index_s=index_s,
+                index_bound_ms=index_bytes / HBM_BYTES_PER_S * 1e3,
+                first_run_s=first_s, warm_s=walls,
                 pairs_per_s=len(pairs) / min(walls), path_launches=launches,
                 peak_mem_gib=peak / 2 ** 30,
                 aligned_pairs=int((out[:, 0] + out[:, 3] > 0).sum()),
@@ -764,8 +795,11 @@ def align_v3_corpus(torch, dev, name, corpus, ag, reps: int = 3):
 
 
 def native_dtani(codes, pairs, out) -> dict:
-    """|tANI(v3) - tANI(native C++ engine)| over the pairs: its max, the
-    pair where it is largest, and the pairs above 0.01."""
+    """|tANI(out) - tANI(native C++ engine)| over the pairs: its max, the
+    pair where it is largest (with both tANIs), and the pairs above 0.01;
+    over the pairs at native tANI >= 0.7 (the example workflow's filter
+    threshold), the max and the pairs above 0.007 (the accuracy contract
+    of tests/test_align_tpu.py)."""
     import numpy as np
     from vclust_tpu_torch.ops import lz_native
     from vclust_tpu_torch.ops.lz_parse_py import AlignParams
@@ -779,8 +813,13 @@ def native_dtani(codes, pairs, out) -> dict:
     k = int(d.argmax())
     return dict(max_abs_dtani_vs_native=float(d[k]),
                 worst_pair=[int(pairs[k, 0]), int(pairs[k, 1])],
-                worst_tani_v3_native=[float(t_v3[k]), float(t_nat[k])],
-                pairs_dtani_over_0_01=int((d > 0.01).sum()))
+                worst_tani_and_native=[float(t_v3[k]), float(t_nat[k])],
+                pairs_dtani_over_0_01=int((d > 0.01).sum()),
+                pairs_native_tani_ge_0_7=int((t_nat >= 0.7).sum()),
+                max_abs_dtani_native_tani_ge_0_7=float(
+                    d[t_nat >= 0.7].max(initial=0.0)),
+                pairs_dtani_over_0_007_native_tani_ge_0_7=int(
+                    (d[t_nat >= 0.7] > 0.007).sum()))
 
 
 def cpu_reference_check(dev, ag, codes, pairs, out, n: int = 8) -> dict:
@@ -791,10 +830,10 @@ def cpu_reference_check(dev, ag, codes, pairs, out, n: int = 8) -> dict:
     import numpy as np
     keep = (pairs[:, 0] < n) & (pairs[:, 1] < n)
     sub = pairs[keep]
-    gpu = ag._all2all_single_v3(codes[:n], sub, device=dev,
-                                keep_alignments=True)
-    cpu = ag._all2all_single_v3(codes[:n], sub, device='cpu',
-                                keep_alignments=True)
+    gpu = ag._all2all_single(codes[:n], sub, device=dev,
+                             keep_alignments=True, pipe='v3')
+    cpu = ag._all2all_single(codes[:n], sub, device='cpu',
+                             keep_alignments=True, pipe='v3')
     if not (np.array_equal(gpu[0], cpu[0]) and np.array_equal(gpu[0],
                                                               out[keep])
             and np.array_equal(gpu[1][1], cpu[1][1])
@@ -918,6 +957,10 @@ def align_v3_dispatch(torch, dev, ag, idx, codes, seed: int, kb=65536):
         bands_ms=time_ms(lambda: ag._bands_v3(
             b, r_rows, rlens, q_rows, cnt1, g1, cnt2, g2, tb, sm, g3), 3),
         propagate_ms=time_ms(lambda: ag._propagate_v3(el, g3), 3),
+        # Least bytes of stages 5-6: the bands' counts and windows and the
+        # query bases read once, the two flag arrays written once.
+        propagate_bound_ms=(el['cnt'].numel() + el['win'].numel()
+                            + 3 * N * kb) / HBM_BYTES_PER_S * 1e3,
         back_half_ms=time_ms(back, 3),
         back_half_records_ms=time_ms(lambda: back(True), 3),
         row_core_ms=time_ms(lambda: ag._row_core_v3(
@@ -964,7 +1007,10 @@ def k2_library_ms(torch, qocc, rocc, r_rows, q_rows) -> float:
             prev
 
 
-def phase_align_v3(torch, dev, seed: int):
+def phase_align_v3(torch, dev, seed: int, engine: dict):
+    """Phases align_v3 and align_hybrid. K2's and K3's `launches` are
+    those of the CLI engine path (phase align_engine); the other paths'
+    are beside them."""
     from vclust_tpu_torch.ops import align_gpu as ag
     res48, codes, pairs, idx, out = align_v3_corpus(
         torch, dev, 'genomes48', mutant_corpus(), ag)
@@ -972,17 +1018,401 @@ def phase_align_v3(torch, dev, seed: int):
     res48.update(native_dtani(codes, pairs, out))
     emit(res48)
     k2, k3 = align_v3_dispatch(torch, dev, ag, idx, codes, seed)
+    phase_align_hybrid(torch, dev, ag, idx, codes, pairs, out, seed)
     del idx
     res_c = align_v3_corpus(torch, dev, 'contigs128', contig_corpus(), ag)[0]
     emit(res_c)
     for row in (k2, k3):
         key = row['name']
-        row['launches'] = res48['path_launches'][key] + \
-            res_c['path_launches'][key]
-        row['launches_by_corpus'] = {
-            'genomes48': res48['path_launches'][key],
-            'contigs128': res_c['path_launches'][key]}
+        row['launches'] = engine['path_launches'][key]
+        row['launches_by_path'] = {
+            'align --engine gpu (example, 66 pairs)':
+                engine['path_launches'][key],
+            'align_v3 genomes48': res48['path_launches'][key],
+            'align_v3 contigs128': res_c['path_launches'][key]}
     return k2, k3
+
+
+# --------------------------------------------------------------------------
+# Phase 6: the device align engine from the CLI
+# --------------------------------------------------------------------------
+
+# tests/test_align_tpu.py:24-33: simulated truth of the example's mutants.
+TRUE_TANI = {
+    ('NC_010807', 'NC_010807.alt1'): 0.99753,
+    ('NC_010807', 'NC_010807.alt2'): 0.98985,
+    ('NC_010807', 'NC_010807.alt3'): 0.98414,
+    ('NC_005091', 'NC_005091.alt1'): 0.97161,
+    ('NC_005091', 'NC_005091.alt2'): 0.96707,
+    ('NC_025457', 'NC_025457.alt1'): 0.80607,
+    ('NC_025457', 'NC_025457.alt2'): 0.75921,
+    ('NC_002486', 'NC_002486.alt'): 1.00000,
+}
+
+
+@contextlib.contextmanager
+def pipe_timer(ag):
+    """Inside: every `_all2all_single` call (each returns host arrays, so
+    its wall time holds its device work) adds its seconds, calls and pairs
+    to the yielded {'v3': ..., 'v2': ...} by pipe."""
+    stats = {p: dict(s=0.0, calls=0, pairs=0) for p in ('v3', 'v2')}
+    real = ag._all2all_single
+
+    def timed(codes, pairs, params=None, index=None, keep_alignments=False,
+              seeds_per_block=None, pipe='v2', device=None):
+        t0 = time.perf_counter()
+        out = real(codes, pairs, params, index, keep_alignments,
+                   seeds_per_block, pipe, device)
+        st = stats[pipe]
+        st['s'] += time.perf_counter() - t0
+        st['calls'] += 1
+        st['pairs'] += len(pairs)
+        return out
+
+    ag._all2all_single = timed
+    try:
+        yield stats
+    finally:
+        ag._all2all_single = real
+
+
+def engine_run(ag, out: pathlib.Path, *extra):
+    """`align --engine gpu` of example/multifasta.fna into out/ani.tsv
+    (with `extra` arguments), K2 and K3 counted from 0 around it. Returns
+    (wall seconds, launches, pipe stats)."""
+    from vclust_tpu_torch.utils.data import example_dir
+    out.mkdir()
+    ag.stage1_pack.launches = 0
+    ag.band_counts.launches = 0
+    with pipe_timer(ag) as st:
+        t0 = time.perf_counter()
+        cli('align', '-i', example_dir() / 'multifasta.fna', '-o',
+            out / 'ani.tsv', '--engine', 'gpu', '-v', '0', *extra)
+        wall = time.perf_counter() - t0
+    launches = {'stage1_pack': ag.stage1_pack.launches,
+                'band_counts': ag.band_counts.launches}
+    return wall, launches, st
+
+
+def split_seconds(wall, st) -> dict:
+    v3, v2 = st['v3']['s'], st['v2']['s']
+    return dict(wall_s=wall, v3_s=v3, v2_s=v2, host_s=wall - v3 - v2,
+                v2_pairs=st['v2']['pairs'])
+
+
+def phase_align_engine(torch, work: pathlib.Path):
+    from vclust_tpu_torch.ops import align_gpu as ag
+    from vclust_tpu_torch.utils.data import example_dir
+    gold = REPO / 'tests' / 'golden_torch' / 'engine_tpu'
+    names = ('ani.tsv', 'ani.ids.tsv', 'ani.aln.tsv')
+
+    # The path, counted from 0.
+    cold = work / 'engine_cold'
+    wall, launches, st = engine_run(ag, cold, '--out-aln',
+                                    cold / 'ani.aln.tsv')
+    if min(launches.values()) < 1:
+        fail(f'align --engine gpu: K2 or K3 did not launch ({launches})')
+    for name in names:
+        if (cold / name).read_bytes() != (gold / name).read_bytes():
+            fail(f'align --engine gpu: {name} != the JAX --engine tpu '
+                 f'golden')
+    first = split_seconds(wall, st)
+    n_pairs = 66
+    if st['v3']['pairs'] != n_pairs:
+        fail(f'align --engine gpu ran {st["v3"]["pairs"]} pairs on v3')
+
+    warm = work / 'engine_warm'
+    wall, _, st = engine_run(ag, warm, '--out-aln', warm / 'ani.aln.tsv')
+    for name in names:
+        if (warm / name).read_bytes() != (cold / name).read_bytes():
+            fail(f'align --engine gpu: {name} differs between runs')
+    warm_split = split_seconds(wall, st)
+
+    # The workflow of tests/test_workflow.py:45-69 on the card.
+    filt = work / 'engine_filter'
+    ex = example_dir()
+    engine_run(ag, filt, '--filter', ex / 'output' / 'fltr.txt',
+               '--filter-threshold', '0.7')
+    cli('cluster', '-i', filt / 'ani.tsv', '--ids', filt / 'ani.ids.tsv',
+        '-o', filt / 'clusters.tsv', '--metric', 'tani', '--tani', '0.95',
+        '-v', '0')
+    if (filt / 'clusters.tsv').read_bytes() != \
+            (ex / 'output' / 'clusters.tsv').read_bytes():
+        fail('align --engine gpu --filter, cluster: clusters.tsv != '
+             'example/output/clusters.tsv')
+
+    lines = (cold / 'ani.tsv').read_text().splitlines()
+    head = lines[0].split('\t')
+    tani = {}
+    for ln in lines[1:]:
+        f = dict(zip(head, ln.split('\t')))
+        tani[(f['query'], f['reference'])] = float(f['tani'])
+    truth = {}
+    for (a, b), t in TRUE_TANI.items():
+        got = tani.get((a, b), tani.get((b, a)))
+        truth[f'{a}~{b}'] = [got, t, None if got is None else got - t]
+    res = dict(phase='align_engine', pairs=n_pairs, path_launches=launches,
+               files_eq_golden=list(names), clusters_eq_golden=True,
+               hard_pairs_v2=first['v2_pairs'], first=first, warm=warm_split,
+               warm_pairs_per_s=n_pairs / (warm_split['v3_s']
+                                           + warm_split['v2_s']),
+               warm_cli_pairs_per_s=n_pairs / warm_split['wall_s'],
+               truth_tani=truth,
+               max_abs_dtani_truth=max(abs(v[2]) for v in truth.values()))
+    emit(res)
+    return res
+
+
+# --------------------------------------------------------------------------
+# Phase 8: the hybrid on the 48 genomes; v2 dispatch stages
+# --------------------------------------------------------------------------
+
+def v2_dispatch(torch, dev, ag, b, codes, kb, seed, C=None):
+    """One v2 dispatch at bucket `kb` (B rows of K = 8 queries from the
+    arena `b`): each stage's event time, its bytes bound and the live
+    bytes of the dispatch at 1 and 2 rows (their difference a row),
+    without and with records."""
+    import numpy as np
+    C = C or ag.SEEDS_PER_BLOCK
+    K = ag.K_QUERIES
+    B = ag._dispatch_rows_v2(kb, K, False)
+    rng = np.random.default_rng(seed)
+    gids = sorted(b['rows'])
+    refs = [gids[w % len(gids)] for w in range(B)]
+
+    def put(a):
+        return torch.tensor(np.asarray(a, np.int32), device=dev)
+
+    r_rows = put([b['rows'][g] for g in refs])
+    rlens = put([len(codes[g]) for g in refs])
+    qg = rng.choice(gids, (B, K))
+    q_rows = put([[b['rows'][g] for g in row] for row in qg])
+    qlens = put([[len(codes[g]) for g in row] for row in qg])
+    p = ag.AlignParams()
+    kw = dict(Lq=kb, Lr=kb, K=K, mqd=p.mqd, mrd=p.mrd, reg=p.reg, C=C)
+
+    def peak(R, alns=False):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ag._row_core(b, r_rows[:R], rlens[:R], q_rows[:R], qlens[:R],
+                     with_alns=alns, **kw)
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - base
+
+    votes = ag._votes_v2(b, r_rows, q_rows, Lq=kb, Lr=kb, C=C)
+    A, S, D, vb = ag._elect_v2(votes, Lq=kb, Lr=kb)
+    flags = ag._propagate_v2(b, r_rows, rlens, q_rows, qlens, A, S, D, Lr=kb)
+    N = B * K
+    flat = [x.reshape((N,) + x.shape[2:]) for x in flags]
+    rl = rlens[:, None].expand(B, K).reshape(N)
+    stages = dict(
+        votes_ms=time_ms(lambda: ag._votes_v2(b, r_rows, q_rows, Lq=kb,
+                                              Lr=kb, C=C), 3),
+        election_ms=time_ms(lambda: ag._elect_v2(votes, Lq=kb, Lr=kb), 3),
+        propagation_ms=time_ms(lambda: ag._propagate_v2(
+            b, r_rows, rlens, q_rows, qlens, A, S, D, Lr=kb), 3),
+        back_half_ms=time_ms(lambda: ag._blocks_to_measures(
+            *flat, rl, Lq=kb, mqd=p.mqd, mrd=p.mrd, reg=p.reg), 3),
+        row_core_ms=time_ms(lambda: ag._row_core(
+            b, r_rows, rlens, q_rows, qlens, **kw), 3))
+    del votes, flags, flat
+    # Least bytes of the row core: each distinct reference's sampled
+    # values and packs (both strands) and window rows, each distinct
+    # query's sampled seeds and codes read once; the aggregates written.
+    NQ = kb // ag.FINE * C
+    n_ref = len(torch.unique(r_rows))
+    n_q = len(torch.unique(q_rows))
+    nbytes = (n_ref * (2 * NQ * (4 + 8 + 8) + b['r2dov'][0].numel())
+              + n_q * (NQ * 8 + kb) + N * 12)
+    one, two = peak(1), peak(2)
+    one_r, two_r = peak(1, True), peak(2, True)
+    return dict(bucket=kb, rows=B, K=K, C=C, pack_bits=b['pack_bits'],
+                stages=stages,
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by='bytes',
+                peak_bytes_1_row=one, peak_bytes_2_rows=two,
+                bytes_per_row=two - one,
+                bytes_per_query_pos=(two - one) / (K * kb),
+                model_bytes_per_row=K * kb * ag._V2_BYTES_PER_POS,
+                records_peak_bytes_1_row=one_r,
+                records_peak_bytes_2_rows=two_r,
+                records_bytes_per_query_pos=(two_r - one_r) / (K * kb),
+                records_model_bytes_per_row=K * kb
+                * ag._V2_BYTES_PER_POS_RECORDS)
+
+
+def phase_align_hybrid(torch, dev, ag, idx, codes, pairs, v3_out, seed):
+    """all2all_gpu at its defaults on the 48 genomes (their v3 arenas from
+    phase align_v3 reused); the hybrid against v3 alone."""
+    import numpy as np
+    with pipe_timer(ag) as st:
+        t0 = time.perf_counter()
+        out = ag.all2all_gpu(codes, pairs, index=idx)
+        first_s = time.perf_counter() - t0
+    if st['v3']['pairs'] != len(pairs):
+        fail('align_hybrid: v3 did not run every pair')
+    hard = st['v2']['pairs']
+    changed = int((out != v3_out).any(axis=1).sum())
+    walls = {'hybrid': [], 'v3_alone': []}
+    cov = ag.V3_RERUN_COV
+    for _ in range(3):
+        for name in walls:
+            ag.V3_RERUN_COV = cov if name == 'hybrid' else 0.0
+            try:
+                t0 = time.perf_counter()
+                got = ag.all2all_gpu(codes, pairs, index=idx)
+                walls[name].append(time.perf_counter() - t0)
+            finally:
+                ag.V3_RERUN_COV = cov
+            if not np.array_equal(got, out if name == 'hybrid' else v3_out):
+                fail(f'align_hybrid: {name} differs between runs')
+    prof = profile_breakdown(torch, lambda: ag.all2all_gpu(codes, pairs,
+                                                           index=idx))
+    res = dict(phase='align_hybrid', corpus='genomes48', pairs=len(pairs),
+               hard_pairs=hard, hard_pairs_changed=changed,
+               first_run_s=first_s, warm_s=walls,
+               pairs_per_s={k: len(pairs) / min(v) for k, v in walls.items()},
+               v2_s_first=st['v2']['s'], v3_s_first=st['v3']['s'],
+               profile=prof)
+    res.update(native_dtani(codes, pairs, out))
+    kb = 65536
+    res['v2_dispatch'] = v2_dispatch(torch, dev, ag,
+                                     idx.bucket[(kb, ag.SEEDS_PER_BLOCK)],
+                                     codes, kb, seed)
+    emit(res)
+    return res
+
+
+# --------------------------------------------------------------------------
+# Phase 9: the v2 pipe above V3_MAX_BUCKET
+# --------------------------------------------------------------------------
+
+# Genomes concatenated from example/multifasta.fna, by ids: 158,076,
+# 178,606, 193,520 and 248,724 bases (buckets 196,608 and 262,144).
+V2_GENOMES = (
+    ('NC_010807', 'NC_010807.alt1', 'NC_010807.alt2', 'NC_010807.alt3'),
+    ('NC_005091', 'NC_005091.alt1', 'NC_005091.alt2'),
+    ('NC_025457', 'NC_025457.alt1', 'NC_025457.alt2', 'NC_002486'),
+    ('NC_002486.alt', 'NC_010807', 'NC_005091', 'NC_025457',
+     'NC_025457.alt2'),
+)
+
+
+def v2_corpus():
+    """The 4 concatenated genomes and a 5% mutant of each (8 genomes)."""
+    import numpy as np
+    from vclust_tpu_torch.models.input import Genome, load_genomes
+    from vclust_tpu_torch.utils.data import example_path
+    genomes, _ = load_genomes(example_path('multifasta.fna'))
+    by_name = {g.name: g.seqs[0] for g in genomes}
+    rng = np.random.default_rng(1)
+    acgt = np.frombuffer(b'ACGT', dtype='S1')
+    corpus = []
+    for k, names in enumerate(V2_GENOMES):
+        s = b''.join(by_name[n] for n in names)
+        m = np.frombuffer(s, dtype='S1').copy()
+        hit = rng.random(len(m)) < 0.05
+        m[hit] = acgt[rng.integers(0, 4, hit.sum())]
+        corpus += [Genome(f'cat{k}', [s]), Genome(f'cat{k}.mut', [m.tobytes()])]
+    return corpus
+
+
+def wide_pack_check(dev, ag) -> dict:
+    """The v2 election's 64-bit pack, which only a pair of two genomes in
+    bucket MAX_TPU_LEN reaches (vote codes above 22 bits; ROADMAP R9): a
+    random genome of 950,000 bases and its 5% mutant, the card against the
+    CPU, with the native engine's tANI beside it (ROADMAP R10: v2 loses
+    alignments from bucket 524,288 up, in the JAX package too)."""
+    import numpy as np
+    rng = np.random.default_rng(2)
+    g = rng.integers(0, 4, 950_000).astype(np.int8)
+    m = g.copy()
+    hit = rng.random(len(g)) < 0.05
+    m[hit] = (m[hit] + rng.integers(1, 4, hit.sum())) % 4
+    codes, pair = [g, m], np.array([[0, 1]], np.int32)
+    t0 = time.perf_counter()
+    card = ag._all2all_single(codes, pair, device=dev, pipe='v2')
+    card_s = time.perf_counter() - t0
+    cpu = ag._all2all_single(codes, pair, device='cpu', pipe='v2')
+    if not np.array_equal(card, cpu):
+        fail('align_v2: the card != the CPU at the 64-bit election pack')
+    if not card[0, 0] > 0:
+        fail('align_v2: nothing elected at the 64-bit election pack')
+    nat = native_dtani(codes, pair, card)
+    return dict(bucket=ag._pad_bucket(len(g)), seconds=card_s,
+                aggregates=card[0].tolist(),
+                tani=nat['worst_tani_and_native'][0],
+                native_tani=nat['worst_tani_and_native'][1])
+
+
+def phase_align_v2(torch, dev, seed):
+    import numpy as np
+    from vclust_tpu_torch.ops import align_gpu as ag
+    codes, pairs = align_inputs(v2_corpus())
+    lens = [len(c) for c in codes]
+    buckets = sorted({max(ag._pad_bucket(lens[i]), ag._pad_bucket(lens[j]))
+                      for i, j in pairs.tolist()})
+    if buckets[0] <= ag.V3_MAX_BUCKET:
+        fail(f'align_v2: buckets {buckets} reach the v3 pipe')
+    idx = ag.GenomeIndex(codes, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ag.stage1_pack.launches = 0
+    t0 = time.perf_counter()
+    got = ag._all2all_single(codes, pairs, index=idx, keep_alignments=True,
+                             pipe='v2')
+    first_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if ag.stage1_pack.launches:
+        fail('align_v2: the v2 pipe launched K2')
+    out = got[0]
+    if out.shape != (len(pairs), 6) or (out < 0).any():
+        fail('align_v2: malformed aggregates')
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        agg = ag._all2all_single(codes, pairs, index=idx, pipe='v2')
+        walls.append(time.perf_counter() - t0)
+    if not np.array_equal(agg, out):
+        fail('align_v2: aggregates differ between runs / with records')
+    # Two pairs at 262,144 on the card and on the CPU: the longest genome
+    # (ids 0) with its mutant (1) and with the next longest (2), which
+    # shares two example genomes with it.
+    check = np.array([[0, 1], [0, 2]], np.int32)
+    rows = [int(np.flatnonzero((pairs == p).all(axis=1))[0]) for p in check]
+    card = ag._all2all_single(codes, check, device=dev, keep_alignments=True,
+                              pipe='v2')
+    cpu = ag._all2all_single(codes, check, device='cpu',
+                             keep_alignments=True, pipe='v2')
+    if not (np.array_equal(card[0], cpu[0]) and np.array_equal(card[0],
+                                                                out[rows])
+            and np.array_equal(card[1][1], cpu[1][1])
+            and np.array_equal(card[1][0], cpu[1][0])):
+        fail('align_v2: the card != the CPU')
+    kb = buckets[-1]
+    dispatch = v2_dispatch(torch, dev, ag, idx.bucket[(kb,
+                                                       ag.SEEDS_PER_BLOCK)],
+                           codes, kb, seed)
+    c8 = v2_dispatch(torch, dev, ag, idx.ensure(kb, sorted(
+        idx.bucket[(kb, ag.SEEDS_PER_BLOCK)]['rows']), C=8), codes, kb, seed,
+        C=8)
+    wide = wide_pack_check(dev, ag)
+    den = np.array([lens[i] + lens[j] for i, j in pairs.tolist()])
+    res = dict(phase='align_v2', genomes=len(codes), lengths=lens,
+               pairs=len(pairs), buckets=buckets, pack_bits=sorted(
+                   {idx.bucket[k]['pack_bits'] for k in idx.bucket}),
+               first_run_s=first_s, warm_s=walls,
+               pairs_per_s=len(pairs) / min(walls), peak_mem_gib=peak / 2 ** 30,
+               records=int(len(got[1][0])),
+               tani=((out[:, 1] + out[:, 4]) / den).round(5).tolist(),
+               cpu_eq_pairs=check.tolist(),
+               cpu_eq_records=int(len(cpu[1][0])), wide_pack=wide,
+               dispatch=dispatch,
+               dispatch_c8={k: c8[k] for k in (
+                   'rows', 'peak_bytes_1_row', 'peak_bytes_2_rows',
+                   'bytes_per_row', 'model_bytes_per_row')})
+    emit(res)
+    return res
 
 
 def main():
@@ -1011,6 +1441,7 @@ def main():
     phase_cc(torch, dev, args.seed)
     with tempfile.TemporaryDirectory(prefix='vclust_smoke_') as tmp:
         launches, k1_main = phase_main(torch, dev, pathlib.Path(tmp))
+        engine = phase_align_engine(torch, pathlib.Path(tmp))
     k1_row = dict(
         name='occupancy_count', route='cuda',
         source='vclust_tpu_torch/csrc/occupancy.cu',
@@ -1029,7 +1460,8 @@ def main():
             'device_ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms',
             'limb_products', 'limb_products_without_classes', 'split')})
     kx_row['at'] = 'the kx phase jobs'
-    k2_row, k3_row = phase_align_v3(torch, dev, args.seed)
+    k2_row, k3_row = phase_align_v3(torch, dev, args.seed, engine)
+    phase_align_v2(torch, dev, args.seed)
     emit({'kernels': [kx_row, k1_row, k2_row, k3_row],
           'seconds': time.perf_counter() - t0})
     smi = subprocess.run(

@@ -10,14 +10,15 @@ every output is an integer, so the tolerance is 0:
   by `index_v3_from_numpy`: every intermediate, at buckets 4,096 and 6,144
   with K = 2 and 4, over a reverse-complement mutant, an N run and a
   tandem copy that ties stage-1 counts;
-- the all-vs-all entry point (`_all2all_single_v3` against
-  `_all2all_single(..., pipe='v3')`), aggregates and records, on 16
-  contigs of `bench.make_contig_corpus` (all 120 pairs) and on 4 example
-  genomes with one 5% mutant each; also over split arenas and with B = 1
-  dispatch row.
+- the all-vs-all entry point (`_all2all_single(..., pipe='v3')` in both
+  packages), aggregates and records, on 16 contigs of
+  `bench.make_contig_corpus` (all 120 pairs) and on NC_005091 and
+  NC_005091.alt1 of the example with one 5% mutant each (bucket 65,536,
+  6 pairs); also over split arenas and with B = 1 dispatch row.
 
 The JAX side runs once per corpus (module fixtures) and once per
-row-core bucket: XLA on the CPU compiles these programs slowly.
+row-core bucket: XLA on the CPU compiles each program in ~45 s, so each
+corpus stays in one bucket (one program).
 """
 
 import functools
@@ -39,6 +40,9 @@ from vclust_tpu.models.align import _genome_codes, order_objects  # noqa
 from vclust_tpu.models.input import load_genomes      # noqa: E402
 from vclust_tpu.ops import align_tpu as ja            # noqa: E402
 from vclust_tpu_torch.ops import align_gpu as ag      # noqa: E402
+
+# Six pytest workers share the machine: one torch thread each.
+torch.set_num_threads(1)
 
 CPU = torch.device('cpu')
 _DEBUG_KEYS = ('cnt1', 'g1', 'cnt2', 'g2', 'cnt_best', 'A', 'S', 'D', 'm',
@@ -185,8 +189,11 @@ def _contigs16():
 
 
 def _example4():
+    """NC_005091 and NC_005091.alt1 (57,455 bases each) with one 5% mutant
+    each: all in bucket 65,536, so the JAX side compiles one program."""
     genomes, _ = load_genomes(FASTA_FILE)
-    return _ids_codes(bench.make_align_corpus(genomes[:4], reps=1))
+    pick = [g for g in genomes if g.name in ('NC_005091', 'NC_005091.alt1')]
+    return _ids_codes(bench.make_align_corpus(pick, reps=1))
 
 
 _CORPORA = {'contigs16': _contigs16, 'example4': _example4}
@@ -198,8 +205,13 @@ def corpus(request):
     run keeps alignments, whose aggregates equal its run without."""
     codes = _CORPORA[request.param]()
     pairs = _all_pairs(len(codes))
-    want = ja._all2all_single(codes, pairs, None, ja.GenomeIndexTPU(codes),
-                              None, True, ja.SEEDS_PER_BLOCK, pipe='v3')
+    with pytest.MonkeyPatch.context() as mp:
+        # The JAX CPU default pads every dispatch to 16 rows; 4 rows wastes
+        # less (results do not depend on the dispatch rows).
+        mp.setattr(ja, '_batch_rows_v3', lambda L, K: 4)
+        want = ja._all2all_single(codes, pairs, None,
+                                  ja.GenomeIndexTPU(codes), None, True,
+                                  ja.SEEDS_PER_BLOCK, pipe='v3')
     return codes, pairs, want
 
 
@@ -216,8 +228,8 @@ def _assert_equal(got, want, keep):
 @pytest.mark.parametrize('keep', [False, True])
 def test_all2all_matches_reference(corpus, keep):
     codes, pairs, want = corpus
-    got = ag._all2all_single_v3(codes, pairs, keep_alignments=keep,
-                                device=CPU)
+    got = ag._all2all_single(codes, pairs, keep_alignments=keep, pipe='v3',
+                             device=CPU)
     _assert_equal(got, want, keep)
     assert (want[0][:, 0] > 0).sum() > len(pairs) // 8
 
@@ -233,8 +245,8 @@ def test_all2all_split_arenas_match_reference(corpus, monkeypatch):
         return ensure(self, Lp, gids, cache)
 
     monkeypatch.setattr(ag.GenomeIndex, 'ensure_v3', spy)
-    got = ag._all2all_single_v3(codes, pairs, keep_alignments=True,
-                                device=CPU)
+    got = ag._all2all_single(codes, pairs, keep_alignments=True, pipe='v3',
+                             device=CPU)
     _assert_equal(got, want, True)
     assert len(calls) > 1 and all(n <= 3 and not c for n, c in calls)
 
@@ -243,10 +255,10 @@ def test_all2all_results_do_not_depend_on_dispatch_rows(corpus, monkeypatch):
     codes, pairs, want = corpus
     idx = ag.GenomeIndex(codes, device=CPU)
     monkeypatch.setattr(ag, '_dispatch_rows', lambda L, K, dev, alns: 1)
-    one = ag._all2all_single_v3(codes, pairs, index=idx)
+    one = ag._all2all_single(codes, pairs, index=idx, pipe='v3')
     monkeypatch.setattr(ag, '_dispatch_rows',
                         lambda L, K, dev, alns: 10 ** 6)
-    every = ag._all2all_single_v3(codes, pairs, index=idx)
+    every = ag._all2all_single(codes, pairs, index=idx, pipe='v3')
     assert np.array_equal(one, every)
     assert np.array_equal(every, want[0])
 
@@ -266,8 +278,8 @@ def test_record_cap_warns_only_when_it_overflows(monkeypatch):
     codes = _row_genomes(4096)
     pairs = _all_pairs(len(codes))
     idx = ag.GenomeIndex(codes, device=CPU)
-    full = ag._all2all_single_v3(codes, pairs, index=idx,
-                                 keep_alignments=True)
+    full = ag._all2all_single(codes, pairs, index=idx,
+                              keep_alignments=True, pipe='v3')
     most = int(full[1][1].max())
     assert most > 1 and (full[1][1] < most).any()
     log = logging.getLogger('vclust-tpu')
@@ -275,19 +287,24 @@ def test_record_cap_warns_only_when_it_overflows(monkeypatch):
     handler = logging.Handler()
     handler.emit = lambda rec: seen.append(rec.getMessage())
     log.addHandler(handler)
+    # A CLI run earlier in this process (`-v 0`) may have left the logger
+    # at ERROR.
+    level = log.level
+    log.setLevel(logging.WARNING)
     try:
         # Exactly full: no warning, every record kept.
         monkeypatch.setattr(ag, '_maxseg', lambda Lq, reg: most)
-        exact = ag._all2all_single_v3(codes, pairs, index=idx,
-                                      keep_alignments=True)
+        exact = ag._all2all_single(codes, pairs, index=idx,
+                                   keep_alignments=True, pipe='v3')
         assert seen == []
         _assert_equal(exact, full, True)
         # One short: a warning, and the fullest pairs lose their last row.
         monkeypatch.setattr(ag, '_maxseg', lambda Lq, reg: most - 1)
-        cut = ag._all2all_single_v3(codes, pairs, index=idx,
-                                    keep_alignments=True)
+        cut = ag._all2all_single(codes, pairs, index=idx,
+                                 keep_alignments=True, pipe='v3')
     finally:
         log.removeHandler(handler)
+        log.setLevel(level)
     assert len(seen) == 1 and 'overflowed' in seen[0]
     assert np.array_equal(cut[0], full[0])
     assert np.array_equal(cut[1][1], np.minimum(full[1][1], most - 1))
@@ -298,16 +315,25 @@ def test_record_cap_warns_only_when_it_overflows(monkeypatch):
 def test_all2all_guards_raise(monkeypatch, case):
     codes = [np.zeros(5000, np.int8), np.zeros(3000, np.int8)]
     pairs = np.array([[0, 1]], np.int32)
-    err = ValueError
     if case == 'wq_above_416':
         monkeypatch.setattr(ag, 'V3_WQ', 448)
     elif case == 'bucket_above_13_bits':
         codes[0] = np.zeros(300_000, np.int8)
         monkeypatch.setattr(ag, 'V3_MAX_BUCKET', 1 << 20)
     elif case == 'bucket_above_max':
+        # Above V3_MAX_BUCKET the v3 pipe hands the group to v2 (which
+        # raised NotImplementedError until v2 was ported); an unknown
+        # pipe raises.
         monkeypatch.setattr(ag, 'V3_MAX_BUCKET', 4096)
-        err = NotImplementedError
+        idx = ag.GenomeIndex(codes, device=CPU)
+        got = ag._all2all_single(codes, pairs, index=idx, pipe='v3')
+        assert list(idx.bucket) == [(6144, ag.SEEDS_PER_BLOCK)]
+        assert np.array_equal(got, ag._all2all_single(codes, pairs,
+                                                      index=idx, pipe='v2'))
+        with pytest.raises(ValueError):
+            ag._all2all_single(codes, pairs, index=idx, pipe='v4')
+        return
     else:
         monkeypatch.setattr(ag, 'MAX_TPU_LEN', 4096)
-    with pytest.raises(err):
-        ag._all2all_single_v3(codes, pairs, device=CPU)
+    with pytest.raises(ValueError):
+        ag._all2all_single(codes, pairs, pipe='v3', device=CPU)

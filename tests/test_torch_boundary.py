@@ -21,6 +21,9 @@ from conftest import FASTA_FILE, REPO
 
 sys.path.insert(0, str(REPO))
 
+# Six pytest workers share the machine: one torch thread each.
+torch.set_num_threads(1)
+
 PKG = REPO / 'vclust_tpu_torch'
 
 _IMPORT_ALL = r'''
@@ -86,6 +89,7 @@ def _sets():
 def _entry_points():
     from vclust_tpu_torch.io.formats import read_ani, read_ids
     from vclust_tpu_torch.models.cluster import ClusterParams, run_cluster
+    from vclust_tpu_torch.models.align import run_align
     from vclust_tpu_torch.models.input import load_genomes
     from vclust_tpu_torch.models.prefilter import run_prefilter
     from vclust_tpu_torch.ops import align_gpu, cc, extend, prefilter
@@ -101,8 +105,12 @@ def _entry_points():
             np.zeros(1, np.int32), np.zeros(1, np.int32), 10, 10),
         'connected_components': lambda: cc.connected_components_device(
             3, np.array([[0, 1]])),
-        'all2all_v3': lambda: align_gpu._all2all_single_v3(
+        'all2all_v3': lambda: align_gpu._all2all_single(
+            [np.zeros(100, np.int8)] * 2, np.array([[0, 1]]), pipe='v3'),
+        'all2all_gpu': lambda: align_gpu.all2all_gpu(
             [np.zeros(100, np.int8)] * 2, np.array([[0, 1]])),
+        'run_align_gpu': lambda: run_align(
+            load_genomes(FASTA_FILE)[0][:2], engine='gpu'),
         'run_prefilter': lambda: run_prefilter(
             load_genomes(FASTA_FILE)[0]),
         'run_cluster': lambda: run_cluster(
@@ -114,7 +122,8 @@ def _entry_points():
 @pytest.mark.parametrize('name', ['shared_kmer_counts',
                                   'shared_kmer_counts_indexed',
                                   'batched_extend', 'connected_components',
-                                  'all2all_v3', 'run_prefilter',
+                                  'all2all_v3', 'all2all_gpu',
+                                  'run_align_gpu', 'run_prefilter',
                                   'run_cluster'])
 def test_entry_point_without_device_raises(monkeypatch, name):
     _no_cuda(monkeypatch)

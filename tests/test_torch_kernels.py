@@ -21,6 +21,9 @@ from vclust_tpu_torch.ops import align_gpu as tav  # noqa: E402
 from vclust_tpu_torch.ops import extend as tx      # noqa: E402
 from vclust_tpu_torch.ops import prefilter as tpf  # noqa: E402
 
+# Six pytest workers share the machine: one torch thread each.
+torch.set_num_threads(1)
+
 
 @pytest.fixture
 def cuda_device():
@@ -253,3 +256,50 @@ def test_cpu_tensors_take_the_plain_k2_and_k3():
                     tav.band_counts_plain(wins, qb)):
         assert torch.equal(g, w)
     assert (tav.stage1_pack.launches, tav.band_counts.launches) == before
+
+
+def _hybrid_codes(seed=4):
+    """Six genomes of 3-3.4 kb: a base with an internal repeat, its 5%
+    mutant, the reverse complement of a 4% mutant, a 3% mutant of its
+    first 1,400 bases (a containment: a hard pair) and two unrelated
+    genomes (one with an N run), in ids order."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 4, 3300).astype(np.int8)
+    base[2500:3100] = base[300:900]
+
+    def mut(s, rate):
+        s = s.copy()
+        hit = rng.random(len(s)) < rate
+        s[hit] = (s[hit] + rng.integers(1, 4, hit.sum())) % 4
+        return s
+
+    rcm = mut(base, 0.04)[::-1]
+    junk = rng.integers(0, 4, 3000).astype(np.int8)
+    junk[100:200] = 4
+    return [base, mut(base, 0.05), np.where(rcm < 4, 3 - rcm, 4).astype(
+        np.int8), rng.integers(0, 4, 3200).astype(np.int8), junk,
+        mut(base[:1400], 0.03)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('pipe', ['v3', 'v2'])
+def test_all2all_gpu_card_matches_cpu(cuda_device, monkeypatch, pipe):
+    """The device align engine on the card (K2 and K3 launched on v3; the
+    hybrid's v2 re-run, or v2 alone) == the same engine on the CPU,
+    aggregates and records."""
+    monkeypatch.setenv('VCLUST_ALIGN_PIPE', pipe)
+    codes = _hybrid_codes()
+    n = len(codes)
+    pairs = np.array([(i, j) for i in range(n) for j in range(i + 1, n)],
+                     np.int32)
+    before = tav.stage1_pack.launches, tav.band_counts.launches
+    got = tav.all2all_gpu(codes, pairs, keep_alignments=True,
+                          device=cuda_device)
+    launched = (tav.stage1_pack.launches - before[0],
+                tav.band_counts.launches - before[1])
+    want = tav.all2all_gpu(codes, pairs, keep_alignments=True, device='cpu')
+    assert np.array_equal(got[0], want[0])
+    assert np.array_equal(got[1][1], want[1][1])
+    assert np.array_equal(got[1][0], want[1][0])
+    assert (got[0][:, 1] > 0).sum() >= 4
+    assert (min(launched) >= 1) if pipe == 'v3' else launched == (0, 0)

@@ -23,6 +23,9 @@ from vclust_tpu_torch.ops import cc as tcc                         # noqa: E402
 from vclust_tpu_torch.ops import extend as tx                      # noqa: E402
 from vclust_tpu_torch.ops import prefilter as tpf                  # noqa: E402
 
+# Six pytest workers share the machine: one torch thread each.
+torch.set_num_threads(1)
+
 
 def _carry(ji):
     """The JAX package's index, carried across as numpy arrays."""

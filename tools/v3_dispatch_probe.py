@@ -11,7 +11,7 @@ contigs, made in the run):
           bytes a query position that slope implies once the four bands'
           windows and counts are taken off (the measured counterpart of
           `_BYTES_PER_POS`);
-  sweep   `_all2all_single_v3` over each corpus with the live-bytes budget
+  sweep   `_all2all_single(..., pipe='v3')` over each corpus with the live-bytes budget
           `_LIVE_BYTES` at 0.5, 1, 2, 4 and 8 GiB, the budgets interleaved
           in every repetition: B at each bucket, K2 launches, warm pairs/s
           (best of --reps), and the peak device memory of a run with
@@ -103,7 +103,7 @@ def sweep(torch, dev, ag, corpora, reps: int):
                 for name, (codes, pairs, idx) in corpora.items():
                     ag.stage1_pack.launches = 0
                     t0 = time.perf_counter()
-                    ag._all2all_single_v3(codes, pairs, index=idx)
+                    ag._all2all_single(codes, pairs, index=idx, pipe='v3')
                     walls[(name, gib)].append(time.perf_counter() - t0)
                     launches[(name, gib)] = ag.stage1_pack.launches
         for gib in BUDGETS_GIB:
@@ -111,8 +111,8 @@ def sweep(torch, dev, ag, corpora, reps: int):
             for name, (codes, pairs, idx) in corpora.items():
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
-                ag._all2all_single_v3(codes, pairs, index=idx,
-                                      keep_alignments=True)
+                ag._all2all_single(codes, pairs, index=idx,
+                                   keep_alignments=True, pipe='v3')
                 torch.cuda.synchronize()
                 ws = walls[(name, gib)]
                 emit(dict(
@@ -145,7 +145,7 @@ def main():
                          ('contigs128', cs.contig_corpus())):
         codes, pairs = cs.align_inputs(corpus)
         idx = ag.GenomeIndex(codes, device=dev)
-        ag._all2all_single_v3(codes, pairs, index=idx)     # warm-up
+        ag._all2all_single(codes, pairs, index=idx, pipe='v3')   # warm-up
         corpora[name] = (codes, pairs, idx)
     dispatch_memory(torch, dev, ag, corpora['genomes48'][2],
                     corpora['genomes48'][0])

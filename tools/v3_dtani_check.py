@@ -10,10 +10,12 @@ engine), and all pairs among them. Over those pairs it runs:
   jax_v3  the JAX package's `_all2all_single(..., pipe='v3')` (v3 alone);
   hybrid  the JAX package's `all2all_tpu` (v3, then its v2 re-run of hard
           pairs);
-  port    the port's `_all2all_single_v3` (plain K2 and K3 on the CPU);
-and prints, for each of the last three, the max |tANI - tANI(native)|,
+  port    the port's `_all2all_single(..., pipe='v3')` (plain K2 and K3 on
+          the CPU);
+  port_hybrid  the port's `all2all_gpu` (its v3, then its v2 re-run);
+and prints, for each of the last four, the max |tANI - tANI(native)|,
 the pairs above 0.01 and the tANI of the named pair, and whether the port
-equals jax_v3 bit for bit.
+equals jax_v3 and port_hybrid equals hybrid, bit for bit.
 
     JAX_PLATFORMS=cpu python3 tools/v3_dtani_check.py [--genomes 1 27]
 
@@ -69,7 +71,9 @@ def main():
                                      ja.GenomeIndexTPU(codes), None, False,
                                      ja.SEEDS_PER_BLOCK, pipe='v3'),
         'hybrid': ja.all2all_tpu(codes, pairs),
-        'port': ag._all2all_single_v3(codes, pairs,
+        'port': ag._all2all_single(codes, pairs, pipe='v3',
+                                   device=torch.device('cpu')),
+        'port_hybrid': ag.all2all_gpu(codes, pairs,
                                       device=torch.device('cpu')),
     }
     lens = np.array([len(c) for c in codes], np.float64)
@@ -84,7 +88,9 @@ def main():
                pairs=len(pairs), named_pair=list(args.genomes[:2]),
                tani_native_named=float(tani(nat)[row]),
                port_eq_jax_v3=bool(np.array_equal(runs['port'],
-                                                  runs['jax_v3'])))
+                                                  runs['jax_v3'])),
+               port_hybrid_eq_hybrid=bool(np.array_equal(
+                   runs['port_hybrid'], runs['hybrid'])))
     for name, out in runs.items():
         d = np.abs(tani(out) - tani(nat))
         res[name] = dict(max_abs_dtani=float(d.max()),

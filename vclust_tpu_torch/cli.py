@@ -198,10 +198,11 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument('--ar', metavar='<int>', type=int, default=3,
                    help='Min. length of run ending approx. extension [3]')
     p.add_argument('--engine', metavar='<name>', type=str, default='auto',
-                   choices=['auto', 'native', 'py', 'tpu'],
+                   choices=['auto', 'native', 'py', 'gpu', 'tpu'],
                    help='Align engine: auto, native (exact C++, '
-                        'golden-parity), py (exact Python oracle), tpu '
-                        '(not yet ported) [auto]')
+                        'golden-parity), py (exact Python oracle), gpu '
+                        '(batched device engine on CUDA; tpu is the same '
+                        'engine) [auto]')
     _add_common(p)
 
     # --- cluster -----------------------------------------------------------
@@ -432,6 +433,13 @@ def handle_info(args):
     for name in cuda.SOURCES:
         state = 'built' if cuda.is_built(name) else 'not built'
         lines.append(f'  kernel     csrc/{name}.cu  {state}')
+    from .ops import align_gpu, lz_native
+    native = 'native C++' if lz_native.available() else 'Python oracle'
+    lines.append(f'  align      engines: auto/native/py on the host ({native} '
+                 f'for auto); gpu (= tpu): ops/align_gpu.py, pipe '
+                 f'{os.environ.get("VCLUST_ALIGN_PIPE", "v3")}, v3 up to '
+                 f'bucket {align_gpu.V3_MAX_BUCKET}, v2 above and for hard '
+                 f'pairs')
     for mod in ('prefilter', 'align', 'cluster', 'dedup'):
         try:
             __import__(f'{__package__}.models.{mod}')

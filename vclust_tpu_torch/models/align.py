@@ -91,10 +91,11 @@ def run_align(
 ) -> AlignResult:
     """Run the all-vs-all alignment over candidate pairs.
 
-    engine: 'auto' (native C++ if available, else Python), 'native', 'py'.
-    Both engines are bit-identical; the Python one is the semantic oracle.
-    Both run on the host; 'tpu' (the JAX package's device engine) is not
-    yet ported and raises.
+    engine: 'auto' (native C++ if available, else Python), 'native', 'py'
+    (the host engines, bit-identical; the Python one is the semantic
+    oracle), or 'gpu' ('tpu' is the same engine, the JAX package's name
+    for it): the batched device engine (ops/align_gpu.py), on `cuda`
+    unless VCLUST_TORCH_DEVICE asks for the CPU.
     """
     logger = get_logger()
     params = params or AlignParams()
@@ -130,12 +131,9 @@ def run_align(
     if engine == 'native' and not lz_native.available():
         raise RuntimeError('native align engine unavailable')
 
-    if engine == 'tpu':
-        # The JAX package's batched device engine (ops/align_tpu.py) is not
-        # yet ported (ROADMAP M2-M4).
-        raise NotImplementedError(
-            'align engine "tpu" is not yet ported to the torch package; '
-            'use --engine auto, native or py')
+    if engine in ('gpu', 'tpu'):
+        return _run_align_gpu(genomes, order, objects, result, candidates,
+                              params, out_filters, keep_alignments)
 
     if use_native:
         return _run_align_native(genomes, order, objects, result, candidates,
@@ -201,6 +199,101 @@ def run_align(
     return result
 
 
+def _run_align_gpu(genomes, order, objects, result, candidates, params,
+                   out_filters, keep_alignments=False):
+    """Device batch path: one program run per length bucket
+    (ops/align_gpu.py:all2all_gpu). Emits the same measure columns as the
+    JAX package's device engine, bit for bit; with keep_alignments, the
+    per-alignment rows come from the device's segment records. Pairs
+    touching genomes beyond the device engine's position range
+    (align_gpu.MAX_TPU_LEN) go to the exact native engine (the Python
+    oracle where the native library is absent)."""
+    from ..ops import align_gpu
+    from ..utils.device import resolve_device
+    logger = get_logger()
+    device = resolve_device()
+    logger.info(f'Aligning {len(candidates)} genome pairs (GPU engine, '
+                f'{device})')
+    codes_list = [_genome_codes(genomes[order[pos]])
+                  for pos in range(len(order))]
+    oversized = {pos for pos, c in enumerate(codes_list)
+                 if len(c) > align_gpu.MAX_TPU_LEN}
+    host = np.array([i in oversized or j in oversized
+                     for (i, j) in candidates], dtype=bool)
+    pairs = np.asarray(candidates, dtype=np.int32).reshape(-1, 2)
+    agg = np.zeros((len(candidates), 6), dtype=np.int64)
+    blocks = [None] * (2 * len(candidates))  # directed task -> records
+
+    def _place(sel, res):
+        a, alns = res
+        ks = np.flatnonzero(sel)
+        agg[ks] = a
+        if alns is not None:
+            rows, counts = alns
+            offs = np.concatenate([[0], np.cumsum(counts)])
+            for t, k in enumerate(ks):
+                for d in (0, 1):
+                    blocks[2 * k + d] = rows[offs[2 * t + d]:
+                                             offs[2 * t + d + 1]]
+
+    if (~host).any():
+        res = align_gpu.all2all_gpu(codes_list, pairs[~host], params,
+                                    keep_alignments=keep_alignments,
+                                    device=device)
+        _place(~host, res if keep_alignments else (res, None))
+    if host.any():
+        eng = 'native' if lz_native.available() else 'Python'
+        logger.info(f'{int(host.sum())} pairs exceed the GPU engine\'s '
+                    f'{align_gpu.MAX_TPU_LEN}-base range; using the exact '
+                    f'{eng} engine for them')
+        if lz_native.available():
+            _place(host, lz_native.all2all_native(
+                codes_list, pairs[host], params,
+                keep_alignments=keep_alignments))
+        else:
+            _place(host, _all2all_py(codes_list, pairs[host], params,
+                                     keep_alignments))
+    alns = None
+    if keep_alignments:
+        alns = (np.concatenate(blocks) if blocks
+                else np.empty((0, 6), np.int32),
+                np.array([len(b) for b in blocks], dtype=np.int64))
+    return _emit_rows(result, candidates, objects, agg, alns, out_filters)
+
+
+def _all2all_py(codes_list, pairs, params, keep_alignments):
+    """Python-oracle batch shim with lz_native.all2all_native's output
+    layout: agg int64 (N, 6) = (n_ji, match_ji, alnlen_ji, n_ij, match_ij,
+    alnlen_ij) for pair (i, j) with the (q=j, r=i) direction first, and
+    (aln_rows, counts) in the native record layout when requested."""
+    agg = np.zeros((len(pairs), 6), dtype=np.int64)
+    counts = np.zeros(2 * len(pairs), dtype=np.int64)
+    blocks = []
+    indexes = {}
+
+    def idx_of(r):
+        if r not in indexes:
+            indexes[r] = ReferenceIndex(codes_list[r], params)
+        return indexes[r]
+
+    for k, (i, j) in enumerate(np.asarray(pairs, dtype=np.int64)):
+        for d, (q, r) in enumerate(((j, i), (i, j))):
+            alns = parse_pair(codes_list[q], idx_of(int(r)), params)
+            agg[k, 3 * d:3 * d + 3] = (len(alns),
+                                       sum(a.nt_match for a in alns),
+                                       sum(a.alnlen for a in alns))
+            if keep_alignments:
+                counts[2 * k + d] = len(alns)
+                for a in alns:
+                    blocks.append((a.qstart, a.qend, a.rstart, a.rend,
+                                   a.nt_match, a.nt_mismatch))
+    if not keep_alignments:
+        return agg, None
+    rows = (np.asarray(blocks, dtype=np.int32) if blocks
+            else np.empty((0, 6), np.int32))
+    return agg, (rows, counts)
+
+
 def _run_align_native(genomes, order, objects, result, candidates, params,
                       out_filters, keep_alignments, num_threads):
     """Batch path: one native lz_all2all call, thread pool over pairs.
@@ -220,6 +313,16 @@ def _run_align_native(genomes, order, objects, result, candidates, params,
     agg, alns = lz_native.all2all_native(
         codes_list, pairs, params, n_threads=n_threads,
         keep_alignments=keep_alignments)
+    return _emit_rows(result, candidates, objects, agg, alns, out_filters)
+
+
+def _emit_rows(result, candidates, objects, agg, alns, out_filters):
+    """AniRow (and, where alns is given, AlnRow) emission of the batch
+    engines. agg int64 (N, 6) = (n_ji, match_ji, alnlen_ji, n_ij,
+    match_ij, alnlen_ij) a candidate pair (i, j), the (q=j, r=i) direction
+    first; alns = (rows, counts) in the native record layout, two directed
+    tasks a pair in that order. Records of a directed pair are ordered by
+    alnlen descending, then qstart."""
     lengths = [o[1] for o in objects]
     names = [o[0] for o in objects]
     if alns is not None:
@@ -252,7 +355,7 @@ def _run_align_native(genomes, order, objects, result, candidates, params,
             if not _passes_out_filters(row, out_filters):
                 continue
             result.rows.append(row)
-            if keep_alignments:
+            if alns is not None:
                 lo, hi = aln_offsets[2 * k + d], aln_offsets[2 * k + d + 1]
                 block = aln_rows[lo:hi]
                 alnlens = block[:, 4] + block[:, 5]

@@ -1,8 +1,9 @@
-"""Batched device aligner, v3 pipe: the port of the JAX package's ops/align_tpu.py.
+"""Batched device aligner: the port of the JAX package's ops/align_tpu.py.
 
-The `engine='tpu'` align path of the JAX package runs two front ends that
-share one back half; this module ports the default one, v3, as the JAX
-package's `_all2all_single(..., pipe='v3')` computes it, bit for bit:
+The device align engine (`--engine gpu`, the JAX package's `--engine tpu`)
+runs two front ends that share one back half, as the JAX package's
+`all2all_tpu` and `_all2all_single(..., pipe='v3' | 'v2')` compute them,
+bit for bit. The default front end, v3:
 
 1. **Index** (`GenomeIndex.ensure_v3`, `_index_block_v3`): per genome and
    length bucket, {0,1} occupancies of hashed canonical 8-mers over query
@@ -22,17 +23,32 @@ package's `_all2all_single(..., pipe='v3')` computes it, bit for bit:
    to come): single-switch refinement, breaks, anchored-match chaining,
    segmentation, aggregates and, with_alns, the per-segment records.
 
+The v2 front end (sort join, torch ops), for buckets above V3_MAX_BUCKET,
+for the pairs v3 leaves hard, and with VCLUST_ALIGN_PIPE=v2:
+
+1. **Index** (`GenomeIndex.ensure`, `_index_block`): per genome, the C
+   seeds of each fine block with the smallest value hash, and per strand
+   their value-sorted packs (value, position) / (value, previous
+   position), plus 64-wide overlapped window rows.
+2. **Votes** (`_strand_votes`): one stable sort joins the K queries'
+   seeds with the reference's; a running max carries the last two
+   reference occurrences of each value to the query seeds.
+3. **Election** (`_elect`) of the densest diagonal cluster per fine and
+   per coarse block, the fine override, then neighbour propagation over
+   re-evaluated windows (`_eval_on`), and the same back half.
+
 A dispatch is R rows of one reference and K queries each (the JAX
 package's vmap over rows is the leading dimension here). Its TPU-only
 mechanisms are kept in semantics only: the hierarchical cummax is
-`torch.cummax`, the where-tree slices are gathers, and the dispatch size
-comes from a bound on live device bytes (`_dispatch_rows`).
+`torch.cummax`, the where-tree slices are gathers, the sort join's second
+sort is an inverse permutation, and the dispatch size comes from a bound
+on live device bytes (`_dispatch_rows`, `_dispatch_rows_v2`).
 
 `stage1_pack` (K2) and `band_counts` (K3) are the kernel wrappers: CPU
 tensors take `stage1_pack_plain` / `band_counts_plain`, CUDA tensors
 launch the kernel or raise. Each wrapper's `launches` counts its kernel
-launches. Entry point: `_all2all_single_v3`, on `cuda` unless the caller
-asks for the CPU (utils/device.py).
+launches. Entry points: `all2all_gpu` and `_all2all_single`, on `cuda`
+unless the caller asks for the CPU (utils/device.py).
 """
 
 import os
@@ -65,8 +81,19 @@ def _env_num(name, default, lo, hi, cast=int):
 
 
 SEED_K = _env_num('VCLUST_ALIGN_SEEDK', 8, 4, 8)
+SEEDS_PER_BLOCK = _env_num('VCLUST_ALIGN_C', 16, 1, 32)
+#                     v2 sampling: seeds kept per fine block, on both join
+#                     sides, by smallest value hash
+CANDS = 2           # v2 candidate reference positions kept per seed
 K_QUERIES = 8       # queries sharing one reference per dispatch row
+BLOCK = 128         # v2 coarse block width
 FINE = 32           # fine block width (rearrangement-boundary resolution)
+GAP_DIAG = 16       # v2: max diagonal spread within one vote cluster
+SMAX = 15           # v2: cluster-count saturation
+MIN_VOTES_F = _env_num('VCLUST_ALIGN_MVF', 2, 1, 64)
+#                     v2 votes a fine block needs to elect a diagonal
+MIN_VOTES_C = _env_num('VCLUST_ALIGN_MVC', 3, 1, 256)
+#                     v2 votes a coarse block needs to elect a diagonal
 EXT_ITERS = _env_num('VCLUST_ALIGN_EXTI', 3, 0, 16)
 #                     neighbor-diagonal propagation passes
 EXT_MIN = _env_num('VCLUST_ALIGN_EXTMIN', 17, 1, 32)
@@ -97,13 +124,23 @@ V3_SMIN = _env_num('VCLUST_ALIGN_V3_SMIN', 5, 1, 512)
 V3_TBAND = _env_num('VCLUST_ALIGN_V3_TBAND', 17, 1, 32)
 #                    base matches (of FINE) the band winner needs to elect
 V3_MAX_BUCKET = _env_num('VCLUST_ALIGN_V3_MAXB', 131072, 4096, 1 << 20)
-#                    largest bucket of the v3 pipe (the JAX package sends
-#                    larger ones to its v2 pipe, not yet ported)
+#                    largest bucket of the v3 pipe (larger ones run on v2)
 V3_CONT = _env_num('VCLUST_ALIGN_V3_CONT', 6, 0, 32)
 #                    continuity slack of neighbour adoption
+V3_RERUN_COV = _env_num('VCLUST_ALIGN_V3_COV', 0.997, 0.0, 1.0, cast=float)
+#                    hybrid: pairs v3 leaves with query or reference
+#                    coverage below this (at tANI > 0.05) re-align on v2
+#                    at full density; 0 disables
 MAX_ARENA = _env_num('VCLUST_ALIGN_MAX_ARENA', 0, 0, 1 << 30)
 #                    bound on genomes resident per bucket arena (0 = none);
 #                    larger groups split over disposable sub-arenas
+# The v2 two-phase screen (VCLUST_ALIGN_PIPE=v2): every pair from the
+# bucket TWO_PHASE_MIN_BUCKET up first at PHASE1_C seeds a block, then
+# those with RERUN_LO < tANI < RERUN_HI again at SEEDS_PER_BLOCK.
+PHASE1_C = _env_num('VCLUST_ALIGN_P1C', 8, 1, 32)
+RERUN_LO = _env_num('VCLUST_ALIGN_RERUN_LO', 0.10, 0.0, 1.0, cast=float)
+RERUN_HI = _env_num('VCLUST_ALIGN_RERUN_HI', 0.97, 0.0, 1.0, cast=float)
+TWO_PHASE_MIN_BUCKET = _env_num('VCLUST_ALIGN_TP_MIN', 16384, 0, 1 << 30)
 
 # The packed maxes: stage 1 packs (count << 13) | reference block, the
 # band election (count << 12) | 2048 (candidate 1) | 1024 (forward) | shift.
@@ -124,9 +161,17 @@ _LIVE_BYTES = 2 << 30
 # 91.6 and 143.8 bytes a position on an H100 (tools/v3_dispatch_probe.py).
 _BYTES_PER_POS = 92
 _BYTES_PER_POS_RECORDS = 144
+# The v2 pipe's peak live bytes a query position of a row, without and
+# with records: 88.2-89.7 and 153.4-154.4 on an H100 at buckets 65,536
+# and 262,144, the same at C = 8 and 16 (the sort join and the election
+# peak below the flags and the back half; chip_smoke.py phases
+# align_hybrid and align_v2, one dispatch at 1 and 2 rows).
+_V2_BYTES_PER_POS = 90
+_V2_BYTES_PER_POS_RECORDS = 155
 
 
 def _pad_bucket(n: int) -> int:
+    n = int(n)      # a NumPy int32 length would make the bucket int32
     for b in _BUCKETS:
         if n <= b:
             return b
@@ -233,31 +278,114 @@ def _index_block_v3(fwd, rc, k: int, Lp: int):
     return qocc, rocc, rows(fwd), rows(rc)
 
 
+def _pack_bits(Lp: int) -> int:
+    """Width of the v2 seed packs at bucket Lp: (value, position) fits 32
+    bits while positions + 1 fit 16 bits."""
+    return 32 if Lp <= 65536 else 64
+
+
+def _index_block(fwd, rc, k: int, pack_bits: int, C: int):
+    """Per-genome v2 device index for one bucket chunk. fwd/rc: (G, Lp)
+    int8 codes. Sampling by VALUE keeps the two join sides consistent: a
+    matching seed is kept or dropped on both sides together; ties inside a
+    block resolve by position (stable sorts).
+
+    Returns qsv, qoff (G, NQ) int32, NQ = Lp/32*C: the C seeds of each
+    fine block with the smallest value hash (-1 where a block has fewer
+    valid seeds) and their offsets in the block; per strand (forward,
+    reverse) sv (G, NQ) int32, the same seeds' values sorted (BIG where
+    invalid), and the int64 packs pk1, pk2 aligned to sv: value << 16 |
+    position + 1 and value << 16 | previous position of the value + 1
+    (pack_bits 32; 0 where invalid or, in pk2, without a previous), or
+    pk1 = pk2 = value << 40 | position + 1 << 20 | previous + 1 (64);
+    and r2dov (G, 2*(Lp/32+1), 64) int8, the 64-wide window rows every 32
+    bases of both strands, each strand led by one all-pad row."""
+    G, Lp = fwd.shape
+    NBF = Lp // FINE
+    NQ = NBF * C
+    dev = fwd.device
+
+    def select(qv_s):
+        v = qv_s.view(G, NBF, FINE)
+        # The uint32 multiply-shift hash, in int64 with a 32-bit mask; -1
+        # (invalid) hashes as 2^32 - 1 before it is replaced by BIG.
+        h = (((v.to(torch.int64) & 0xFFFFFFFF) * 2654435761) & 0xFFFFFFFF) >> 16
+        h = torch.where(v < 0, BIG, h.to(torch.int32))
+        hs, offs = torch.sort(h, dim=2, stable=True)
+        vals = torch.gather(v, 2, offs[..., :C])
+        sel_v = torch.where(hs[..., :C] < BIG, vals, -1).reshape(G, NQ)
+        return sel_v, offs[..., :C].to(torch.int32).reshape(G, NQ)
+
+    qv_f = kmer_vals(fwd, k)
+    qv_r = kmer_vals(rc, k)
+    qsv, qoff = select(qv_f)
+    blk = (torch.arange(NQ, dtype=torch.int32, device=dev) // C) * FINE
+
+    def strand(qv_s):
+        sel_v, sel_off = select(qv_s)
+        vs = torch.where(sel_v < 0, BIG, sel_v)
+        sv, perm = torch.sort(vs, dim=1, stable=True)
+        spos = torch.gather(blk + sel_off, 1, perm).to(torch.int64)
+        prev_same = torch.zeros_like(sv, dtype=torch.bool)
+        prev_same[:, 1:] = sv[:, 1:] == sv[:, :-1]
+        spred = torch.where(prev_same, _sh_r(spos, 1, 0), -1)
+        valid = sv < BIG
+        v64 = torch.where(valid, sv, 0).to(torch.int64)
+        if pack_bits == 32:
+            pk1 = torch.where(valid, (v64 << 16) | (spos + 1), 0)
+            pk2 = torch.where(valid & (spred >= 0), (v64 << 16) | (spred + 1),
+                              0)
+            return sv, pk1, pk2
+        p64 = (v64 << 40) | ((spos + 1) << 20) | torch.where(
+            spred >= 0, spred + 1, 0)
+        pk1 = torch.where(valid, p64, 0)
+        return sv, pk1, pk1
+
+    sv_f, pk1_f, pk2_f = strand(qv_f)
+    sv_r, pk1_r, pk2_r = strand(qv_r)
+
+    def rows(codes):
+        a = torch.cat([codes, torch.full((G, FINE), 4, dtype=torch.int8,
+                                         device=dev)], dim=1).view(G, -1, FINE)
+        ov = torch.cat([a[:, :-1], a[:, 1:]], dim=-1)
+        lead = torch.full((G, 1, 2 * FINE), 4, dtype=torch.int8, device=dev)
+        return torch.cat([lead, ov], dim=1)
+
+    r2dov = torch.cat([rows(fwd), rows(rc)], dim=1)
+    return qsv, qoff, sv_f, pk1_f, pk2_f, sv_r, pk1_r, pk2_r, r2dov
+
+
 # Genomes indexed at once (bounds the index build's temporaries).
 _INDEX_ROWS_CHUNK = 512
+_V2_KEYS = ('qsv', 'qoff', 'sv_f', 'pk1_f', 'pk2_f', 'sv_r', 'pk1_r', 'pk2_r',
+            'r2dov')
+_V3_KEYS = ('qocc', 'rocc', 'roww_f', 'roww_r')
 
 
 class GenomeIndex:
-    """Device-resident per-bucket genome arena for the v3 pipe: padded
-    codes, canonical occupancies and wide window rows. Buckets build
-    lazily, at exactly the bucket sizes the pairs need, and each
-    (bucket, genome set) build is cached on the index."""
+    """Device-resident per-bucket genome arena: padded codes, and per
+    bucket the v3 arrays (canonical occupancies and wide window rows) or
+    the v2 arrays at C seeds a block (sampled seeds, value-sorted packs
+    and window rows). Buckets build lazily, at exactly the bucket sizes
+    the pairs need, and each (bucket, genome set) build is cached on the
+    index."""
 
     def __init__(self, codes_list: Sequence[np.ndarray], device=None):
         self.device = resolve_device(device)
         self.codes = [np.asarray(c, dtype=np.int8) for c in codes_list]
         self.lens = np.array([len(c) for c in self.codes], dtype=np.int32)
-        self.bucket = {}   # (Lp, 'v3') -> dict of stacked arrays + row map
+        self.bucket = {}   # (Lp, 'v3' or C) -> dict of arrays + row map
         # Genomes beyond the engine's position range are not indexed;
         # pairs touching them raise.
         self.oversized = {i for i, c in enumerate(self.codes)
                           if len(c) > MAX_TPU_LEN}
 
-    def ensure_v3(self, Lp: int, gids, cache: bool = True) -> dict:
-        """v3 arrays for bucket Lp covering at least genomes `gids`.
-        cache=False builds a disposable exact-member sub-arena (the
-        MAX_ARENA path) that is neither stored nor merged."""
-        key = (Lp, 'v3')
+    def _build(self, key, gids, cache, names, index_fn) -> dict:
+        """The arrays `names` = index_fn(fwd, rc) for bucket key[0]
+        covering at least genomes `gids` (cached under `key`). cache=False
+        builds a disposable exact-member sub-arena (the MAX_ARENA path)
+        that is neither stored nor merged."""
+        Lp = key[0]
         cur = self.bucket.get(key) if cache else None
         need = set(int(g) for g in gids)
         if cur is not None and need <= cur['rows'].keys():
@@ -274,28 +402,55 @@ class GenomeIndex:
         fwd_d = torch.from_numpy(fwd).to(self.device)
         rc_d = torch.from_numpy(rc).to(self.device)
         ch = _INDEX_ROWS_CHUNK
-        parts = [_index_block_v3(fwd_d[lo:lo + ch], rc_d[lo:lo + ch],
-                                 SEED_K, Lp) for lo in range(0, G, ch)]
-        qocc, rocc, roww_f, roww_r = (
-            torch.cat(xs, dim=0) if len(xs) > 1 else xs[0]
-            for xs in zip(*parts))
-        d = dict(fwd=fwd_d, qocc=qocc, rocc=rocc, roww_f=roww_f,
-                 roww_r=roww_r, rows=rows)
+        parts = [index_fn(fwd_d[lo:lo + ch], rc_d[lo:lo + ch])
+                 for lo in range(0, G, ch)]
+        d = {name: torch.cat(xs, dim=0) if len(xs) > 1 else xs[0]
+             for name, xs in zip(names, zip(*parts))}
+        d.update(fwd=fwd_d, rows=rows)
         if cache:
             self.bucket[key] = d
         return d
 
+    def ensure_v3(self, Lp: int, gids, cache: bool = True) -> dict:
+        """v3 arrays for bucket Lp covering at least genomes `gids`."""
+        return self._build((Lp, 'v3'), gids, cache, _V3_KEYS,
+                           lambda f, r: _index_block_v3(f, r, SEED_K, Lp))
 
-_ARENA_KEYS = ('fwd', 'qocc', 'rocc', 'roww_f', 'roww_r')
+    def ensure(self, Lp: int, gids, C: Optional[int] = None,
+               cache: bool = True) -> dict:
+        """v2 arrays for bucket Lp covering at least genomes `gids`,
+        sampled at C seeds per fine block (default SEEDS_PER_BLOCK)."""
+        C = SEEDS_PER_BLOCK if C is None else C
+        pack_bits = _pack_bits(Lp)
+        d = self._build((Lp, C), gids, cache, _V2_KEYS,
+                        lambda f, r: _index_block(f, r, SEED_K, pack_bits, C))
+        d['pack_bits'] = pack_bits
+        return d
 
 
 def index_v3_from_numpy(d: dict, device=None) -> dict:
-    """The port's bucket dict from the arrays of a JAX-package
+    """The port's v3 bucket dict from the arrays of a JAX-package
     `ensure_v3` dict (each converted with np.asarray): the same arena,
     row for row, on `device` (default cuda, see utils/device)."""
     dev = resolve_device(device)
     out = {k: torch.from_numpy(np.array(d[k], dtype=np.int8)).to(dev)
-           for k in _ARENA_KEYS}
+           for k in ('fwd',) + _V3_KEYS}
+    out['rows'] = {int(g): int(r) for g, r in d['rows'].items()}
+    return out
+
+
+def index_v2_from_numpy(d: dict, device=None) -> dict:
+    """The port's v2 bucket dict from the arrays of a JAX-package `ensure`
+    dict or `_index_block` output (each converted with np.asarray; the
+    uint32 packs widen to int64), with 'pack_bits' and 'rows'."""
+    dev = resolve_device(device)
+    out = {}
+    for k in ('fwd',) + _V2_KEYS:
+        a = np.asarray(d[k])
+        dt = (np.int8 if k in ('fwd', 'r2dov') else
+              np.int64 if k.startswith('pk') else np.int32)
+        out[k] = torch.from_numpy(a.astype(dt)).to(dev)
+    out['pack_bits'] = int(d['pack_bits'])
     out['rows'] = {int(g): int(r) for g, r in d['rows'].items()}
     return out
 
@@ -837,6 +992,257 @@ def _row_core_v3(b, r_rows, rlens, q_rows, tband, smin,
         flat(m1), flat(m0), flat(switchable), flat(A), flat(S), flat(D),
         flat(Ap), flat(Sp), flat(Dp), rlen, Lq=Lq, mqd=mqd, mrd=mrd,
         reg=reg, with_alns=with_alns, debug=debug, debug_extra=extra)
+    return _unflatten(out, R, K, with_alns, debug)
+
+
+# --------------------------------------------------------------------------
+# the v2 front end: sort join, two-scale vote election, windowed eval
+# --------------------------------------------------------------------------
+
+def _strand_votes(sv, pk1, pk2, key_q, *, NQ, K, Lq, C, offset, pack_bits):
+    """Candidate diagonals of all K queries of each row against one
+    reference strand.
+
+    sv: (R, NR) value-sorted reference seed values (BIG where invalid);
+    pk1/pk2: (R, NR) int64 packs aligned to sv; key_q: (R, K*NQ) int32
+    query sort keys (value << 6 | in-block offset << 1 | 1; an odd
+    sentinel where invalid, so every query slot stays a query slot).
+    One stable sort of the reference and query keys puts each query seed
+    after every reference seed of its value; a running max of the packs
+    then holds the last two reference occurrences of the largest value up
+    to it. Returns (R, K, NQ, 2) int32 diagonal codes (BIG where none),
+    offset added for the strand."""
+    R, NR = sv.shape
+    dev = sv.device
+    KQ = K * NQ
+    keys = torch.cat([torch.where(sv < BIG, sv << 6, BIG), key_q], dim=1)
+    sk, perm = torch.sort(keys, dim=1, stable=True)
+    # Sorted position of each query slot: the inverse permutation.
+    inv = torch.empty_like(perm)
+    inv.scatter_(1, perm, torch.arange(NR + KQ, device=dev).expand(R, -1))
+    at_q = inv[:, NR:]
+    s_k = torch.gather(sk, 1, at_q)                  # the query keys
+    slot = torch.arange(KQ, dtype=torch.int32, device=dev)
+    qpos = ((slot % NQ) // C) * FINE + ((s_k >> 1) & 31)
+    base = Lq + offset - qpos                       # diagonal = pos + base
+    val = (s_k >> 6).to(torch.int64)
+    zq = torch.zeros((R, KQ), dtype=torch.int64, device=dev)
+
+    def running_max(pk):
+        c = _hcummax(torch.gather(torch.cat([pk, zq], dim=1), 1, perm))
+        return torch.gather(c, 1, at_q)
+
+    def diag(ok, p):                                # p: position + 1
+        return torch.where(ok, (p - 1 + base).to(torch.int32), BIG)
+
+    if pack_bits == 32:
+        c1, c2 = running_max(pk1), running_max(pk2)
+        d1 = diag((c1 >> 16 == val) & (c1 > 0), c1 & 0xFFFF)
+        d2 = diag((c2 >> 16 == val) & (c2 > 0), c2 & 0xFFFF)
+    else:
+        c = running_max(pk1)
+        ok = (c >> 40 == val) & (c > 0)
+        cq = c & 0xFFFFF
+        d1 = diag(ok, (c >> 20) & 0xFFFFF)
+        d2 = diag(ok & (cq > 0), cq)
+    return torch.stack([d1, d2], dim=-1).view(R, K, NQ, 2)
+
+
+def _elect(sd, cstride, min_votes, *, DSPAN, Lq):
+    """Densest-cluster election on per-block sorted votes sd (rows, vpb)
+    int32: count the votes within GAP_DIAG above each (saturating at
+    SMAX, on a cstride-subsample of the row), elect the largest count with
+    ties to the smallest start (a packed max), then the cluster's mode.
+    Returns (assigned, strand, diag, exact votes, mode) per row."""
+    sds = sd[:, ::cstride]
+    w = sds.shape[1]
+    smax = min(SMAX, w - 1)
+    sdp = torch.cat([sds, torch.full((sds.shape[0], smax), BIG,
+                                     dtype=sds.dtype, device=sds.device)],
+                    dim=-1)
+    cnt = torch.ones_like(sds)
+    cnt_eq = torch.ones_like(sds)
+    for s in range(1, smax + 1):
+        cnt += sdp[:, s:w + s] - sds <= GAP_DIAG
+        cnt_eq += sdp[:, s:w + s] == sds
+    ok = sds < BIG
+    cnt = torch.where(ok, cnt, 0)
+    cnt_eq = torch.where(ok, cnt_eq, 0)
+    # Vote codes reach 2*DSPAN + 64; the pack widens to int64 when they
+    # need more than 22 bits (counts <= 256 take 9). The clamp runs in the
+    # pack's type: a 32-bit mask does not fit int32 (ROADMAP R9).
+    if 2 * DSPAN + 64 < 1 << 22:
+        VBITS, pdt = 22, torch.int32
+    else:
+        VBITS, pdt = 32, torch.int64
+    VMASK = (1 << VBITS) - 1
+    inv = VMASK - sds.to(pdt).clamp(max=VMASK)
+    best = ((cnt.to(pdt) << VBITS) | inv).amax(dim=-1)
+    vb = (best >> VBITS).to(torch.int32)
+    start = (VMASK - (best & VMASK)).to(torch.int32)[:, None]
+    inb = (sds >= start) & (sds <= start + GAP_DIAG)
+    bestm = torch.where(inb, (cnt_eq.to(pdt) << VBITS) | inv, -1).amax(dim=-1)
+    medv = torch.where(vb > 0, (VMASK - (bestm & VMASK)).to(torch.int32), BIG)
+    vb_x = ((sd - medv[:, None]).abs() <= GAP_DIAG).sum(dim=-1,
+                                                         dtype=torch.int32)
+    vb_x = torch.where(medv < BIG, vb_x, 0)
+    strand = medv >= DSPAN
+    diag = torch.where(strand, medv - DSPAN, medv) - Lq
+    return vb_x >= min_votes, strand, diag, vb_x, medv
+
+
+def _eval_on(q_fwd, r2dov, r_rows, D, S, okb, rlen, qlens, *, Lr):
+    """Per-position match flags of each query against the reference bases
+    on its fine block's elected diagonal: a 32-base window of the 64-wide
+    row at each block's start, clipped to [-FINE, Lr-1] (the lead pad row
+    makes slightly negative starts read bases that never match).
+
+    q_fwd: (R, K, Lq) int8; r2dov: (G, 2*NRT, 64) int8 arena, r_rows (R,)
+    its rows; D, S, okb: (R, K, NBF); rlen: (R,); qlens: (R, K). Returns
+    (R, K, Lq) bool."""
+    R, K, NBF = D.shape
+    Lq = NBF * FINE
+    dev = D.device
+    NRT = r2dov.shape[1] // 2
+    starts = torch.arange(NBF, dtype=torch.int32, device=dev) * FINE + D
+    starts_c = starts.clamp(-FINE, Lr - 1)
+    row = (starts_c + FINE) >> 5
+    phase = starts_c + FINE - (row << 5)
+    row = row + torch.where(S, NRT, 0)
+    at = ((r_rows.to(torch.int64).view(R, 1, 1) * (2 * NRT) + row) * 64
+          + phase)[..., None] + torch.arange(FINE, device=dev)
+    rb = r2dov.view(-1)[at].view(R, K, Lq)
+    okq = (okb & (starts == starts_c)).repeat_interleave(FINE, dim=-1)
+    iota = torch.arange(Lq, dtype=torch.int32, device=dev)
+    rj = iota + D.repeat_interleave(FINE, dim=-1)
+    ok = okq & (rj >= 0) & (rj < rlen.view(R, 1, 1)) & (iota < qlens[..., None])
+    return ok & (q_fwd == rb) & (q_fwd < 4)
+
+
+def _votes_v2(b, r_rows, q_rows, *, Lq, Lr, C):
+    """Stage 1: the seed votes of R rows (one reference, K queries each)
+    on both strands, (R, K, NQ, 4) int32: the two candidates forward, then
+    the two reverse (offset DSPAN)."""
+    R, K = q_rows.shape
+    NQ = (Lq // FINE) * C
+    rr = r_rows.to(torch.int64)
+    qr = q_rows.to(torch.int64)
+    qsv = b['qsv'][qr]
+    key_q = torch.where(qsv >= 0, (qsv << 6) | (b['qoff'][qr] << 1) | 1,
+                        BIG + 1).view(R, K * NQ)
+    sv_args = dict(NQ=NQ, K=K, Lq=Lq, C=C, pack_bits=b['pack_bits'])
+    return torch.cat(
+        [_strand_votes(b['sv_f'][rr], b['pk1_f'][rr], b['pk2_f'][rr], key_q,
+                       offset=0, **sv_args),
+         _strand_votes(b['sv_r'][rr], b['pk1_r'][rr], b['pk2_r'][rr], key_q,
+                       offset=Lq + Lr + 64, **sv_args)], dim=-1)
+
+
+def _elect_v2(votes, *, Lq, Lr):
+    """Stage 2: the two-scale block election on the votes (R, K, NQ, 4):
+    per fine block the fine election, overridden by the coarse block's
+    unless the fine one strictly beats the fine block's support for the
+    coarse diagonal (repeats support two clusters equally). Returns A, S
+    (True = reverse strand), D and the winner's votes vb, (R, K, NBF)."""
+    R, K, NQ, _ = votes.shape
+    N = R * K
+    NBF = Lq // FINE
+    NBC = Lq // BLOCK
+    RATIO = BLOCK // FINE
+    DSPAN = Lq + Lr + 64
+    vpb_f = NQ // NBF * 2 * CANDS
+    sd_f = torch.sort(votes.reshape(N * NBF, vpb_f), dim=-1).values
+    A_f, S_f, D_f, vb_f, _ = _elect(sd_f, 1, MIN_VOTES_F, DSPAN=DSPAN, Lq=Lq)
+    sd_c = torch.sort(votes.reshape(N * NBC, vpb_f * RATIO), dim=-1).values
+    A_c, S_c, D_c, vb_c, medv_c = _elect(sd_c, 4, MIN_VOTES_C, DSPAN=DSPAN,
+                                         Lq=Lq)
+
+    def fine(x):                    # coarse-block values at each fine block
+        return x.view(N, NBC).repeat_interleave(RATIO, dim=-1).view(-1)
+
+    sup_c = ((sd_f - fine(medv_c)[:, None]).abs() <= GAP_DIAG).sum(
+        dim=-1, dtype=torch.int32)
+    A_cf = fine(A_c)
+    use_f = A_f & (~A_cf | (vb_f > sup_c))
+    shape = (R, K, NBF)
+    return ((use_f | A_cf).view(shape),
+            torch.where(use_f, S_f, fine(S_c)).view(shape),
+            torch.where(use_f, D_f, fine(D_c)).view(shape),
+            torch.where(use_f, vb_f, fine(vb_c)).view(shape))
+
+
+def _propagate_v2(b, r_rows, rlens, q_rows, qlens, A, S, D, *, Lr):
+    """Stage 3: neighbour-diagonal propagation: a block adopts an adjacent
+    block's diagonal when evaluating it (`_eval_on`) beats its own
+    election by a clear margin (EXT_MIN, EXT_MARGIN), EXT_ITERS times each
+    way; then the final flags. F holds the current winner's flags, so m1
+    needs no re-evaluation. Returns what `_propagate_v3` returns."""
+    R, K, NBF = A.shape
+    q_fwd = b['fwd'][q_rows.to(torch.int64)]
+    rlen = rlens.view(R)
+
+    def block_flags(Db, Sb, Ab):
+        mm = _eval_on(q_fwd, b['r2dov'], r_rows, Db, Sb, Ab, rlen, qlens,
+                      Lr=Lr)
+        return mm, mm.view(R, K, NBF, FINE).sum(dim=-1, dtype=torch.int32)
+
+    F, cnt0 = block_flags(D, S, A)
+    cnt_cur = torch.where(A, cnt0, -1)
+    for _ in range(EXT_ITERS):
+        for shf in (_sh_r, _sh_l):
+            Dc = shf(D, 1, 0)
+            Sc = shf(S, 1, False)
+            Ac = shf(A, 1, False)
+            mmc, cntc = block_flags(Dc, Sc, Ac)
+            better = Ac & (cntc >= EXT_MIN) & (cntc > cnt_cur + EXT_MARGIN)
+            D = torch.where(better, Dc, D)
+            S = torch.where(better, Sc, S)
+            A = A | better
+            cnt_cur = torch.where(better, cntc, cnt_cur)
+            F = torch.where(better.repeat_interleave(FINE, dim=-1), mmc, F)
+
+    Ap = _sh_r(A, 1, False)
+    Sp = _sh_r(S, 1, False)
+    Dp = _sh_r(D, 1, 0)
+    switchable = A & Ap & ((D != Dp) | (S != Sp))
+    m0 = _eval_on(q_fwd, b['r2dov'], r_rows, Dp, Sp, switchable, rlen, qlens,
+                  Lr=Lr)
+    return F, m0, switchable, A, S, D, Ap, Sp, Dp
+
+
+def _row_core(b, r_rows, rlens, q_rows, qlens, *, Lq, Lr, K, mqd, mrd, reg,
+              C=None, with_alns=False, debug=False):
+    """v2 aggregates for R dispatch rows of K directed pairs sharing one
+    reference each.
+
+    b: a v2 bucket dict (GenomeIndex.ensure or index_v2_from_numpy) at C
+    seeds a block; r_rows, rlens: (R,) int32 arena rows and lengths of the
+    references; q_rows, qlens: (R, K) int32 of the queries. Returns what
+    `_row_core_v3` returns; with debug the intermediates of the JAX
+    package's debug dict, `votes` and `vb` included."""
+    C = SEEDS_PER_BLOCK if C is None else C
+    R = r_rows.shape[0]
+    if q_rows.shape != (R, K):
+        raise ValueError(f'q_rows must be ({R}, {K})')
+    votes = _votes_v2(b, r_rows, q_rows, Lq=Lq, Lr=Lr, C=C)
+    A, S, D, vb = _elect_v2(votes, Lq=Lq, Lr=Lr)
+    flags = _propagate_v2(b, r_rows, rlens, q_rows, qlens, A, S, D, Lr=Lr)
+    N = R * K
+
+    def flat(x):
+        return x.reshape((N,) + x.shape[2:])
+
+    extra = dict(vb=flat(vb), votes=flat(votes)) if debug else None
+    del votes
+    out = _blocks_to_measures(
+        *(flat(x) for x in flags), rlens[:, None].expand(R, K).reshape(N),
+        Lq=Lq, mqd=mqd, mrd=mrd, reg=reg, with_alns=with_alns, debug=debug,
+        debug_extra=extra)
+    return _unflatten(out, R, K, with_alns, debug)
+
+
+def _unflatten(out, R, K, with_alns, debug):
+    """The back half's (N, ...) results as (R, K, ...)."""
     if debug:
         return {k: ([x.view((R, K) + x.shape[1:]) for x in v]
                     if isinstance(v, list) else v.view((R, K) + v.shape[1:]))
@@ -846,24 +1252,9 @@ def _row_core_v3(b, r_rows, rlens, q_rows, tband, smin,
     return out.view(R, K, 3)
 
 
-def _group_run_v3(b, r_rows, rlens, q_rows, thresholds, *, Lq, Lr, K, mqd,
-                  mrd, reg, with_alns=False):
-    """One dispatch: the rows' arena indices (numpy) moved to the arena's
-    device, then `_row_core_v3` over all of them at once."""
-    dev = b['fwd'].device
-
-    def put(a):
-        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
-
-    return _row_core_v3(b, put(r_rows), put(rlens), put(q_rows),
-                        int(thresholds[0]), int(thresholds[1]), Lq=Lq,
-                        Lr=Lr, K=K, mqd=mqd, mrd=mrd, reg=reg,
-                        with_alns=with_alns)
-
-
 def _dispatch_rows(L: int, K: int, device: torch.device,
                    with_alns: bool) -> int:
-    """Dispatch rows B at bucket L with K queries a row: as many as keep
+    """v3 dispatch rows B at bucket L with K queries a row: as many as keep
     the live bytes of one dispatch on `device` under _LIVE_BYTES. A query
     holds the windows and counts of four bands (4*NBF*(WIN+BAND) bytes)
     and _BYTES_PER_POS (_BYTES_PER_POS_RECORDS with records) a query
@@ -876,6 +1267,15 @@ def _dispatch_rows(L: int, K: int, device: torch.device,
     if device.type == 'cpu':
         per_query += 2 * g3['NQB'] * V3_H * 4
     return max(1, _LIVE_BYTES // (K * per_query))
+
+
+def _dispatch_rows_v2(L: int, K: int, with_alns: bool) -> int:
+    """v2 dispatch rows B at bucket L with K queries a row: as many as keep
+    the live bytes of one dispatch under _LIVE_BYTES, at _V2_BYTES_PER_POS
+    (_V2_BYTES_PER_POS_RECORDS with records) a query position. Results do
+    not depend on B."""
+    per_pos = _V2_BYTES_PER_POS_RECORDS if with_alns else _V2_BYTES_PER_POS
+    return max(1, _LIVE_BYTES // (K * L * per_pos))
 
 
 def _group_gids(by_ref: dict) -> set:
@@ -919,15 +1319,19 @@ def _split_group(by_ref: dict, cap: int) -> list:
     return subs
 
 
-def _all2all_single_v3(codes_list: Sequence[np.ndarray], pairs: np.ndarray,
-                       params: Optional[AlignParams] = None,
-                       index: Optional[GenomeIndex] = None,
-                       keep_alignments: bool = False, device=None):
-    """All-vs-all v3 aggregates on the device for unordered candidate
-    `pairs` over ids-ordered genomes: the JAX package's
-    `_all2all_single(..., pipe='v3')` on one device. Returns int64
-    (len(pairs), 6) = (n_ji, match_ji, alnlen_ji, n_ij, match_ij,
-    alnlen_ij), as lz_native.all2all_native's aggregates.
+def _all2all_single(codes_list: Sequence[np.ndarray], pairs: np.ndarray,
+                    params: Optional[AlignParams] = None,
+                    index: Optional[GenomeIndex] = None,
+                    keep_alignments: bool = False,
+                    seeds_per_block: Optional[int] = None, pipe: str = 'v2',
+                    device=None):
+    """All-vs-all aggregates on the device for unordered candidate `pairs`
+    over ids-ordered genomes: the JAX package's `_all2all_single` on one
+    device. pipe='v3' runs the v3 pipe on every bucket up to V3_MAX_BUCKET
+    and v2 above; pipe='v2' runs v2 everywhere, at seeds_per_block seeds a
+    fine block (default SEEDS_PER_BLOCK). Returns int64 (len(pairs), 6) =
+    (n_ji, match_ji, alnlen_ji, n_ij, match_ij, alnlen_ij), as
+    lz_native.all2all_native's aggregates.
 
     keep_alignments=True also returns (aln_rows, aln_counts): int32 (N, 6)
     (qstart, qend, rstart, rend, nt_match, nt_mismatch), 0-based, reverse
@@ -936,9 +1340,11 @@ def _all2all_single_v3(codes_list: Sequence[np.ndarray], pairs: np.ndarray,
     from the rows, with a warning (aggregates stay exact).
 
     Runs on `index.device`, else `device` (default cuda). Raises for
-    genomes longer than MAX_TPU_LEN and, since the v2 pipe is not ported,
-    for buckets above V3_MAX_BUCKET."""
+    genomes longer than MAX_TPU_LEN."""
+    if pipe not in ('v2', 'v3'):
+        raise ValueError(f'pipe={pipe!r}: expected v2 or v3')
     params = params or AlignParams()
+    C = SEEDS_PER_BLOCK if seeds_per_block is None else seeds_per_block
     mqd, mrd, reg = params.mqd, params.mrd, params.reg
     idx = index or GenomeIndex(codes_list, device=device)
     lens = idx.lens
@@ -956,11 +1362,6 @@ def _all2all_single_v3(codes_list: Sequence[np.ndarray], pairs: np.ndarray,
                 f'{MAX_TPU_LEN} bases — beyond the device engine\'s '
                 f'position range; align it with the native engine')
         kb = max(_pad_bucket(lens[i]), _pad_bucket(lens[j]))
-        if kb > V3_MAX_BUCKET:
-            raise NotImplementedError(
-                f'pair ({i}, {j}) needs bucket {kb} > V3_MAX_BUCKET '
-                f'({V3_MAX_BUCKET}): the JAX package aligns it on its v2 '
-                f'sort-join pipe, which is not yet ported (ROADMAP M3)')
         for (qi, ri, col) in ((j, i, 0), (i, j, 3)):
             groups.setdefault(kb, {}).setdefault(ri, []).append(
                 (qi, prow, col))
@@ -973,10 +1374,12 @@ def _all2all_single_v3(codes_list: Sequence[np.ndarray], pairs: np.ndarray,
                      for sub in _split_group(by_ref, max(MAX_ARENA, 2))]
         else:
             work.append((kb, by_ref, True))
-    thr = (V3_TBAND, V3_SMIN)
     pending = []   # (device results, task map, record cap)
     for kb, by_ref, cacheable in work:
-        b = idx.ensure_v3(kb, _group_gids(by_ref), cache=cacheable)
+        gids = _group_gids(by_ref)
+        use_v3 = pipe == 'v3' and kb <= V3_MAX_BUCKET
+        b = (idx.ensure_v3(kb, gids, cache=cacheable) if use_v3
+             else idx.ensure(kb, gids, C, cache=cacheable))
         K = K_QUERIES
         max_tasks = max(len(ts) for ts in by_ref.values())
         if max_tasks < K:
@@ -986,11 +1389,11 @@ def _all2all_single_v3(codes_list: Sequence[np.ndarray], pairs: np.ndarray,
             ts = by_ref[ri]
             for lo in range(0, len(ts), K):
                 rows.append((ri, ts[lo:lo + K]))
-        B = _dispatch_rows(kb, K, idx.device, keep_alignments)
         n = len(rows)
         r_rows = np.zeros(n, np.int32)
         rlens = np.zeros(n, np.int32)
         q_rows = np.zeros((n, K), np.int32)
+        qlens = np.zeros((n, K), np.int32)
         # Per-task placement arrays double as the vectorized scatter-back
         # map (task -> output row/direction).
         t_w, t_i_, t_prow, t_col = [], [], [], []
@@ -999,17 +1402,30 @@ def _all2all_single_v3(codes_list: Sequence[np.ndarray], pairs: np.ndarray,
             rlens[w] = lens[ri]
             for t_i, (qi, prow_, col_) in enumerate(ts):
                 q_rows[w, t_i] = b['rows'][qi]
+                qlens[w, t_i] = lens[qi]
                 t_w.append(w)
                 t_i_.append(t_i)
                 t_prow.append(prow_)
                 t_col.append(col_)
         tmap = tuple(np.asarray(x, np.int64) for x in (t_w, t_i_, t_prow,
                                                         t_col))
+        dev = b['fwd'].device
         static = dict(Lq=kb, Lr=kb, K=K, mqd=mqd, mrd=mrd, reg=reg,
                       with_alns=keep_alignments)
-        results = [_group_run_v3(b, r_rows[lo:lo + B], rlens[lo:lo + B],
-                                 q_rows[lo:lo + B], thr, **static)
-                   for lo in range(0, n, B)]
+        if use_v3:
+            B = _dispatch_rows(kb, K, idx.device, keep_alignments)
+        else:
+            B = _dispatch_rows_v2(kb, K, keep_alignments)
+        results = []
+        for lo in range(0, n, B):
+            rr, rl, qr = (torch.from_numpy(a[lo:lo + B]).to(dev)
+                          for a in (r_rows, rlens, q_rows))
+            if use_v3:
+                results.append(_row_core_v3(b, rr, rl, qr, V3_TBAND, V3_SMIN,
+                                            **static))
+            else:
+                ql = torch.from_numpy(qlens[lo:lo + B]).to(dev)
+                results.append(_row_core(b, rr, rl, qr, ql, C=C, **static))
         pending.append((results, tmap, _maxseg(kb, reg)))
     task_alns = {}   # (prow, col) -> (n, 6) int32 records
     saturated = []   # pairs whose records overflowed the cap (MAXSEG)
@@ -1039,15 +1455,99 @@ def _all2all_single_v3(codes_list: Sequence[np.ndarray], pairs: np.ndarray,
             f'(aggregates remain exact). Affected id pairs: '
             + ', '.join(f'({i},{j})' for i, j in saturated[:8])
             + ('...' if len(saturated) > 8 else ''))
-    counts = np.zeros(2 * len(pairs), dtype=np.int64)
-    blocks = []
-    for prow in range(len(pairs)):
-        for d, col in enumerate((0, 3)):
-            blk = task_alns.get((prow, col))
-            if blk is None:
-                blk = np.empty((0, 6), np.int32)
-            counts[2 * prow + d] = len(blk)
-            blocks.append(blk)
-    aln_rows = (np.concatenate(blocks) if blocks
-                else np.empty((0, 6), np.int32))
-    return out, (aln_rows, counts)
+    empty = np.empty((0, 6), np.int32)
+    blocks = [task_alns.get((prow, col), empty)
+              for prow in range(len(pairs)) for col in (0, 3)]
+    counts = np.array([len(blk) for blk in blocks], dtype=np.int64)
+    return out, (np.concatenate(blocks) if blocks else empty, counts)
+
+
+def _merge_records(recs_all, recs_sub, rerun):
+    """The records of every directed task, taking those of the pairs
+    `rerun` (bool, one a pair) from recs_sub (their own run) and the rest
+    from recs_all; both in _all2all_single's (rows, counts) layout."""
+    (rows_a, counts_a), (rows_s, counts_s) = recs_all, recs_sub
+    offs_a = np.concatenate([[0], np.cumsum(counts_a)])
+    offs_s = np.concatenate([[0], np.cumsum(counts_s)])
+    sub_of = np.cumsum(rerun) - 1       # rerun pair -> its row in recs_sub
+    blocks, counts = [], np.zeros_like(counts_a)
+    for t in range(len(counts_a)):      # directed task t of pair t // 2
+        prow, d = divmod(t, 2)
+        if rerun[prow]:
+            s = 2 * sub_of[prow] + d
+            blocks.append(rows_s[offs_s[s]:offs_s[s + 1]])
+        else:
+            blocks.append(rows_a[offs_a[t]:offs_a[t + 1]])
+        counts[t] = len(blocks[-1])
+    return (np.concatenate(blocks) if blocks
+            else np.empty((0, 6), np.int32)), counts
+
+
+def all2all_gpu(codes_list: Sequence[np.ndarray], pairs: np.ndarray,
+                params: Optional[AlignParams] = None,
+                index: Optional[GenomeIndex] = None,
+                keep_alignments: bool = False, device=None):
+    """The device align engine's all-vs-all, the JAX package's
+    `all2all_tpu` on one device; output as `_all2all_single`'s.
+
+    VCLUST_ALIGN_PIPE=v3 (the default): every pair on the v3 pipe (v2
+    above V3_MAX_BUCKET), then the hybrid: the pairs v3 leaves hard (tANI
+    > 0.05 and a query or reference coverage below V3_RERUN_COV) are
+    aligned again on v2 at SEEDS_PER_BLOCK and take its aggregates and
+    records. VCLUST_ALIGN_PIPE=v2: the v2 pipe; with neither records nor
+    VCLUST_ALIGN_TWO_PHASE=0, pairs from the bucket TWO_PHASE_MIN_BUCKET
+    up are screened at PHASE1_C seeds a block and those with RERUN_LO <
+    tANI < RERUN_HI aligned again at SEEDS_PER_BLOCK (so aggregates
+    outside that band can differ with and without records, as in the JAX
+    package). A fixed sampling density is `_all2all_single`'s
+    seeds_per_block."""
+    idx = index or GenomeIndex(codes_list, device=device)
+    pairs = np.asarray(pairs, dtype=np.int32).reshape(-1, 2)
+    pipe = os.environ.get('VCLUST_ALIGN_PIPE', 'v3')
+    if pipe not in ('v2', 'v3'):
+        raise ValueError(f'VCLUST_ALIGN_PIPE={pipe!r}: expected v2 or v3')
+
+    def run(p, C, keep, pipe_='v2'):
+        return _all2all_single(codes_list, p, params, idx, keep, C, pipe_)
+
+    if pipe == 'v3':
+        res = run(pairs, SEEDS_PER_BLOCK, keep_alignments, 'v3')
+        if V3_RERUN_COV <= 0 or not len(pairs):
+            return res
+        out = res[0] if keep_alignments else res
+        lens = idx.lens.astype(np.int64)
+        lj = np.maximum(lens[pairs[:, 1]], 1)   # the query of direction 1
+        li = np.maximum(lens[pairs[:, 0]], 1)
+        tani = (out[:, 1] + out[:, 4]) / (lj + li)
+        hard = (tani > 0.05) & ((out[:, 2] / lj < V3_RERUN_COV)
+                                | (out[:, 5] / li < V3_RERUN_COV))
+        if not hard.any():
+            return res
+        sub = run(pairs[hard], SEEDS_PER_BLOCK, keep_alignments)
+        if not keep_alignments:
+            out[hard] = sub
+            return out
+        out[hard] = sub[0]
+        return out, _merge_records(res[1], sub[1], hard)
+    if (keep_alignments or not len(pairs)
+            or os.environ.get('VCLUST_ALIGN_TWO_PHASE') == '0'):
+        return run(pairs, SEEDS_PER_BLOCK, keep_alignments)
+    lens = idx.lens.astype(np.int64)
+    # Small buckets are bound by dispatch latency: the screen applies only
+    # to pairs whose bucket reaches TWO_PHASE_MIN_BUCKET.
+    kb = np.array([max(_pad_bucket(int(lens[i])), _pad_bucket(int(lens[j])))
+                   for i, j in pairs], dtype=np.int64)
+    big = kb >= TWO_PHASE_MIN_BUCKET
+    out = np.zeros((len(pairs), 6), dtype=np.int64)
+    if (~big).any():
+        out[~big] = run(pairs[~big], SEEDS_PER_BLOCK, False)
+    if big.any():
+        pb = pairs[big]
+        o1 = run(pb, PHASE1_C, False)
+        pair_len = lens[pb[:, 0]] + lens[pb[:, 1]]
+        tani1 = (o1[:, 1] + o1[:, 4]) / np.maximum(pair_len, 1)
+        band = (tani1 > RERUN_LO) & (tani1 < RERUN_HI)
+        if band.any():
+            o1[band] = run(pb[band], SEEDS_PER_BLOCK, False)
+        out[big] = o1
+    return out
