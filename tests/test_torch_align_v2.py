@@ -634,3 +634,33 @@ def test_oversized_route_without_native_library(monkeypatch):
         assert [vars(a) for a in res.alignments] == \
             [vars(a) for a in exact.alignments]
     assert exact.rows and exact.alignments
+
+
+@pytest.mark.parametrize('native', [True, False])
+def test_mixed_host_and_device_records_match_jax(hybrid, native,
+                                                 monkeypatch):
+    """Records of host and device pairs in one `--out-aln` run: a genome
+    above MAX_TPU_LEN (the reference `a` with 1,500 more bases) goes to
+    the host engine (7 record columns from the native library), the
+    hybrid corpus stays on the device (6): rows and alignments equal the
+    JAX `--engine tpu`'s. The device pairs are the hybrid fixture's, so
+    the JAX side reuses its programs."""
+    genomes = _hybrid_genomes()
+    jgenomes = _hybrid_genomes(JGenome)
+    rng = np.random.default_rng(6)
+    tail = np.frombuffer(b'ACGT', dtype='S1')[rng.integers(0, 4, 1500)]
+    big = genomes[0].seqs[0] + tail.tobytes()
+    genomes.append(Genome('a.big', [big]))
+    jgenomes.append(JGenome('a.big', [big]))
+    monkeypatch.setattr(ja, 'MAX_TPU_LEN', 4000)
+    monkeypatch.setattr(ag, 'MAX_TPU_LEN', 4000)
+    want = jalign.run_align(jgenomes, engine='tpu', keep_alignments=True)
+    if not native:
+        monkeypatch.setattr(talign.lz_native, 'available', lambda: False)
+    got = talign.run_align(genomes, engine='gpu', keep_alignments=True)
+    assert [vars(r) for r in got.rows] == [vars(r) for r in want.rows]
+    assert [vars(a) for a in got.alignments] == \
+        [vars(a) for a in want.alignments]
+    # Both routes gave records.
+    refs = {(a.query, a.reference) for a in want.alignments}
+    assert ('a', 'a.big') in refs and ('a', 'a.mut5') in refs

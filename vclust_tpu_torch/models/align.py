@@ -230,6 +230,7 @@ def _run_align_gpu(genomes, order, objects, result, candidates, params,
         agg[ks] = a
         if alns is not None:
             rows, counts = alns
+            rows = rows[:, :6]  # the native engine's records have 7 columns
             offs = np.concatenate([[0], np.cumsum(counts)])
             for t, k in enumerate(ks):
                 for d in (0, 1):
