@@ -48,9 +48,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
               seconds, peak device memory and a profiler breakdown of one
               warm run; the max |dtANI| against the native C++ engine
               (printed, not held); then K2 and K3 alone on one full
-              dispatch at 65,536 (== plain, with ms, device_ms, plain_ms,
-              bound; library_ms for K2), and the time of each stage of that
-              dispatch;
+              dispatch at 65,536 and at 4,096 (== plain, with ms,
+              device_ms, plain_ms, bound; library_ms for K2), and the time
+              of each stage of the 65,536 dispatch;
   8. align_hybrid - the engine's default all2all_gpu (v3, then v2 on the
               hard pairs) on the 48 genomes: hard pairs, warm pairs/s with
               and without the hybrid, busy share and top device entries
@@ -843,12 +843,24 @@ def cpu_reference_check(dev, ag, codes, pairs, out, n: int = 8) -> dict:
         len(cpu[1][0])))
 
 
-def align_v3_dispatch(torch, dev, ag, idx, codes, seed: int, kb=65536):
-    """K2 and K3 alone on one full dispatch at bucket `kb` (B rows of
-    K = 8 queries from the path's arena), each against its plain version;
-    then the time of each stage of that dispatch."""
+K2_DESIGN = ('wgmma m64n256k32 u8 (two consumer warpgroups, a 128 x 256 '
+             'tile; one warpgroup on 64 x 128 at 2*NQB <= 64, NRB <= 128) '
+             'from a 4-stage TMA ring of 3-D tensor maps over the arenas, '
+             'persistent CTAs in (row, reference tile, query, query tile) '
+             'order, packed maxes in registers, atomicMax epilogue')
+K3_DESIGN = ('bit planes (low, high, is-a-base) built with 3 __ballot_sync '
+             'a 32-byte chunk, one warp a fine block over persistent CTAs, a '
+             'lane a shift: 3 funnel shifts, the match mask, __popc; the '
+             'election in a register and one __reduce_max_sync; no shared '
+             'memory')
+
+
+def k2_k3_alone(torch, dev, ag, b, codes, seed: int, kb: int):
+    """K2 and K3 alone on one full dispatch at bucket `kb` (B rows of K
+    queries from the path's arena `b`), each against its plain version,
+    with ms, device_ms, plain_ms, bound and (K2) library_ms. Returns the
+    two rows and the dispatch's inputs."""
     import numpy as np
-    b = idx.bucket[(kb, 'v3')]
     g3 = ag._v3_geom(kb, kb)
     K = ag.K_QUERIES
     B = ag._dispatch_rows(kb, K, dev, False)
@@ -877,7 +889,7 @@ def align_v3_dispatch(torch, dev, ag, idx, codes, seed: int, kb=65536):
     with plain_k2_k3(ag):
         if not all(torch.equal(x, y) for x, y in zip(
                 (cnt1, g1, cnt2, g2), ag._stage1_v3(*s1))):
-            fail('K2: cnt1, g1, cnt2, g2 != plain')
+            fail(f'K2 at bucket {kb}: cnt1, g1, cnt2, g2 != plain')
     k2_ms = time_ms(lambda: ag.stage1_pack(*s1), 5)
     k2_dev = device_ms(lambda: ag.stage1_pack(*s1), 5)
     k2_plain = time_ms(lambda: ag.stage1_pack_plain(*s1), 1)
@@ -890,7 +902,7 @@ def align_v3_dispatch(torch, dev, ag, idx, codes, seed: int, kb=65536):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     k2 = dict(name='stage1_pack', route='cuda',
               source='vclust_tpu_torch/csrc/align_v3.cu',
-              replaces='vclust_tpu/ops/align_tpu.py:1108',
+              replaces='vclust_tpu/ops/align_tpu.py:1108', design=K2_DESIGN,
               max_abs_err=k2_err, ms=k2_ms, device_ms=k2_dev,
               plain_ms=k2_plain, bound_ms=max(t_ops, t_bytes),
               bound_by='operations' if t_ops >= t_bytes else 'bytes',
@@ -926,14 +938,24 @@ def align_v3_dispatch(torch, dev, ag, idx, codes, seed: int, kb=65536):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     k3 = dict(name='band_counts', route='cuda',
               source='vclust_tpu_torch/csrc/align_v3.cu',
-              replaces='vclust_tpu/ops/align_tpu.py:1175',
+              replaces='vclust_tpu/ops/align_tpu.py:1175', design=K3_DESIGN,
               max_abs_err=k3_err, ms=k3_ms, device_ms=k3_dev,
               plain_ms=k3_plain, bound_ms=max(t_ops, t_bytes),
               bound_by='operations' if t_ops >= t_bytes else 'bytes',
               library_ms=None,
               at=f'bucket {kb}: {n} fine blocks x 4 bands x {band} shifts',
               int32_slots=ops)
-    del win, wins, got, want
+    return k2, k3, (s1, rlens, (cnt1, g1, cnt2, g2), B, K, g3)
+
+
+def align_v3_dispatch(torch, dev, ag, idx, codes, seed: int, kb=65536):
+    """K2 and K3 alone on one full dispatch at bucket `kb` (k2_k3_alone);
+    then the time of each stage of that dispatch."""
+    b = idx.bucket[(kb, 'v3')]
+    k2, k3, (s1, rlens, (cnt1, g1, cnt2, g2), B, K, g3) = k2_k3_alone(
+        torch, dev, ag, b, codes, seed, kb)
+    r_rows, q_rows = s1[2:]
+    tasks = B * K
 
     # Each stage of the dispatch (kernels on), and the back half (K4's
     # torch ops) alone, with its bytes bound: the two flag arrays read once.
@@ -1020,8 +1042,20 @@ def phase_align_v3(torch, dev, seed: int, engine: dict):
     k2, k3 = align_v3_dispatch(torch, dev, ag, idx, codes, seed)
     phase_align_hybrid(torch, dev, ag, idx, codes, pairs, out, seed)
     del idx
-    res_c = align_v3_corpus(torch, dev, 'contigs128', contig_corpus(), ag)[0]
+    res_c, c_codes, _, c_idx, _ = align_v3_corpus(
+        torch, dev, 'contigs128', contig_corpus(), ag)
     emit(res_c)
+    # K2 and K3 alone at bucket 4,096 (K2's 64 x 128 tile).
+    small = k2_k3_alone(torch, dev, ag, c_idx.bucket[(4096, 'v3')], c_codes,
+                        seed, 4096)[:2]
+    emit(dict(phase='align_v3_dispatch', bucket=4096, k2=small[0],
+              k3=small[1]))
+    del c_idx
+    for row, at in zip((k2, k3), small):
+        row['max_abs_err'] = max(row['max_abs_err'], at['max_abs_err'])
+        row['at_4096'] = {key: at[key] for key in (
+            'at', 'max_abs_err', 'ms', 'device_ms', 'plain_ms', 'bound_ms',
+            'bound_by', 'library_ms')}
     for row in (k2, k3):
         key = row['name']
         row['launches'] = engine['path_launches'][key]

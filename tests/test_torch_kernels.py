@@ -136,12 +136,12 @@ def test_kx_kernel_matches_plain(cuda_device):
         assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
-def _stage1_inputs(seed, K, M2, NRB, H, rows=3, zero=False, ties=False):
-    """Random {0,1} arenas for K2: (qocc, rocc, r_rows, q_rows). zero:
-    all-zero rows in both arenas; ties: reference rows repeated, so counts
-    tie between reference blocks (the larger block must win)."""
+def _stage1_inputs(seed, K, M2, NRB, H, rows=3, zero=False, ties=False,
+                   G=5):
+    """Random {0,1} arenas of G rows for K2: (qocc, rocc, r_rows, q_rows).
+    zero: all-zero rows in both arenas; ties: reference rows repeated, so
+    counts tie between reference blocks (the larger block must win)."""
     rng = np.random.default_rng(seed)
-    G = 5
     qocc = (rng.random((G, M2, H)) < 0.04).astype(np.int8)
     rocc = (rng.random((G, NRB, H)) < 0.02).astype(np.int8)
     # Rows of shared buckets, so the maxima are not all noise.
@@ -161,15 +161,25 @@ def _stage1_inputs(seed, K, M2, NRB, H, rows=3, zero=False, ties=False):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize('K,M2,NRB,H,case', [
+    # bucket 4,096 (contigs128; the 64 x 128 tile), 65,536 and 131,072
+    # (V3_MAX_BUCKET; the 128 x 256 tile)
     (8, 64, 128, 2048, None), (1, 1024, 2048, 2048, None),
-    # NRB not a multiple of 512 or of the 128-block tile; 2*NQB not of 64
+    (8, 1024, 4096, 2048, None),
+    # NRB not a multiple of 512 or of the 256-block tile; 2*NQB not of 64
     (8, 80, 700, 2048, None), (1, 96, 200, 256, None),
     (8, 64, 600, 1024, 'zero'), (1, 128, 520, 2048, 'zero'),
-    (8, 192, 512, 2048, 'ties'), (1, 64, 300, 512, 'ties')])
+    (8, 192, 512, 2048, 'ties'), (1, 64, 300, 512, 'ties'),
+    # an arena of 40 rows, each dispatch row's queries all one arena row
+    (8, 256, 512, 2048, 'arena40')])
 def test_k2_kernel_matches_plain(cuda_device, K, M2, NRB, H, case):
-    args = [a.to(cuda_device) for a in _stage1_inputs(
-        K * NRB + M2, K, M2, NRB, H, zero=case == 'zero',
-        ties=case == 'ties')]
+    args = _stage1_inputs(K * NRB + M2, K, M2, NRB, H, zero=case == 'zero',
+                          ties=case == 'ties',
+                          G=40 if case == 'arena40' else 5,
+                          rows=6 if case == 'arena40' else 3)
+    if case == 'arena40':
+        args[2] = torch.tensor([39, 0, 17, 17, 3, 39], dtype=torch.int32)
+        args[3] = args[3][:, :1].expand(-1, K).contiguous()
+    args = [a.to(cuda_device) for a in args]
     before = tav.stage1_pack.launches
     got = tav.stage1_pack(*args)
     want = tav.stage1_pack_plain(*args)
@@ -179,6 +189,25 @@ def test_k2_kernel_matches_plain(cuda_device, K, M2, NRB, H, case):
         assert torch.equal(g, w)
     if case == 'ties':
         assert ((got[0] & 8191) % 2 == 1).float().mean() > 0.9
+
+
+@pytest.mark.gpu
+def test_k2_wrapper_rejects_what_tma_cannot_read(cuda_device):
+    """TMA reads contiguous arenas at 16-byte aligned addresses: the
+    wrapper raises on anything else instead of launching."""
+    qocc, rocc, r_rows, q_rows = (a.to(cuda_device) for a in _stage1_inputs(
+        1, 2, 64, 128, 256))
+    before = tav.stage1_pack.launches
+    with pytest.raises(ValueError, match='contiguous'):
+        tav.stage1_pack(qocc.transpose(1, 2), rocc, r_rows, q_rows)
+    flat = torch.zeros(qocc.numel() + 1, dtype=torch.int8,
+                       device=cuda_device)
+    shifted = flat[1:].view(qocc.shape)
+    shifted.copy_(qocc)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    with pytest.raises(ValueError, match='16-byte aligned'):
+        tav.stage1_pack(shifted, rocc, r_rows, q_rows)
+    assert tav.stage1_pack.launches == before
 
 
 def _band_inputs(seed, n, win, ties=False):
@@ -202,8 +231,13 @@ def _band_inputs(seed, n, win, ties=False):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize('n,win,ties', [(5000, 256, False), (777, 128, False),
-                                        (300, 544, False), (1000, 256, True)])
+@pytest.mark.parametrize('n,win,ties', [
+    (5000, 256, False), (777, 128, False), (300, 544, False),
+    (1000, 256, True),
+    # n not a multiple of a CTA's 8 warps; WIN of the smallest WQ (64); a
+    # band of 8 shifts, less than a warp's 32
+    (1, 256, False), (4097, 256, False), (2000, 192, False),
+    (3000, 40, False)])
 def test_k3_kernel_matches_plain(cuda_device, n, win, ties):
     wins, qb = (a.to(cuda_device) for a in _band_inputs(n + win, n, win,
                                                           ties))

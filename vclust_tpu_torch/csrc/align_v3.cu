@@ -14,173 +14,322 @@
 // (Ma << 13) | rr and (Mb << 13) | rr, Ma and Mb being rows 2q and 2q+1.
 // Counts stay <= 64 (a half block holds at most 64 distinct buckets), so
 // << 13 cannot overflow, and the packed max gives ties to the larger rr.
-// Design: a CTA computes a 64 x 128 tile of M (32 query blocks x 128
-// reference blocks) with mma.sync m16n8k32 u8 x u8 -> s32 from a two-stage
-// cp.async ring in shared memory (rows padded to 80 bytes, so fragment
-// loads are free of bank conflicts); four warps of 32 x 64 each. The
-// epilogue pairs adjacent half rows by a shuffle (rows g and g+1 of a
-// fragment are 4 lanes apart), reduces the three packs over the tile's
-// columns in registers and across the 4 lanes of a row, and atomicMaxes
-// them into the three (tasks, NQB) outputs, which the wrapper zeroes: the
-// score matrix never reaches device memory. Bound on an H100 SXM: the
-// products, 2 * 2*NQB * NRB * H operations a task, against the 1,979
-// TOPS int8 dense tensor rate. Left for later: wgmma from a TMA ring, and
-// sharing a CTA's reference tile across the K queries of its row.
+// What bounds it on an H100 SXM, and what the design does about it:
+//   * Operations: 2 * 2*NQB * NRB * H u8 products a task against the 1,979
+//     TOPS dense int8 tensor rate, which only `wgmma` reaches. Two consumer
+//     warpgroups each issue m64n256k32 u8 x u8 -> s32 with both operands
+//     read from shared memory (K-major, 128-byte swizzle), on a 128 x 256
+//     tile (query half-blocks x reference blocks); a k-block is 128
+//     buckets. The score matrix never leaves the registers.
+//   * Operand bytes: a k-block brings 16 KB of A and 32 KB of B for
+//     8.4M products, more than L2 feeds at the tensor rate, so L2 is the
+//     practical floor. A producer thread keeps a 4-stage ring full with TMA
+//     copies from 3-D tensor maps over the arenas (H, rows, G); it reads
+//     q_rows[task] and r_rows[task / K] itself and passes them as the third
+//     coordinate. TMA fills rows past M2 and NRB with zeros (the epilogue
+//     masks those columns). CTAs are persistent and walk the tiles in the
+//     order (dispatch row, reference tile, query, query tile), so the CTAs
+//     in flight share one reference tile of one arena row (the K queries of
+//     a row share their reference) and a row's operands stay in the 50 MB
+//     L2 while it is worked on.
+//   * Epilogue: the accumulator has the m16n8 fragment layout, so half rows
+//     2q and 2q+1 are rows g and g+1 of a fragment, 4 lanes apart: a
+//     shuffle pairs them, the three packs are reduced over the tile's
+//     columns in registers and across the 4 lanes of a row, and atomicMax
+//     (order-free: the result is deterministic) adds them into the three
+//     (tasks, NQB) outputs, which the wrapper zeroes. The producer loads
+//     the next tile's stages meanwhile.
+//   * Small buckets (2*NQB <= 64 and NRB <= 128, bucket 4,096): the same
+//     kernel with one consumer warpgroup on a 64 x 128 tile, two CTAs an
+//     SM, so no product runs on rows that are all padding.
 //
 // K3 (k3_bands). For every fine block f (32 query bases) and each of the
 // four bands (candidate 1 and 2, forward and reverse), the count of valid
-// query bases (code < 4) equal to the window base at each of BAND = WIN-32
-// shifts, written as int8 (stages 5-6 read them), and the election: the
-// max over bands and shifts of (count << 12) | tag | shift, tags 3072
-// (candidate 1, forward), 2048 (candidate 1, reverse), 1024 (candidate 2,
-// forward), 0 (candidate 2, reverse), so ties go to candidate 1, then the
-// forward strand, then the larger shift. Design: a CTA of 256 threads
-// walks fine blocks (grid-stride); the 32 query bases and the four windows
-// sit in shared memory, a thread takes a shift and counts all four bands,
-// and a warp then block max gives the election. Bound on an H100 SXM:
-// 2 int32 operations (compare, add) a base, shift and band against the
-// 33.5 TOPS int32 rate, or the windows and counts it moves against 3.35
-// TB/s, whichever is larger. Left for later: four compares a byte-SIMD
-// instruction (__vcmpeq4), and fusing the window gather.
+// query bases equal to the window base at each of BAND = WIN-32 shifts,
+// written as int8 (stages 5-6 read them), and the election: the max over
+// bands and shifts of (count << 12) | tag | shift, tags 3072 (candidate 1,
+// forward), 2048 (candidate 1, reverse), 1024 (candidate 2, forward), 0
+// (candidate 2, reverse), so ties go to candidate 1, then the forward
+// strand, then the larger shift. Code contract: a code is a base only in
+// 0-3 (the path's codes are 0-4, N and the window pads being 4), which is
+// what makes the bit planes below equal to the plain byte compares.
+// What bounds it, and what the design does about it:
+//   * Operations: a base is three bits (low, high, "is a base"), so a fine
+//     block's 32 compares at one shift are one word each of three planes:
+//     3 funnel shifts align the window's planes to the shift, 3 logic ops
+//     give ~(ql ^ wl) & ~(qh ^ wh) & qv & wv, a population count (4 issue
+//     slots) and 3 for the packed max: 13 int32 issue slots a fine block,
+//     band and shift against 64 slots an SM and clock.
+//   * Bytes: the windows read once and the counts written once (at the B =
+//     26 dispatch 436 and 382 MB), nearly as long as the operations.
+//   * Design: one warp a fine block, persistent CTAs in a grid stride. A
+//     lane loads one byte of each 32-byte chunk of the four windows (all
+//     loads issued before the first use) and three __ballot_sync calls turn
+//     a chunk into one word of each plane, the same in every lane; lanes
+//     then take the shifts, so a warp's byte stores of a count row are
+//     contiguous; the election stays in a register until one
+//     __reduce_max_sync. No shared memory, no __syncthreads.
 
+#include <cuda.h>  // CUtensorMap and its enums (types only)
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <stdio.h>
 
 namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
 
-// ---- K2 ----------------------------------------------------------------
-constexpr int K2_BM = 64;            // query half-block rows a CTA
-constexpr int K2_BN = 128;           // reference blocks a CTA
-constexpr int K2_BK = 64;            // hash buckets (bytes) a stage
-constexpr int K2_LDS = K2_BK + 16;   // padded shared row, bytes
-constexpr int K2_THREADS = 128;      // 2 x 2 warps of 32 x 64
-constexpr int RB_BITS = 13;
+// ---- shared-memory barriers, TMA and wgmma (as in csrc/occupancy.cu) ----
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = valid ? 16 : 0;  // 0: fill the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count) : "memory");
 }
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+               "r"(bar), "r"(bytes) : "memory");
+}
+
+// The box of `map` at (k, row, arena row g) into shared memory at dst.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int k, int row,
+                                            int g) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(k), "r"(row),
+      "r"(g)
+      : "memory");
+}
+
+// Shared-memory descriptor of a K-major tile of 128-byte rows written by TMA
+// with the 128-byte swizzle: 8-row groups 1,024 bytes apart (SBO), layout 1.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)1 << 16 |
+         (uint64_t)(1024 >> 4) << 32 | (uint64_t)1 << 62;
+}
+
+#define D8(i)                                                           \
+  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]),           \
+      "+r"(d[i + 4]), "+r"(d[i + 5]), "+r"(d[i + 6]), "+r"(d[i + 7])
+
+// d (64 x N, s32, the warpgroup's fragment) = (acc ? d : 0) + a (64 x 32
+// u8) * b (N x 32 u8)^T, both K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss(int (&d)[64], uint64_t a, uint64_t b,
+                                         int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.u8.u8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p;\n}\n"
+      : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56)
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_ss(int (&d)[128], uint64_t a,
+                                         uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.u8.u8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
+      "%127}, %128, %129, p;\n}\n"
+      : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56),
+        D8(64), D8(72), D8(80), D8(88), D8(96), D8(104), D8(112), D8(120)
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+#undef D8
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void fence_operand(int& x) {
+  asm volatile("" : "+r"(x)::"memory");
 }
 
-__device__ __forceinline__ void mma_u8(int (&d)[4], const uint32_t (&a)[4],
-                                       const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+// ---- K2 ----------------------------------------------------------------
+constexpr int K2_KB = 128;      // hash buckets a k-block: one 128-byte row
+constexpr int K2_KSTEP = 32;    // buckets a wgmma (k32)
+constexpr int K2_STAGES = 4;
+constexpr int RB_BITS = 13;
+
+// CONS consumer warpgroups of 64 tile rows each, a BN-column tile.
+template <int CONS, int BN>
+struct K2Tile {
+  static constexpr int BM = 64 * CONS;
+  static constexpr int THREADS = (CONS + 1) * 128;
+  static constexpr int CTAS_PER_SM = CONS == 1 ? 2 : 1;
+  static constexpr int A_BYTES = BM * K2_KB;
+  static constexpr int B_BYTES = BN * K2_KB;
+  static constexpr int SMEM =
+      K2_STAGES * (A_BYTES + B_BYTES) + 2 * K2_STAGES * 8 + 1024;
+};
+
+// Tile `tile` of the walk (dispatch row, reference tile, query of the row,
+// query tile): its task, first query half-block row and reference block.
+__device__ __forceinline__ void k2_tile(int tile, int K, int ntm, int ntn,
+                                        int bm, int bn, int& task, int& m0,
+                                        int& n0) {
+  const int per_n = K * ntm;
+  const int row = tile / (per_n * ntn);
+  const int rem = tile - row * per_n * ntn;
+  const int nt = rem / per_n;
+  const int rem2 = rem - nt * per_n;
+  task = row * K + rem2 / ntm;
+  m0 = (rem2 % ntm) * bm;
+  n0 = nt * bn;
 }
 
-__global__ void __launch_bounds__(K2_THREADS)
-stage1_kernel(const uint8_t* __restrict__ qocc,
-              const uint8_t* __restrict__ rocc,
+template <int CONS, int BN>
+__global__ void __launch_bounds__(K2Tile<CONS, BN>::THREADS,
+                                  K2Tile<CONS, BN>::CTAS_PER_SM)
+stage1_kernel(const __grid_constant__ CUtensorMap q_map,
+              const __grid_constant__ CUtensorMap r_map,
               const int32_t* __restrict__ r_rows,
-              const int32_t* __restrict__ q_rows, int K, int M2, int NRB,
-              int H, int32_t* __restrict__ p_sum, int32_t* __restrict__ p_a,
-              int32_t* __restrict__ p_b) {
-  __shared__ __align__(16) uint8_t As[2][K2_BM * K2_LDS];
-  __shared__ __align__(16) uint8_t Bs[2][K2_BN * K2_LDS];
-  const int task = blockIdx.x;
-  const int m0 = blockIdx.y * K2_BM;
-  const int n0 = blockIdx.z * K2_BN;
-  const uint8_t* A = qocc + (size_t)q_rows[task] * M2 * H;
-  const uint8_t* B = rocc + (size_t)r_rows[task / K] * NRB * H;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tig = lane & 3;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 64;
+              const int32_t* __restrict__ q_rows, int n_tiles, int K,
+              int M2, int NRB, int H, int32_t* __restrict__ p_sum,
+              int32_t* __restrict__ p_a, int32_t* __restrict__ p_b) {
+  using T = K2Tile<CONS, BN>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;  // 128-byte swizzle atoms
+  const uint32_t sA = base, sB = sA + K2_STAGES * T::A_BYTES;
+  const uint32_t full = sB + K2_STAGES * T::B_BYTES;
+  const uint32_t empty = full + K2_STAGES * 8;
+  const int ntm = (M2 + T::BM - 1) / T::BM;
+  const int ntn = (NRB + BN - 1) / BN;
+  const int nkb = (H + K2_KB - 1) / K2_KB;
 
-  auto load = [&](int stage, int k0) {
-    for (int c = tid; c < K2_BM * (K2_BK / 16); c += K2_THREADS) {
-      const int r = c / (K2_BK / 16), col = (c % (K2_BK / 16)) * 16;
-      const bool ok = m0 + r < M2;
-      cp_async16(&As[stage][r * K2_LDS + col],
-                 ok ? A + (size_t)(m0 + r) * H + k0 + col : A, ok);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < K2_STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, CONS);
     }
-    for (int c = tid; c < K2_BN * (K2_BK / 16); c += K2_THREADS) {
-      const int r = c / (K2_BK / 16), col = (c % (K2_BK / 16)) * 16;
-      const bool ok = n0 + r < NRB;
-      cp_async16(&Bs[stage][r * K2_LDS + col],
-                 ok ? B + (size_t)(n0 + r) * H + k0 + col : B, ok);
-    }
-    cp_async_commit();
-  };
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  int acc[2][8][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0;
-
-  const int KT = H / K2_BK;
-  load(0, 0);
-  for (int kt = 0; kt < KT; ++kt) {
-    if (kt + 1 < KT) {
-      load((kt + 1) & 1, (kt + 1) * K2_BK);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const uint8_t* as = As[kt & 1];
-    const uint8_t* bs = Bs[kt & 1];
-#pragma unroll
-    for (int ks = 0; ks < K2_BK; ks += 32) {
-      uint32_t af[2][4], bf[8][2];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const uint8_t* p = as + (wm + mt * 16 + g) * K2_LDS + ks + tig * 4;
-        af[mt][0] = *reinterpret_cast<const uint32_t*>(p);
-        af[mt][1] = *reinterpret_cast<const uint32_t*>(p + 8 * K2_LDS);
-        af[mt][2] = *reinterpret_cast<const uint32_t*>(p + 16);
-        af[mt][3] = *reinterpret_cast<const uint32_t*>(p + 8 * K2_LDS + 16);
+  const int wg = threadIdx.x / 128;
+  if (wg == CONS) {
+    // Producer: one thread keeps the ring full.
+    if constexpr (CONS == 2)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == CONS * 128) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+        int task, m0, n0;
+        k2_tile(tile, K, ntm, ntn, T::BM, BN, task, m0, n0);
+        const int qg = q_rows[task], rg = r_rows[task / K];
+        for (int kb = 0; kb < nkb; ++kb) {
+          const uint32_t f = full + 8 * stage;
+          mbar_wait(empty + 8 * stage, phase ^ 1);
+          mbar_expect_tx(f, T::A_BYTES + T::B_BYTES);
+          tma_load_3d(sA + stage * T::A_BYTES, &q_map, f, kb * K2_KB, m0, qg);
+          tma_load_3d(sB + stage * T::B_BYTES, &r_map, f, kb * K2_KB, n0, rg);
+          if (++stage == K2_STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
       }
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const uint8_t* p = bs + (wn + nt * 8 + g) * K2_LDS + ks + tig * 4;
-        bf[nt][0] = *reinterpret_cast<const uint32_t*>(p);
-        bf[nt][1] = *reinterpret_cast<const uint32_t*>(p + 16);
-      }
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt) mma_u8(acc[mt][nt], af[mt], bf[nt]);
     }
-    __syncthreads();
+    return;
   }
 
-  // Epilogue. Accumulator i of a fragment sits at row g + 8 * (i >> 1),
-  // column 2 * tig + (i & 1); half rows 2q and 2q + 1 are rows g and g + 1
-  // for even g, whose partner is lane + 4.
+  // Consumers: 64 tile rows each.
+  if constexpr (CONS == 2)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
   const int NQB = M2 >> 1;
+  int acc[BN / 2];
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
+  for (int c = 0; c < BN / 2; ++c) acc[c] = 0;
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    int task, m0, n0;
+    k2_tile(tile, K, ntm, ntn, T::BM, BN, task, m0, n0);
+    int prev = -1;  // the stage in use until its products are done
+    for (int kb = 0; kb < nkb; ++kb) {
+      mbar_wait(full + 8 * stage, phase);
+      const uint64_t a_desc =
+          smem_desc(sA + stage * T::A_BYTES + wg * 64 * K2_KB);
+      const uint64_t b_desc = smem_desc(sB + stage * T::B_BYTES);
+      wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < K2_KB / K2_KSTEP; ++s)  // +32 bytes a step
+        wgmma_ss(acc, a_desc + 2 * s, b_desc + 2 * s, kb | s);
+      wgmma_commit();
+      wgmma_wait<1>();
+      if (prev >= 0 && tid == 0) mbar_arrive(empty + 8 * prev);
+      prev = stage;
+      if (++stage == K2_STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    wgmma_wait<0>();
+    if (tid == 0) mbar_arrive(empty + 8 * prev);
+#pragma unroll
+    for (int c = 0; c < BN / 2; ++c) fence_operand(acc[c]);
+
+    // Epilogue. acc[4 * c8 + 2 * h + e] is row 16 * warp + g + 8 * h of the
+    // warpgroup's 64, column 8 * c8 + 2 * t + e of the tile; half rows 2q
+    // and 2q + 1 are rows g and g + 1 for even g, whose partner is lane + 4.
+    const int lim = NRB - n0;  // columns of the tile inside NRB
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       int best_s = -1, best_a = -1, best_b = -1;
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
+      for (int c8 = 0; c8 < BN / 8; ++c8) {
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int ma = acc[mt][nt][2 * h + j];
+        for (int e = 0; e < 2; ++e) {
+          const int ma = acc[4 * c8 + 2 * h + e];
           const int mb = __shfl_down_sync(FULL, ma, 4);
-          const int col = n0 + wn + nt * 8 + tig * 2 + j;
-          if (col < NRB) {
-            best_s = max(best_s, ((ma + mb) << RB_BITS) | col);
-            best_a = max(best_a, (ma << RB_BITS) | col);
-            best_b = max(best_b, (mb << RB_BITS) | col);
+          const int col = 8 * c8 + 2 * t + e;
+          if (col < lim) {
+            best_s = max(best_s, ((ma + mb) << RB_BITS) | (n0 + col));
+            best_a = max(best_a, (ma << RB_BITS) | (n0 + col));
+            best_b = max(best_b, (mb << RB_BITS) | (n0 + col));
           }
         }
       }
@@ -190,8 +339,8 @@ stage1_kernel(const uint8_t* __restrict__ qocc,
         best_a = max(best_a, __shfl_xor_sync(FULL, best_a, o));
         best_b = max(best_b, __shfl_xor_sync(FULL, best_b, o));
       }
-      const int row = m0 + wm + mt * 16 + h * 8 + g;
-      if (tig == 0 && (g & 1) == 0 && row < M2 && best_s >= 0) {
+      const int row = m0 + wg * 64 + warp * 16 + h * 8 + g;
+      if (t == 0 && (g & 1) == 0 && row < M2) {
         const size_t o = (size_t)task * NQB + (row >> 1);
         atomicMax(p_sum + o, best_s);
         atomicMax(p_a + o, best_a);
@@ -202,90 +351,226 @@ stage1_kernel(const uint8_t* __restrict__ qocc,
 }
 
 // ---- K3 ----------------------------------------------------------------
-constexpr int K3_THREADS = 256;
+constexpr int K3_WARPS = 8;  // warps a CTA, one fine block each at a time
 constexpr int NBANDS = 4;
 constexpr int FINE = 32;
-constexpr int MAX_WIN = 512 + FINE;  // BAND <= 512 (9 bits of shift)
-constexpr int K3_CTAS_PER_SM = 8;
+constexpr int MAX_CHUNKS = (512 + FINE) / 32;  // BAND <= 512 (9 bits)
 
 __device__ __forceinline__ int band_tag(int b) {
   return (b < 2 ? 2048 : 0) | ((b & 1) ? 0 : 1024);
 }
 
-__global__ void __launch_bounds__(K3_THREADS)
+// NC: 32-byte chunks of a window, WIN <= 32 * NC < WIN + 32.
+template <int NC>
+__global__ void __launch_bounds__(K3_WARPS * 32)
 band_kernel(const int8_t* __restrict__ wins, const int8_t* __restrict__ q,
             int n, int win, int8_t* __restrict__ cnt,
             int32_t* __restrict__ bb) {
-  __shared__ int8_t ws[NBANDS][MAX_WIN];
-  __shared__ int8_t qs[FINE];
-  __shared__ int red[K3_THREADS / 32];
   const int band = win - FINE;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  for (int f = blockIdx.x; f < n; f += gridDim.x) {
-    for (int i = tid; i < NBANDS * win; i += K3_THREADS) {
-      const int b = i / win, x = i - b * win;
-      ws[b][x] = wins[((size_t)b * n + f) * win + x];
+  const int lane = threadIdx.x & 31;
+  const int warps = gridDim.x * K3_WARPS;
+  for (int f = blockIdx.x * K3_WARPS + (threadIdx.x >> 5); f < n;
+       f += warps) {
+    // Byte `lane` of every chunk of the four windows, and the query base;
+    // past WIN an invalid code.
+    int x[NBANDS][NC];
+#pragma unroll
+    for (int b = 0; b < NBANDS; ++b) {
+      const int8_t* w = wins + ((size_t)b * n + f) * win;
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+        x[b][c] = 32 * c + lane < win ? __ldg(w + 32 * c + lane) : 4;
     }
-    if (tid < FINE) {
-      const int8_t c = q[(size_t)f * FINE + tid];
-      qs[tid] = c < 4 ? c : (int8_t)-1;  // -1 matches no window base
-    }
-    __syncthreads();
+    const int qc = __ldg(q + (size_t)f * FINE + lane);
+    // Planes: bit p of a word is base p of the chunk.
+    const uint32_t ql = __ballot_sync(FULL, qc & 1);
+    const uint32_t qh = __ballot_sync(FULL, qc & 2);
+    const uint32_t qv = __ballot_sync(FULL, (unsigned)qc < 4u);
     int best = -1;
-    for (int t = tid; t < band; t += K3_THREADS) {
 #pragma unroll
-      for (int b = 0; b < NBANDS; ++b) {
-        int c = 0;
+    for (int b = 0; b < NBANDS; ++b) {
+      uint32_t wl[NC], wh[NC], wv[NC];
 #pragma unroll
-        for (int p = 0; p < FINE; ++p) c += ws[b][t + p] == qs[p];
-        cnt[((size_t)b * n + f) * band + t] = (int8_t)c;
-        best = max(best, (c << 12) | band_tag(b) | t);
+      for (int c = 0; c < NC; ++c) {
+        wl[c] = __ballot_sync(FULL, x[b][c] & 1);
+        wh[c] = __ballot_sync(FULL, x[b][c] & 2);
+        wv[c] = __ballot_sync(FULL, (unsigned)x[b][c] < 4u);
+      }
+      int8_t* out = cnt + ((size_t)b * n + f) * band;
+      const int tag = band_tag(b);
+      // Lane `lane` takes shift t = 32 j + lane: window bases t .. t + 31
+      // are bits lane .. lane + 31 of words j and j + 1.
+#pragma unroll
+      for (int j = 0; j + 1 < NC; ++j) {
+        const int tt = 32 * j + lane;
+        const uint32_t l = __funnelshift_r(wl[j], wl[j + 1], lane);
+        const uint32_t hh = __funnelshift_r(wh[j], wh[j + 1], lane);
+        const uint32_t v = __funnelshift_r(wv[j], wv[j + 1], lane);
+        const int c = __popc(~(ql ^ l) & ~(qh ^ hh) & v & qv);
+        if (tt < band) {
+          out[tt] = (int8_t)c;
+          best = max(best, (c << 12) | tag | tt);
+        }
       }
     }
     best = __reduce_max_sync(FULL, best);
-    if (lane == 0) red[warp] = best;
-    __syncthreads();
-    if (warp == 0) {
-      int v = lane < K3_THREADS / 32 ? red[lane] : -1;
-      v = __reduce_max_sync(FULL, v);
-      if (lane == 0) bb[f] = v;
-    }
-    __syncthreads();  // shared memory is reloaded for the next block
+    if (lane == 0) bb[f] = best;
   }
+}
+
+template <int NC>
+int launch_bands(const int8_t* wins, const int8_t* qb, int n, int win,
+                 int8_t* cnt, int32_t* bb, cudaStream_t s) {
+  static int per_sm = 0;
+  if (!per_sm) {
+    cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, band_kernel<NC>, K3_WARPS * 32, 0);
+    if (err != cudaSuccess) return (int)err;
+  }
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int need = (n + K3_WARPS - 1) / K3_WARPS;
+  const int blocks = need < sms * per_sm ? need : sms * per_sm;
+  band_kernel<NC><<<blocks, K3_WARPS * 32, 0, s>>>(wins, qb, n, win, cnt, bb);
+  return (int)cudaGetLastError();
+}
+
+// ---- host: tensor maps and launches -------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda).
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// Error codes from this on are CUresult values of the tensor-map encoder.
+constexpr int ENCODE_ERROR = 100000;
+
+// A 3-D u8 tensor map of an arena (G, rows, H), read in boxes of box_rows
+// rows x 128 bytes with the 128-byte swizzle; zeros outside the arena.
+int encode_arena(CUtensorMap* map, const void* ptr, int G, int rows, int H,
+                 int box_rows) {
+  EncodeTiled encode = encode_tiled();
+  if (!encode) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)H, (cuuint64_t)rows, (cuuint64_t)G};
+  const cuuint64_t strides[2] = {(cuuint64_t)H, (cuuint64_t)rows * H};
+  const cuuint32_t box[3] = {K2_KB, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  CUresult cr = encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3,
+                       const_cast<void*>(ptr), dims, strides, box, elem,
+                       CU_TENSOR_MAP_INTERLEAVE_NONE,
+                       CU_TENSOR_MAP_SWIZZLE_128B,
+                       CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return cr == CUDA_SUCCESS ? 0 : ENCODE_ERROR + (int)cr;
+}
+
+template <int CONS, int BN>
+int launch_stage1(const uint8_t* qocc, const uint8_t* rocc,
+                  const int32_t* r_rows, const int32_t* q_rows, int tasks,
+                  int K, int Gq, int Gr, int M2, int NRB, int H,
+                  int32_t* p_sum, int32_t* p_a, int32_t* p_b,
+                  cudaStream_t s) {
+  using T = K2Tile<CONS, BN>;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        stage1_kernel<CONS, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        T::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  CUtensorMap q_map, r_map;
+  int rc;
+  if ((rc = encode_arena(&q_map, qocc, Gq, M2, H, T::BM)) ||
+      (rc = encode_arena(&r_map, rocc, Gr, NRB, H, BN)))
+    return rc;
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long tiles = (long long)tasks * ((M2 + T::BM - 1) / T::BM) *
+                          ((NRB + BN - 1) / BN);
+  if (tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const int ctas = (int)(tiles < (long long)sms * T::CTAS_PER_SM
+                             ? tiles
+                             : (long long)sms * T::CTAS_PER_SM);
+  stage1_kernel<CONS, BN><<<ctas, T::THREADS, T::SMEM, s>>>(
+      q_map, r_map, r_rows, q_rows, (int)tiles, K, M2, NRB, H, p_sum, p_a,
+      p_b);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// K2. qocc: (Gq, M2, H) int8 {0,1}; rocc: (Gr, NRB, H) int8 {0,1}; r_rows:
-// (tasks / K,) int32; q_rows: (tasks,) int32; p_sum, p_a, p_b: (tasks,
-// M2 / 2) int32, zeroed by the caller. H % 64 == 0. Returns
-// cudaGetLastError().
+// K2. qocc: (Gq, M2, H) int8 {0,1}; rocc: (Gr, NRB, H) int8 {0,1}; both
+// contiguous and 16-byte aligned, H % 16 == 0 (TMA); r_rows: (tasks / K,)
+// int32; q_rows: (tasks,) int32; p_sum, p_a, p_b: (tasks, M2 / 2) int32,
+// zeroed by the caller. Returns 0 or an error code.
 int k2_stage1(const uint8_t* qocc, const uint8_t* rocc, const int32_t* r_rows,
-              const int32_t* q_rows, int tasks, int K, int M2, int NRB, int H,
-              int32_t* p_sum, int32_t* p_a, int32_t* p_b, void* stream) {
+              const int32_t* q_rows, int tasks, int K, int Gq, int Gr, int M2,
+              int NRB, int H, int32_t* p_sum, int32_t* p_a, int32_t* p_b,
+              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(tasks, (M2 + K2_BM - 1) / K2_BM, (NRB + K2_BN - 1) / K2_BN);
-  stage1_kernel<<<grid, K2_THREADS, 0, s>>>(qocc, rocc, r_rows, q_rows, K, M2,
-                                            NRB, H, p_sum, p_a, p_b);
-  return (int)cudaGetLastError();
+  if (tasks < 1 || K < 1 || tasks % K || M2 < 2 || M2 % 2 || NRB < 1 ||
+      H < 16 || H % 16 || Gq < 1 || Gr < 1)
+    return (int)cudaErrorInvalidValue;
+  if (M2 <= 64 && NRB <= 128)
+    return launch_stage1<1, 128>(qocc, rocc, r_rows, q_rows, tasks, K, Gq, Gr,
+                                 M2, NRB, H, p_sum, p_a, p_b, s);
+  return launch_stage1<2, 256>(qocc, rocc, r_rows, q_rows, tasks, K, Gq, Gr,
+                               M2, NRB, H, p_sum, p_a, p_b, s);
 }
 
-// K3. wins: (4, n, win) int8; qb: (n, 32) int8; cnt: (4, n, win - 32) int8;
-// bb: (n,) int32. 32 < win <= 544. Returns cudaGetLastError().
+// K3. wins: (4, n, win) int8; qb: (n, 32) int8; codes 0-4 (a base is 0-3);
+// cnt: (4, n, win - 32) int8; bb: (n,) int32. 32 < win <= 544. Returns
+// cudaGetLastError().
 int k3_bands(const int8_t* wins, const int8_t* qb, int n, int win,
              int8_t* cnt, int32_t* bb, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int blocks = n < sms * K3_CTAS_PER_SM ? n : sms * K3_CTAS_PER_SM;
-  band_kernel<<<blocks, K3_THREADS, 0, s>>>(wins, qb, n, win, cnt, bb);
-  return (int)cudaGetLastError();
+  if (n < 1 || win <= FINE || win > 32 * MAX_CHUNKS)
+    return (int)cudaErrorInvalidValue;
+  switch ((win + 31) / 32) {
+#define K3_CASE(nc) \
+  case nc:          \
+    return launch_bands<nc>(wins, qb, n, win, cnt, bb, s);
+    K3_CASE(2) K3_CASE(3) K3_CASE(4) K3_CASE(5) K3_CASE(6) K3_CASE(7)
+    K3_CASE(8) K3_CASE(9) K3_CASE(10) K3_CASE(11) K3_CASE(12) K3_CASE(13)
+    K3_CASE(14) K3_CASE(15) K3_CASE(16) K3_CASE(17)
+#undef K3_CASE
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* vk_error_string(int code) {
+  static char buf[64];
+  if (code >= ENCODE_ERROR) {
+    snprintf(buf, sizeof buf, "cuTensorMapEncodeTiled failed (CUresult %d)",
+             code - ENCODE_ERROR);
+    return buf;
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -726,7 +726,9 @@ def stage1_pack_plain(qocc, rocc, r_rows, q_rows):
 def stage1_pack(qocc, rocc, r_rows, q_rows):
     """K2 wrapper (see stage1_pack_plain for the arguments): the plain
     version for CPU tensors, the CUDA kernel for CUDA tensors (or raise).
-    Arena rows must be in range."""
+    Arena rows must be in range. The kernel reads the arenas with TMA, so
+    on the card they must be contiguous and 16-byte aligned, with H a
+    multiple of 16."""
     dev = qocc.device
     cuda.require(qocc, 'qocc', torch.int8, 3, dev)
     cuda.require(rocc, 'rocc', torch.int8, 3, dev)
@@ -745,13 +747,18 @@ def stage1_pack(qocc, rocc, r_rows, q_rows):
         return stage1_pack_plain(qocc, rocc, r_rows, q_rows)
     if dev.type != 'cuda':
         raise ValueError(f'unsupported device {dev}')
-    if H % 64:
-        raise ValueError(f'K2 needs V3_H a multiple of 64 (got {H})')
+    if H % 16:
+        raise ValueError(f'K2 needs V3_H a multiple of 16 (got {H})')
+    for name, t in (('qocc', qocc), ('rocc', rocc)):
+        if t.data_ptr() % 16:
+            raise ValueError(f'K2 reads {name} with TMA: its data must be '
+                             f'16-byte aligned')
     outs = torch.zeros((3, R, K, M2 // 2), dtype=torch.int32, device=dev)
     if R * K and M2 and NRB:
         lib = cuda.library('align_v3', cuda.ALIGN_V3_SIGNATURES)
         rc = lib.k2_stage1(cuda.ptr(qocc), cuda.ptr(rocc), cuda.ptr(r_rows),
-                           cuda.ptr(q_rows), R * K, K, M2, NRB, H,
+                           cuda.ptr(q_rows), R * K, K, qocc.shape[0],
+                           rocc.shape[0], M2, NRB, H,
                            cuda.ptr(outs[0]), cuda.ptr(outs[1]),
                            cuda.ptr(outs[2]), cuda.stream(qocc))
         cuda.check(lib, rc, 'k2_stage1')
@@ -805,7 +812,9 @@ def band_counts_plain(wins, qb):
 
 def band_counts(wins, qb):
     """K3 wrapper (see band_counts_plain): the plain version for CPU
-    tensors, the CUDA kernel for CUDA tensors (or raise)."""
+    tensors, the CUDA kernel for CUDA tensors (or raise). Codes are 0-4
+    (core/seq.py fills N with 4, the window pads are 4): the kernel counts
+    a base only in 0-3, which equals the plain compare on such codes."""
     dev = wins.device
     cuda.require(wins, 'wins', torch.int8, 3, dev)
     cuda.require(qb, 'qb', torch.int8, 2, dev)

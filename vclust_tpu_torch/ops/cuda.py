@@ -26,9 +26,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # The C entry points of csrc/align_v3.cu, kernels K2 and K3 of the v3 align
 # pipe (launched by ops/align_gpu.py): {function: argtypes}.
 ALIGN_V3_SIGNATURES = {
-    # qocc, rocc, r_rows, q_rows, tasks, K, M2, NRB, H, p_sum, p_a, p_b,
-    # stream
-    'k2_stage1': [_P] * 4 + [_I] * 5 + [_P] * 4,
+    # qocc, rocc, r_rows, q_rows, tasks, K, Gq, Gr, M2, NRB, H, p_sum, p_a,
+    # p_b, stream
+    'k2_stage1': [_P] * 4 + [_I] * 7 + [_P] * 4,
     # wins, qb, n, win, cnt, bb, stream
     'k3_bands': [_P, _P, _I, _I, _P, _P, _P],
 }
