@@ -210,22 +210,24 @@ def test_k2_wrapper_rejects_what_tma_cannot_read(cuda_device):
     assert tav.stage1_pack.launches == before
 
 
-def _band_inputs(seed, n, win, ties=False):
+def _band_inputs(seed, n, win, ties=False, clean=False):
     """K3 inputs: windows of four bands over codes 0-4 (N runs in both),
     and query blocks copied from the windows at random shifts. ties: the
     four bands hold the same window, of period 4, so counts tie across
-    bands and shifts."""
+    bands and shifts. clean: N only in one band of every 16th block and in
+    every 16th query, as in genomes (most bands take the kernel's path
+    without "is a base" planes)."""
     rng = np.random.default_rng(seed)
     wins = rng.integers(0, 4, (4, n, win)).astype(np.int8)
-    wins[:, :, 40:47] = 4
+    wins[:, ::16 if clean else 1, 40:47] = 4
     if ties:
         wins[:] = np.tile(rng.integers(0, 4, (1, n, 4)), (1, 1, win // 4))
     shift = rng.integers(0, win - 32, n)
     qb = wins[rng.integers(0, 4, (n, 1)), np.arange(n)[:, None],
               shift[:, None] + np.arange(32)]
     sub = rng.random(qb.shape) < 0.15
-    qb[sub] = rng.integers(0, 5, sub.sum())
-    qb[::7, 3:9] = 4
+    qb[sub] = rng.integers(0, 4 if clean else 5, sub.sum())
+    qb[::16 if clean else 7, 3:9] = 4
     return torch.from_numpy(np.ascontiguousarray(wins)), torch.from_numpy(
         np.ascontiguousarray(qb))
 
@@ -237,17 +239,19 @@ def _band_inputs(seed, n, win, ties=False):
     # n not a multiple of a CTA's 8 warps; WIN of the smallest WQ (64); a
     # band of 8 shifts, less than a warp's 32
     (1, 256, False), (4097, 256, False), (2000, 192, False),
-    (3000, 40, False)])
+    (3000, 40, False),
+    # N runs as rare as in genomes
+    (3001, 256, 'clean'), (500, 544, 'clean')])
 def test_k3_kernel_matches_plain(cuda_device, n, win, ties):
-    wins, qb = (a.to(cuda_device) for a in _band_inputs(n + win, n, win,
-                                                          ties))
+    wins, qb = (a.to(cuda_device) for a in _band_inputs(
+        n + win, n, win, ties is True, clean=ties == 'clean'))
     before = tav.band_counts.launches
     cnt, bb = tav.band_counts(wins, qb)
     want_cnt, want_bb = tav.band_counts_plain(wins, qb)
     torch.cuda.synchronize()
     assert tav.band_counts.launches == before + 1
     assert torch.equal(cnt, want_cnt) and torch.equal(bb, want_bb)
-    if ties:
+    if ties is True:
         assert ((bb & 3072) == 3072).all()
 
 

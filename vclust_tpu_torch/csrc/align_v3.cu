@@ -64,11 +64,16 @@
 //     26 dispatch 436 and 382 MB), nearly as long as the operations.
 //   * Design: one warp a fine block, persistent CTAs in a grid stride. A
 //     lane loads one byte of each 32-byte chunk of the four windows (all
-//     loads issued before the first use) and three __ballot_sync calls turn
-//     a chunk into one word of each plane, the same in every lane; lanes
-//     then take the shifts, so a warp's byte stores of a count row are
-//     contiguous; the election stays in a register until one
-//     __reduce_max_sync. No shared memory, no __syncthreads.
+//     loads issued before the first use) and __ballot_sync turns a chunk
+//     into one word of each plane, the same in every lane; lanes then take
+//     the shifts, so a warp's byte stores of a count row are contiguous;
+//     the election stays in a register until one __reduce_max_sync. No
+//     shared memory, no __syncthreads. A band whose window and query hold
+//     only codes 0-3 (most of them: N runs and pads are rare) skips the
+//     "is a base" planes: 2 votes a chunk, 2 funnel shifts and 1 logic op
+//     a shift. The loop is uniform across the CTA (a warp past the last
+//     block recounts it and stores the same bytes), so the votes compile
+//     without reconvergence code.
 
 #include <cuda.h>  // CUtensorMap and its enums (types only)
 #include <cuda_runtime.h>
@@ -360,6 +365,36 @@ __device__ __forceinline__ int band_tag(int b) {
   return (b < 2 ? 2048 : 0) | ((b & 1) ? 0 : 1024);
 }
 
+// One band's counts at every shift and its running election max. Lane
+// `lane` takes shift t = 32 j + lane: window bases t .. t + 31 are bits
+// lane .. lane + 31 of plane words j and j + 1. VALID: the window or the
+// query has codes other than 0-3, so the "is a base" planes take part.
+template <int NC, bool VALID>
+__device__ __forceinline__ void band_shifts(const int (&x)[NC], uint32_t ql,
+                                            uint32_t qh, uint32_t qv,
+                                            int lane, int band, int tag,
+                                            int8_t* out, int& best) {
+  uint32_t wl[NC], wh[NC], wv[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    wl[c] = __ballot_sync(FULL, x[c] & 1);
+    wh[c] = __ballot_sync(FULL, x[c] & 2);
+    if (VALID) wv[c] = __ballot_sync(FULL, (unsigned)x[c] < 4u);
+  }
+#pragma unroll
+  for (int j = 0; j + 1 < NC; ++j) {
+    const int tt = 32 * j + lane;
+    uint32_t m = ~((ql ^ __funnelshift_r(wl[j], wl[j + 1], lane)) |
+                   (qh ^ __funnelshift_r(wh[j], wh[j + 1], lane)));
+    if (VALID) m &= __funnelshift_r(wv[j], wv[j + 1], lane) & qv;
+    const int c = __popc(m);
+    if (tt < band) {
+      out[tt] = (int8_t)c;
+      best = max(best, (c << 12) | tag | tt);
+    }
+  }
+}
+
 // NC: 32-byte chunks of a window, WIN <= 32 * NC < WIN + 32.
 template <int NC>
 __global__ void __launch_bounds__(K3_WARPS * 32)
@@ -368,9 +403,12 @@ band_kernel(const int8_t* __restrict__ wins, const int8_t* __restrict__ q,
             int32_t* __restrict__ bb) {
   const int band = win - FINE;
   const int lane = threadIdx.x & 31;
-  const int warps = gridDim.x * K3_WARPS;
-  for (int f = blockIdx.x * K3_WARPS + (threadIdx.x >> 5); f < n;
-       f += warps) {
+  // The loop and every branch around the warp votes are uniform across
+  // the CTA, so the votes need no reconvergence code: a warp past n
+  // recounts block n - 1 and stores the same bytes as the warp it shares
+  // the block with.
+  for (int f0 = blockIdx.x * K3_WARPS; f0 < n; f0 += gridDim.x * K3_WARPS) {
+    const int f = min(f0 + (int)(threadIdx.x >> 5), n - 1);
     // Byte `lane` of every chunk of the four windows, and the query base;
     // past WIN an invalid code.
     int x[NBANDS][NC];
@@ -389,29 +427,17 @@ band_kernel(const int8_t* __restrict__ wins, const int8_t* __restrict__ q,
     int best = -1;
 #pragma unroll
     for (int b = 0; b < NBANDS; ++b) {
-      uint32_t wl[NC], wh[NC], wv[NC];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        wl[c] = __ballot_sync(FULL, x[b][c] & 1);
-        wh[c] = __ballot_sync(FULL, x[b][c] & 2);
-        wv[c] = __ballot_sync(FULL, (unsigned)x[b][c] < 4u);
-      }
       int8_t* out = cnt + ((size_t)b * n + f) * band;
       const int tag = band_tag(b);
-      // Lane `lane` takes shift t = 32 j + lane: window bases t .. t + 31
-      // are bits lane .. lane + 31 of words j and j + 1.
+      // Codes all in 0-3 (any other code sets a bit above bit 1): no
+      // "is a base" planes needed.
+      int o = 0;
 #pragma unroll
-      for (int j = 0; j + 1 < NC; ++j) {
-        const int tt = 32 * j + lane;
-        const uint32_t l = __funnelshift_r(wl[j], wl[j + 1], lane);
-        const uint32_t hh = __funnelshift_r(wh[j], wh[j + 1], lane);
-        const uint32_t v = __funnelshift_r(wv[j], wv[j + 1], lane);
-        const int c = __popc(~(ql ^ l) & ~(qh ^ hh) & v & qv);
-        if (tt < band) {
-          out[tt] = (int8_t)c;
-          best = max(best, (c << 12) | tag | tt);
-        }
-      }
+      for (int c = 0; c < NC; ++c) o |= x[b][c];
+      if (qv == FULL && __all_sync(FULL, (unsigned)o < 4u))
+        band_shifts<NC, false>(x[b], ql, qh, qv, lane, band, tag, out, best);
+      else
+        band_shifts<NC, true>(x[b], ql, qh, qv, lane, band, tag, out, best);
     }
     best = __reduce_max_sync(FULL, best);
     if (lane == 0) bb[f] = best;
@@ -430,7 +456,7 @@ int launch_bands(const int8_t* wins, const int8_t* qb, int n, int win,
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int need = (n + K3_WARPS - 1) / K3_WARPS;
+  const int need = (n + K3_WARPS - 1) / K3_WARPS;  // CTAs with a block
   const int blocks = need < sms * per_sm ? need : sms * per_sm;
   band_kernel<NC><<<blocks, K3_WARPS * 32, 0, s>>>(wins, qb, n, win, cnt, bb);
   return (int)cudaGetLastError();
