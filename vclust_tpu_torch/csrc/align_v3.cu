@@ -21,28 +21,30 @@
 //     read from shared memory (K-major, 128-byte swizzle), on a 128 x 256
 //     tile (query half-blocks x reference blocks); a k-block is 128
 //     buckets. The score matrix never leaves the registers.
-//   * Operand bytes: a k-block brings 16 KB of A and 32 KB of B for
-//     8.4M products, more than L2 feeds at the tensor rate, so L2 is the
-//     practical floor. A producer thread keeps a 4-stage ring full with TMA
-//     copies from 3-D tensor maps over the arenas (H, rows, G); it reads
-//     q_rows[task] and r_rows[task / K] itself and passes them as the third
-//     coordinate. TMA fills rows past M2 and NRB with zeros (the epilogue
-//     masks those columns). CTAs are persistent and walk the tiles in the
-//     order (dispatch row, reference tile, query, query tile), so the CTAs
-//     in flight share one reference tile of one arena row (the K queries of
-//     a row share their reference) and a row's operands stay in the 50 MB
-//     L2 while it is worked on.
-//   * Epilogue: the accumulator has the m16n8 fragment layout, so half rows
-//     2q and 2q+1 are rows g and g+1 of a fragment, 4 lanes apart: a
-//     shuffle pairs them, the three packs are reduced over the tile's
-//     columns in registers and across the 4 lanes of a row, and atomicMax
-//     (order-free: the result is deterministic) adds them into the three
-//     (tasks, NQB) outputs, which the wrapper zeroes. The producer loads
-//     the next tile's stages meanwhile.
+//   * Operand bytes: a k-block brings 16 KB of A and 32 KB of B for 8.4M
+//     products. A producer thread keeps a 4-stage ring full with TMA copies
+//     from tensor maps over the arenas; it reads q_rows[task] and
+//     r_rows[task / K] itself and passes them as the arena coordinate. TMA
+//     fills rows past M2 and NRB with zeros. CTAs are persistent and walk
+//     the tiles in the order (dispatch row, reference tile, query, query
+//     tile), so the CTAs in flight share one reference tile of one arena
+//     row (the K queries of a row share their reference) and a row's
+//     operands stay in the 50 MB L2 while it is worked on.
+//   * Epilogue, the part that does not overlap the products: the query
+//     arena's map is 5-D, (H, 8 blocks, 2 halves, NQB / 8, G), so a 16-row
+//     group of the A tile holds 8 query blocks' even half rows, then their
+//     odd ones. Rows g and g + 8 of the m16n8 accumulator fragment, which
+//     one thread holds, are then half rows 2q and 2q + 1 of one block: the
+//     three packs need no shuffle, are reduced over the tile's columns in
+//     registers and across the 4 lanes of a row, and atomicMax (order-free:
+//     the result is deterministic) adds them into the three (tasks, NQB)
+//     outputs, which the wrapper zeroes. The producer loads the next
+//     tile's stages meanwhile. (Pairing rows g and g + 1 by a shuffle, as
+//     the first design did, made the epilogue a third of the time.)
 //   * Small buckets (2*NQB <= 64 and NRB <= 128, bucket 4,096): the same
 //     kernel with one consumer warpgroup on a 64 x 128 tile, two CTAs an
 //     SM, so no product runs on rows that are all padding.
-//
+
 // K3 (k3_bands). For every fine block f (32 query bases) and each of the
 // four bands (candidate 1 and 2, forward and reverse), the count of valid
 // query bases equal to the window base at each of BAND = WIN-32 shifts,
@@ -122,6 +124,19 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst,
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(k), "r"(row),
       "r"(g)
+      : "memory");
+}
+
+// The box of the 5-D `map` at (k, 0, 0, q, g) into shared memory at dst.
+__device__ __forceinline__ void tma_load_5d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int k, int q,
+                                            int g) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(k), "r"(0),
+      "r"(q), "r"(g)
       : "memory");
 }
 
@@ -267,7 +282,8 @@ stage1_kernel(const __grid_constant__ CUtensorMap q_map,
           const uint32_t f = full + 8 * stage;
           mbar_wait(empty + 8 * stage, phase ^ 1);
           mbar_expect_tx(f, T::A_BYTES + T::B_BYTES);
-          tma_load_3d(sA + stage * T::A_BYTES, &q_map, f, kb * K2_KB, m0, qg);
+          tma_load_5d(sA + stage * T::A_BYTES, &q_map, f, kb * K2_KB,
+                      m0 / 16, qg);
           tma_load_3d(sB + stage * T::B_BYTES, &r_map, f, kb * K2_KB, n0, rg);
           if (++stage == K2_STAGES) {
             stage = 0;
@@ -318,39 +334,35 @@ stage1_kernel(const __grid_constant__ CUtensorMap q_map,
     for (int c = 0; c < BN / 2; ++c) fence_operand(acc[c]);
 
     // Epilogue. acc[4 * c8 + 2 * h + e] is row 16 * warp + g + 8 * h of the
-    // warpgroup's 64, column 8 * c8 + 2 * t + e of the tile; half rows 2q
-    // and 2q + 1 are rows g and g + 1 for even g, whose partner is lane + 4.
-    const int lim = NRB - n0;  // columns of the tile inside NRB
+    // warpgroup's 64, column 8 * c8 + 2 * t + e of the tile; the A tile
+    // holds the half rows of 8 query blocks a 16-row group, even halves
+    // first, so rows g and g + 8 are half rows 2q and 2q + 1 of one query
+    // block q: Ma and Mb sit in one thread. Columns past NRB (zeros from
+    // TMA) count as column NRB - 1 with Ma = Mb = 0, which never beats it.
+    int best_s = -1, best_a = -1, best_b = -1;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      int best_s = -1, best_a = -1, best_b = -1;
+    for (int c8 = 0; c8 < BN / 8; ++c8) {
 #pragma unroll
-      for (int c8 = 0; c8 < BN / 8; ++c8) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int ma = acc[4 * c8 + 2 * h + e];
-          const int mb = __shfl_down_sync(FULL, ma, 4);
-          const int col = 8 * c8 + 2 * t + e;
-          if (col < lim) {
-            best_s = max(best_s, ((ma + mb) << RB_BITS) | (n0 + col));
-            best_a = max(best_a, (ma << RB_BITS) | (n0 + col));
-            best_b = max(best_b, (mb << RB_BITS) | (n0 + col));
-          }
-        }
+      for (int e = 0; e < 2; ++e) {
+        const int ma = acc[4 * c8 + e], mb = acc[4 * c8 + 2 + e];
+        const int col = min(n0 + 8 * c8 + 2 * t + e, NRB - 1);
+        best_s = max(best_s, ((ma + mb) << RB_BITS) | col);
+        best_a = max(best_a, (ma << RB_BITS) | col);
+        best_b = max(best_b, (mb << RB_BITS) | col);
       }
+    }
 #pragma unroll
-      for (int o = 1; o < 4; o <<= 1) {
-        best_s = max(best_s, __shfl_xor_sync(FULL, best_s, o));
-        best_a = max(best_a, __shfl_xor_sync(FULL, best_a, o));
-        best_b = max(best_b, __shfl_xor_sync(FULL, best_b, o));
-      }
-      const int row = m0 + wg * 64 + warp * 16 + h * 8 + g;
-      if (t == 0 && (g & 1) == 0 && row < M2) {
-        const size_t o = (size_t)task * NQB + (row >> 1);
-        atomicMax(p_sum + o, best_s);
-        atomicMax(p_a + o, best_a);
-        atomicMax(p_b + o, best_b);
-      }
+    for (int o = 1; o < 4; o <<= 1) {
+      best_s = max(best_s, __shfl_xor_sync(FULL, best_s, o));
+      best_a = max(best_a, __shfl_xor_sync(FULL, best_a, o));
+      best_b = max(best_b, __shfl_xor_sync(FULL, best_b, o));
+    }
+    const int q = (m0 >> 1) + (wg * 4 + warp) * 8 + g;
+    if (t == 0 && q < NQB) {
+      const size_t o = (size_t)task * NQB + q;
+      atomicMax(p_sum + o, best_s);
+      atomicMax(p_a + o, best_a);
+      atomicMax(p_b + o, best_b);
     }
   }
 }
@@ -493,23 +505,45 @@ EncodeTiled encode_tiled() {
 // Error codes from this on are CUresult values of the tensor-map encoder.
 constexpr int ENCODE_ERROR = 100000;
 
-// A 3-D u8 tensor map of an arena (G, rows, H), read in boxes of box_rows
-// rows x 128 bytes with the 128-byte swizzle; zeros outside the arena.
-int encode_arena(CUtensorMap* map, const void* ptr, int G, int rows, int H,
-                 int box_rows) {
+// A u8 tensor map of `rank` dimensions (innermost first, strides in bytes
+// of dimensions 1 on), read in boxes of 128 bytes x ... with the 128-byte
+// swizzle; zeros outside the tensor.
+int encode_u8(CUtensorMap* map, const void* ptr, int rank,
+              const cuuint64_t* dims, const cuuint64_t* strides,
+              const cuuint32_t* box) {
   EncodeTiled encode = encode_tiled();
   if (!encode) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {(cuuint64_t)H, (cuuint64_t)rows, (cuuint64_t)G};
-  const cuuint64_t strides[2] = {(cuuint64_t)H, (cuuint64_t)rows * H};
-  const cuuint32_t box[3] = {K2_KB, (cuuint32_t)box_rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  CUresult cr = encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3,
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  CUresult cr = encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, rank,
                        const_cast<void*>(ptr), dims, strides, box, elem,
                        CU_TENSOR_MAP_INTERLEAVE_NONE,
                        CU_TENSOR_MAP_SWIZZLE_128B,
                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return cr == CUDA_SUCCESS ? 0 : ENCODE_ERROR + (int)cr;
+}
+
+// The reference arena (G, NRB, H): boxes of box_rows blocks x 128 buckets.
+int encode_rocc(CUtensorMap* map, const void* ptr, int G, int NRB, int H,
+                int box_rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)H, (cuuint64_t)NRB, (cuuint64_t)G};
+  const cuuint64_t strides[2] = {(cuuint64_t)H, (cuuint64_t)NRB * H};
+  const cuuint32_t box[3] = {K2_KB, (cuuint32_t)box_rows, 1};
+  return encode_u8(map, ptr, 3, dims, strides, box);
+}
+
+// The query arena (G, M2, H) seen as (G, NQB / 8, 2, 8, H): query block
+// 8 qh + ql, half p at (k, ql, p, qh, g). A box of box_rows half rows holds
+// box_rows / 16 groups of 8 query blocks, each as their 8 even half rows,
+// then their 8 odd ones. M2 % 16 == 0.
+int encode_qocc(CUtensorMap* map, const void* ptr, int G, int M2, int H,
+                int box_rows) {
+  const cuuint64_t dims[5] = {(cuuint64_t)H, 8, 2, (cuuint64_t)M2 / 16,
+                              (cuuint64_t)G};
+  const cuuint64_t strides[4] = {2 * (cuuint64_t)H, (cuuint64_t)H,
+                                 16 * (cuuint64_t)H, (cuuint64_t)M2 * H};
+  const cuuint32_t box[5] = {K2_KB, 8, 2, (cuuint32_t)box_rows / 16, 1};
+  return encode_u8(map, ptr, 5, dims, strides, box);
 }
 
 template <int CONS, int BN>
@@ -529,8 +563,8 @@ int launch_stage1(const uint8_t* qocc, const uint8_t* rocc,
   }
   CUtensorMap q_map, r_map;
   int rc;
-  if ((rc = encode_arena(&q_map, qocc, Gq, M2, H, T::BM)) ||
-      (rc = encode_arena(&r_map, rocc, Gr, NRB, H, BN)))
+  if ((rc = encode_qocc(&q_map, qocc, Gq, M2, H, T::BM)) ||
+      (rc = encode_rocc(&r_map, rocc, Gr, NRB, H, BN)))
     return rc;
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
@@ -552,7 +586,8 @@ int launch_stage1(const uint8_t* qocc, const uint8_t* rocc,
 extern "C" {
 
 // K2. qocc: (Gq, M2, H) int8 {0,1}; rocc: (Gr, NRB, H) int8 {0,1}; both
-// contiguous and 16-byte aligned, H % 16 == 0 (TMA); r_rows: (tasks / K,)
+// contiguous and 16-byte aligned, H % 16 == 0 (TMA), M2 % 16 == 0 (the
+// query arena is read in groups of 8 query blocks); r_rows: (tasks / K,)
 // int32; q_rows: (tasks,) int32; p_sum, p_a, p_b: (tasks, M2 / 2) int32,
 // zeroed by the caller. Returns 0 or an error code.
 int k2_stage1(const uint8_t* qocc, const uint8_t* rocc, const int32_t* r_rows,
@@ -560,7 +595,7 @@ int k2_stage1(const uint8_t* qocc, const uint8_t* rocc, const int32_t* r_rows,
               int NRB, int H, int32_t* p_sum, int32_t* p_a, int32_t* p_b,
               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (tasks < 1 || K < 1 || tasks % K || M2 < 2 || M2 % 2 || NRB < 1 ||
+  if (tasks < 1 || K < 1 || tasks % K || M2 < 16 || M2 % 16 || NRB < 1 ||
       H < 16 || H % 16 || Gq < 1 || Gr < 1)
     return (int)cudaErrorInvalidValue;
   if (M2 <= 64 && NRB <= 128)

@@ -728,7 +728,8 @@ def stage1_pack(qocc, rocc, r_rows, q_rows):
     version for CPU tensors, the CUDA kernel for CUDA tensors (or raise).
     Arena rows must be in range. The kernel reads the arenas with TMA, so
     on the card they must be contiguous and 16-byte aligned, with H a
-    multiple of 16."""
+    multiple of 16, and the query arena in groups of 8 query blocks, so
+    2*NQB must be a multiple of 16 (it is at every bucket and V3_WQ)."""
     dev = qocc.device
     cuda.require(qocc, 'qocc', torch.int8, 3, dev)
     cuda.require(rocc, 'rocc', torch.int8, 3, dev)
@@ -747,8 +748,9 @@ def stage1_pack(qocc, rocc, r_rows, q_rows):
         return stage1_pack_plain(qocc, rocc, r_rows, q_rows)
     if dev.type != 'cuda':
         raise ValueError(f'unsupported device {dev}')
-    if H % 16:
-        raise ValueError(f'K2 needs V3_H a multiple of 16 (got {H})')
+    if H % 16 or M2 % 16:
+        raise ValueError(f'K2 needs H and 2*NQB multiples of 16 (got {H} '
+                         f'and {M2})')
     for name, t in (('qocc', qocc), ('rocc', rocc)):
         if t.data_ptr() % 16:
             raise ValueError(f'K2 reads {name} with TMA: its data must be '
