@@ -36,9 +36,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
               CLI's `--engine tpu`) byte for byte; then `--filter
               --filter-threshold 0.7 --engine gpu` and cluster, whose
               clusters.tsv must equal example/output/clusters.tsv. Prints
-              the hard pairs re-aligned on v2, the launches, the seconds in
-              v3, in v2 and on the host, warm pairs/s and the tANI of the 8
-              truth pairs;
+              the hard pairs re-aligned on v2, the launches, the seconds and
+              dispatches in v3 and in v2, the seconds on the host, warm
+              pairs/s and the tANI of the 8 truth pairs;
   7. align_v3 - the v3 align pipe (ops/align_gpu.py:_all2all_single(...,
               pipe='v3')) on bench.py's 48-genome corpus (1,128 pairs,
               buckets 49,152 and 65,536) and its contig corpus (128 x 3,500
@@ -52,9 +52,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
               device_ms, plain_ms, bound; library_ms for K2), and the time
               of each stage of the 65,536 dispatch;
   8. align_hybrid - the engine's default all2all_gpu (v3, then v2 on the
-              hard pairs) on the 48 genomes: hard pairs, warm pairs/s with
-              and without the hybrid, busy share and top device entries
-              under the profiler, max |dtANI| against the native engine;
+              hard pairs) on the 48 genomes: hard pairs, the dispatches of
+              each pipe, warm pairs/s with and without the hybrid, busy
+              share and top device entries under the profiler, max |dtANI|
+              against the native engine;
               each v2 stage's time on one dispatch at 65,536;
   9. align_v2 - the v2 pipe alone above V3_MAX_BUCKET: 4 genomes of
               158-249 kb concatenated from example genomes plus a 5% mutant
@@ -845,14 +846,15 @@ def cpu_reference_check(dev, ag, codes, pairs, out, n: int = 8) -> dict:
 
 K2_DESIGN = ('wgmma m64n256k32 u8 (two consumer warpgroups, a 128 x 256 '
              'tile; one warpgroup on 64 x 128 at 2*NQB <= 64, NRB <= 128) '
-             'from a 4-stage TMA ring of 3-D tensor maps over the arenas, '
-             'persistent CTAs in (row, reference tile, query, query tile) '
-             'order, packed maxes in registers, atomicMax epilogue')
-K3_DESIGN = ('bit planes (low, high, is-a-base) built with 3 __ballot_sync '
-             'a 32-byte chunk, one warp a fine block over persistent CTAs, a '
-             'lane a shift: 3 funnel shifts, the match mask, __popc; the '
-             'election in a register and one __reduce_max_sync; no shared '
-             'memory')
+             'from a 4-stage TMA ring; a 5-D map of the query arena puts '
+             'half rows 2q and 2q+1 in one thread, so the packed maxes need '
+             'no shuffle; persistent CTAs in (row, reference tile, query, '
+             'query tile) order; atomicMax epilogue')
+K3_DESIGN = ('bit planes (low, high, is-a-base) built with __ballot_sync, '
+             'one warp a fine block over persistent CTAs in a CTA-uniform '
+             'loop, a lane a shift: funnel shifts, the match mask, __popc; '
+             'bands without N skip the is-a-base planes; the election in a '
+             'register and one __reduce_max_sync; no shared memory')
 
 
 def k2_k3_alone(torch, dev, ag, b, codes, seed: int, kb: int):
@@ -1088,9 +1090,18 @@ TRUE_TANI = {
 def pipe_timer(ag):
     """Inside: every `_all2all_single` call (each returns host arrays, so
     its wall time holds its device work) adds its seconds, calls and pairs
-    to the yielded {'v3': ..., 'v2': ...} by pipe."""
-    stats = {p: dict(s=0.0, calls=0, pairs=0) for p in ('v3', 'v2')}
+    to the yielded {'v3': ..., 'v2': ...} by pipe, and every row core call
+    one dispatch to its pipe."""
+    stats = {p: dict(s=0.0, calls=0, pairs=0, dispatches=0)
+             for p in ('v3', 'v2')}
     real = ag._all2all_single
+    cores = {'v3': ag._row_core_v3, 'v2': ag._row_core}
+
+    def counted(pipe):
+        def core(*args, **kw):
+            stats[pipe]['dispatches'] += 1
+            return cores[pipe](*args, **kw)
+        return core
 
     def timed(codes, pairs, params=None, index=None, keep_alignments=False,
               seeds_per_block=None, pipe='v2', device=None):
@@ -1104,10 +1115,12 @@ def pipe_timer(ag):
         return out
 
     ag._all2all_single = timed
+    ag._row_core_v3, ag._row_core = counted('v3'), counted('v2')
     try:
         yield stats
     finally:
         ag._all2all_single = real
+        ag._row_core_v3, ag._row_core = cores['v3'], cores['v2']
 
 
 def engine_run(ag, out: pathlib.Path, *extra):
@@ -1131,7 +1144,8 @@ def engine_run(ag, out: pathlib.Path, *extra):
 def split_seconds(wall, st) -> dict:
     v3, v2 = st['v3']['s'], st['v2']['s']
     return dict(wall_s=wall, v3_s=v3, v2_s=v2, host_s=wall - v3 - v2,
-                v2_pairs=st['v2']['pairs'])
+                v2_pairs=st['v2']['pairs'],
+                dispatches={p: st[p]['dispatches'] for p in st})
 
 
 def phase_align_engine(torch, work: pathlib.Path):
@@ -1307,6 +1321,7 @@ def phase_align_hybrid(torch, dev, ag, idx, codes, pairs, v3_out, seed):
                first_run_s=first_s, warm_s=walls,
                pairs_per_s={k: len(pairs) / min(v) for k, v in walls.items()},
                v2_s_first=st['v2']['s'], v3_s_first=st['v3']['s'],
+               dispatches_first={p: st[p]['dispatches'] for p in st},
                profile=prof)
     res.update(native_dtani(codes, pairs, out))
     kb = 65536
