@@ -39,12 +39,12 @@
 //     registers and across the 4 lanes of a row, and atomicMax (order-free:
 //     the result is deterministic) adds them into the three (tasks, NQB)
 //     outputs, which the wrapper zeroes. The producer loads the next
-//     tile's stages meanwhile. (Pairing rows g and g + 1 by a shuffle, as
-//     the first design did, made the epilogue a third of the time.)
+//     tile's stages meanwhile. (A shuffle a value to pair rows g and
+//     g + 1 instead cost a third of the kernel's time.)
 //   * Small buckets (2*NQB <= 64 and NRB <= 128, bucket 4,096): the same
 //     kernel with one consumer warpgroup on a 64 x 128 tile, two CTAs an
 //     SM, so no product runs on rows that are all padding.
-
+//
 // K3 (k3_bands). For every fine block f (32 query bases) and each of the
 // four bands (candidate 1 and 2, forward and reverse), the count of valid
 // query bases equal to the window base at each of BAND = WIN-32 shifts,
