@@ -93,6 +93,9 @@ INT32_SIMT_OPS_PER_S = 33.5e12
 # instruction per lane and clock (a population count takes 4 slots: 16 per
 # SM and clock).
 INT32_SLOTS_PER_S = INT32_SIMT_OPS_PER_S / 2
+# Issue slots a lane of the cheapest KX warp step of 32 positions (counted
+# in phase_kx).
+KX_SLOTS_PER_STEP = 23
 
 
 def emit(obj) -> None:
@@ -238,8 +241,32 @@ def union_len(starts, lens) -> int:
     return int((hi - lo).sum())
 
 
+def kx_evaluated(kx, sc, lim) -> int:
+    """Positions KX compares, at most, for jobs that need `sc` positions
+    within limits `lim` (the ranges of ops/extend.py:kernel_ranges): whole
+    steps of 32 up to each range's first violation, one look-back step a
+    range of launch B, and every range of a job's last round (a range
+    after the one that stops the job may stop early at its own
+    violation)."""
+    import numpy as np
+
+    def steps(n):
+        return (n + 31) // 32 * 32
+
+    total = int(steps(np.minimum(sc, kx.FIRST)).sum())
+    for need, limit in zip(sc[sc > kx.FIRST].tolist(),
+                           lim[sc > kx.FIRST].tolist()):
+        for rd in kx.kernel_ranges(limit)[1:]:
+            total += sum(steps(min(e, need) if s < need else e) - s + 32
+                         for s, e in rd)
+            if rd[-1][1] >= need:
+                break
+    return total
+
+
 def phase_kx(torch, dev, rng):
     import numpy as np
+    from vclust_tpu_torch.ops import cuda
     from vclust_tpu_torch.ops import extend as kx
     from vclust_tpu_torch.ops.lz_parse_py import AlignParams, _extend
     p = AlignParams()
@@ -282,15 +309,46 @@ def phase_kx(torch, dev, rng):
     oracle_s = time.perf_counter() - t0
 
     ms = time_ms(lambda: kx.extend(*args, nq, nr, p.aw, p.am, p.ar), 5)
+    # Without the two long edge jobs (the cap job, 0, and the one across
+    # the N run, 2): the throughput apart from the serial chain.
+    keep = torch.ones(len(qi), dtype=torch.bool, device=dev)
+    keep[[0, 2]] = False
+    short = args[:2] + [args[2][keep], args[3][keep]]
+    ms_short = time_ms(lambda: kx.extend(*short, nq, nr, p.aw, p.am, p.ar),
+                       5)
     plain_ms = time_ms(
         lambda: kx.extend_plain(*args, nq, nr, p.aw, p.am, p.ar), 1)
     sc = scanned.cpu().numpy()
-    # Least work: the distinct code bytes the jobs read (int32 codes, each
-    # input read once) plus the job arrays and outputs; one compare a base.
+    lim = np.minimum(np.minimum(nq - qi.astype(np.int64),
+                                nr - ri.astype(np.int64)), cap)
+    # Least work. Bytes: the distinct code bytes the jobs read (int32
+    # codes, each input read once; 5.4 MB, which then stay in the 50 MB
+    # L2) plus the job arrays and outputs. Operations: int32 issue slots,
+    # one a lane and instruction of the cheapest warp step of 32 positions,
+    # times the steps the jobs need (ceil(scanned / 32) a job):
+    #   2  compare the codes (equal, and below 4)
+    #   1  ballot of the matches M
+    #   1  funnel shift of (previous M, M): each lane's last 32 positions
+    #   6  matches in its window of aw: LOP3, population count (4 slots),
+    #      compare with aw - am
+    #   1  ballot of the violations V
+    #   2  run of ar matches ending at the lane: LOP3, compare
+    #   1  ballot of the run ends R
+    #   2  run ends before the first violation: R & (V - 1) & ~V
+    #   5  keep the last step holding one: test, 4 selects (its base,
+    #      candidates, M and the lane's match count before it)
+    #   1  the lane's match count: add
+    #   1  stop test (V != 0)
+    # 23 slots (the cut is taken from the kept step once a range). The 8
+    # bytes a position the jobs read (L2 traffic: the windows of the jobs
+    # overlap) have no rate in the data sheet, so they form no bound and
+    # are printed beside it (`l2_bytes`).
     nbytes = 4 * (union_len(qi.astype(np.int64), sc)
                   + union_len(ri.astype(np.int64), sc)) + 16 * len(qi)
+    warp_steps = int(((sc + 31) // 32).sum())
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = float(sc.sum()) / INT32_SIMT_OPS_PER_S * 1e3
+    t_ops = KX_SLOTS_PER_STEP * 32.0 * warp_steps / INT32_SLOTS_PER_S * 1e3
+    by_len = np.sort(sc)
     row = dict(
         name='extend', route='cuda', source='vclust_tpu_torch/csrc/extend.cu',
         replaces='vclust_tpu/ops/extend_pallas.py:68',
@@ -299,10 +357,21 @@ def phase_kx(torch, dev, rng):
         bound_by='bytes' if t_bytes >= t_ops else 'operations',
         library_ms=None)
     emit(dict(phase='kx', jobs=int(len(qi)), nq=nq, nr=nr,
-              bases_scanned=int(sc.sum()), cap_job=[cap, cap - 7],
+              bases_scanned=int(sc.sum()), l2_bytes=8 * int(sc.sum()),
+              warp_steps=warp_steps, longest=int(by_len[-1]),
+              second_longest=int(by_len[-2]),
+              scanned_p50_p90_p999=np.percentile(
+                  sc, [50, 90, 99.9]).tolist(),
+              cap_job=[cap, cap - 7],
               kernel_eq_plain=True, oracle_jobs=int(len(sample)),
               oracle_eq=True, oracle_seconds=oracle_s, path_launches=launches,
-              ms=ms, plain_ms=plain_ms, bound_ms=row['bound_ms']))
+              ms=ms, ms_without_long=ms_short, plain_ms=plain_ms,
+              bound_ms=row['bound_ms'],
+              positions_evaluated_at_most=kx_evaluated(kx, sc, lim),
+              positions_needed=int(sc.sum()),
+              registers=ptxas_summary(cuda.build_log.get('extend', '')),
+              bound_bytes_ms=t_bytes, bound_ops_ms=t_ops,
+              int32_slots=KX_SLOTS_PER_STEP * 32 * warp_steps))
     return row
 
 

@@ -59,6 +59,52 @@ def _seqs(seed=0, n=3000):
     return q, ref
 
 
+def kx_edge_jobs(edges, aw, am, ar, seed=0):
+    """Codes (q, r) and int32 job starts (qi, ri) that put each kind of
+    event at each of the positions b - 1, b and b + aw - 2 of a job, for
+    every b in `edges` (positions count from the job's start): the first
+    violation (am + 1 mismatches ending there), the cut (the same block
+    starting just after it), an N run of am starting there (no violation;
+    a block of am + 1 mismatches ends the job later), an N run ending there
+    that violates, and the limit (a job that far from the end). Each job
+    has a region of its own; q equals r (random bases) elsewhere. Also 32
+    random jobs, most at unrelated offsets."""
+    rng = np.random.default_rng(seed)
+    spots = sorted({b + d for b in edges for d in (-1, 0, aw - 2)})
+    block = am + 1
+    regions = []                          # (kind, x)
+    for x in spots:
+        regions += [(k, x) for k in ('viol', 'cut', 'n_run', 'n_viol')]
+    tail = max(spots) + 64
+    n = sum(x + 3 * block + 2 * aw + 64 for _, x in regions) + tail
+    r = rng.integers(0, 4, n).astype(np.int8)
+    q = r.copy()
+
+    def mismatch(lo, hi):
+        q[lo:hi] = (r[lo:hi] + 1) % 4
+
+    starts, at = [], 0
+    for kind, x in regions:
+        s = at
+        if kind == 'viol':
+            mismatch(s + x - am, s + x + 1)
+        elif kind == 'cut':
+            mismatch(s + x + 1, s + x + 1 + block)
+        elif kind == 'n_run':
+            q[s + x:s + x + am] = 4
+            mismatch(s + x + am + aw, s + x + am + aw + block)
+        else:
+            q[s + x - am:s + x + 1] = 4
+        starts.append(s)
+        at = s + x + 3 * block + 2 * aw + 64
+    starts += [n - x for x in spots]       # limits
+    qi = np.array(starts, np.int64)
+    ri = qi.copy()
+    qi = np.concatenate([qi, rng.integers(0, n, 32)])
+    ri = np.concatenate([ri, rng.integers(0, n, 24), qi[-8:]])
+    return q, r, qi.astype(np.int32), ri.astype(np.int32)
+
+
 def _k1_both(index, device, **chunking):
     n = index.n
     _, chunks = tpf.device_chunks(index, device, **chunking)
@@ -134,6 +180,94 @@ def test_kx_kernel_matches_plain(cuda_device):
         got = tx.extend(*args, len(q), len(ref), aw, am, ar)
         want = tx.extend_plain(*args, len(q), len(ref), aw, am, ar)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def _kx_on(device, q, r, qi, ri, aw=15, am=7, ar=3):
+    """KX and extend_plain on the same device tensors; plain's scanned."""
+    args = [torch.from_numpy(np.ascontiguousarray(a, np.int32).reshape(-1)
+                             ).to(device)
+            for a in (tx.pad_codes(q), tx.pad_codes(r), qi, ri)]
+    got = tx.extend(*args, len(q), len(r), aw, am, ar)
+    *want, scanned = tx.extend_plain(*args, len(q), len(r), aw, am, ar,
+                                     return_scanned=True)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    return scanned.cpu().numpy()
+
+
+def _kx_long_seqs(n=400_000, seed=4):
+    """q == r up to substitutions whose rate changes every 20,000 bases
+    (0 to 4%), with N runs of 7: job lengths from a few bases to the cap."""
+    rng = np.random.default_rng(seed)
+    r = rng.integers(0, 4, n).astype(np.int8)
+    rate = np.repeat(rng.choice([0.0, 0.001, 0.01, 0.02, 0.04], n // 20_000),
+                     20_000)
+    q = r.copy()
+    sub = rng.random(n) < rate
+    q[sub] = (q[sub] + 1) % 4
+    for at in rng.integers(0, n - 7, 20):
+        q[at:at + 7] = 4
+    return q, r
+
+
+@pytest.mark.gpu
+def test_kx_kernel_chunk_edges(cuda_device):
+    """Events at b - 1, b and b + aw - 2 of every range start b the kernel
+    uses up to its fifth round of launch B, and at A's end."""
+    rounds = tx.kernel_ranges(tx.CAP)
+    edges = sorted({rd[i][0] for rd in rounds[1:6] for i in (0, 1, -1)}
+                   | {rounds[6][0][0]})
+    for aw, am, ar in ((15, 7, 3), (32, 10, 32)):
+        q, r, qi, ri = kx_edge_jobs(edges, aw, am, ar)
+        sc = _kx_on(cuda_device, q, r, qi, ri, aw, am, ar)
+        assert (sc > tx.FIRST).sum() >= 3 * 4 * len(edges)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('aw,am,ar', [(15, 7, 3), (1, 0, 1), (32, 10, 32),
+                                      (8, 3, 5)])
+def test_kx_kernel_many_jobs_past_first(cuda_device, aw, am, ar):
+    """Thousands of jobs past launch A's FIRST positions: B has work for
+    every CTA, and long jobs take many rounds."""
+    q, r = _kx_long_seqs()
+    rng = np.random.default_rng(aw)
+    qi = rng.integers(0, len(q), 6000).astype(np.int32)
+    ri = qi.copy()
+    ri[:500] = rng.integers(0, len(r), 500)
+    sc = _kx_on(cuda_device, q, r, qi, ri, aw, am, ar)
+    if (aw, am, ar) == (15, 7, 3):
+        assert (sc > tx.FIRST).sum() > 1000 and sc.max() > 100_000
+
+
+@pytest.mark.gpu
+def test_kx_kernel_nothing_past_first(cuda_device):
+    """No job outlives launch A (the sequences are shorter than FIRST): B
+    finds an empty list."""
+    q, r = _seqs(n=tx.FIRST - 1)
+    rng = np.random.default_rng(5)
+    qi = rng.integers(0, len(q), 3000).astype(np.int32)
+    ri = rng.integers(0, len(r), 3000).astype(np.int32)
+    ri[:1000] = qi[:1000]
+    sc = _kx_on(cuda_device, q, r, qi, ri)
+    assert sc.max() <= tx.FIRST
+
+
+@pytest.mark.gpu
+def test_kx_kernel_cap_and_single_jobs(cuda_device):
+    n = tx.CAP + 3000
+    codes = np.random.default_rng(3).integers(0, 4, n).astype(np.int8)
+    one = np.zeros(1, np.int32)
+    sc = _kx_on(cuda_device, codes, codes, np.array([0, 5, 0], np.int32),
+                np.array([0, 5, 9], np.int32))
+    assert sc[:2].tolist() == [tx.CAP, tx.CAP]
+    for start in (0, n - tx.FIRST - 1, n - 40):   # n_jobs = 1
+        _kx_on(cuda_device, codes, codes, one + start, one + start)
+    dev = cuda_device
+    args = [torch.from_numpy(tx.pad_codes(codes).reshape(-1)).to(dev)] * 2
+    lens, matches = tx.extend(*args, torch.zeros(1, dtype=torch.int32,
+                                                  device=dev),
+                              torch.zeros(1, dtype=torch.int32, device=dev),
+                              n, n)
+    assert (int(lens[0]), int(matches[0])) == (tx.CAP, tx.CAP)
 
 
 def _stage1_inputs(seed, K, M2, NRB, H, rows=3, zero=False, ties=False,
@@ -262,7 +396,7 @@ def test_kernel_launches_counted(cuda_device):
     tx.batched_extend(tx.pad_codes(q), tx.pad_codes(ref),
                       np.zeros(3, np.int32), np.zeros(3, np.int32), len(q),
                       len(ref), device=cuda_device)
-    assert tx.extend.launches == before + 1
+    assert tx.extend.launches == before + tx.LAUNCHES_PER_CALL
     before = tpf.occupancy_count.launches
     idx = _index(1, 40, 100, 10, 500)
     tpf.shared_kmer_counts_indexed(idx, engine='device', device=cuda_device)

@@ -16,12 +16,14 @@ from hypothesis import given, settings, strategies as st
 
 sys.path.insert(0, '.')
 
+from vclust_tpu.ops import extend_pallas as jext                   # noqa: E402
 from vclust_tpu.ops import prefilter as jpf                       # noqa: E402
 from vclust_tpu.ops.cc import connected_components_device as jcc  # noqa: E402
 from vclust_tpu.ops.lz_parse_py import AlignParams, _extend       # noqa: E402
 from vclust_tpu_torch.ops import cc as tcc                         # noqa: E402
 from vclust_tpu_torch.ops import extend as tx                      # noqa: E402
 from vclust_tpu_torch.ops import prefilter as tpf                  # noqa: E402
+from test_torch_kernels import kx_edge_jobs                        # noqa: E402
 
 # Six pytest workers share the machine: one torch thread each.
 torch.set_num_threads(1)
@@ -328,6 +330,88 @@ def test_kx_wrapper_checks(seqs):
                               np.empty(0, np.int32), np.empty(0, np.int32),
                               len(q), len(ref), device='cpu')
     assert [len(x) for x in empty] == [0, 0]
+
+
+# The kernel's decomposition: ranges summarised apart, combined in order.
+KX_CHUNKS = (32, 64, 1024)
+# Chunk edges chunk * k for k = 1 and 3, and one job 40 chunks of 32 in.
+KX_EDGES = sorted({c * k for c in KX_CHUNKS for k in (1, 3)} | {32 * 40})
+
+
+def _kx_tensors(q, r, qi, ri):
+    return [torch.from_numpy(np.ascontiguousarray(a, np.int32).reshape(-1))
+            for a in (tx.pad_codes(q), tx.pad_codes(r), qi, ri)]
+
+
+@pytest.fixture(scope='module')
+def kx_edge_case():
+    """The chunk-edge jobs at the default parameters and the JAX package's
+    batched_extend on them: one interpret-mode run for the module."""
+    p = AlignParams()
+    q, r, qi, ri = kx_edge_jobs(KX_EDGES, p.aw, p.am, p.ar)
+    want = jext.batched_extend(jext.pad_codes(q), jext.pad_codes(r), qi, ri,
+                               len(q), len(r), p.aw, p.am, p.ar)
+    return (q, r, qi, ri), [np.asarray(w) for w in want]
+
+
+@pytest.mark.parametrize('chunk', KX_CHUNKS)
+def test_kx_chunked_model_matches_jax(kx_edge_case, chunk):
+    """A violation, a cut, an N run and a limit at chunk * k - 1, chunk * k
+    and chunk * k + aw - 2: the model == extend_plain == the JAX kernel."""
+    (q, r, qi, ri), want = kx_edge_case
+    p = AlignParams()
+    args = _kx_tensors(q, r, qi, ri)
+    got = tx.extend_chunked_plain(*args, len(q), len(r), p.aw, p.am, p.ar,
+                                  chunk)
+    plain = tx.extend_plain(*args, len(q), len(r), p.aw, p.am, p.ar)
+    for g, pl, w in zip(got, plain, want):
+        assert np.array_equal(g.numpy(), w)
+        assert np.array_equal(pl.numpy(), w)
+
+
+@pytest.mark.parametrize('chunk', KX_CHUNKS)
+@pytest.mark.parametrize('aw,am,ar', [(1, 0, 1), (32, 10, 32), (8, 3, 5)])
+def test_kx_chunked_model_matches_plain(chunk, aw, am, ar):
+    q, r, qi, ri = kx_edge_jobs(KX_EDGES, aw, am, ar, seed=aw)
+    args = _kx_tensors(q, r, qi, ri)
+    got = tx.extend_chunked_plain(*args, len(q), len(r), aw, am, ar, chunk)
+    want = tx.extend_plain(*args, len(q), len(r), aw, am, ar)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_kx_chunked_model_cap_and_starts(seqs):
+    """The cap, sequence ends, a negative start and odd chunk lengths."""
+    n = tx.CAP + 3000
+    codes = np.random.default_rng(3).integers(0, 4, n).astype(np.int8)
+    args = _kx_tensors(codes, codes, np.array([0, 5, -1, n - 7], np.int32),
+                       np.array([0, 5, 0, n - 7], np.int32))
+    for chunk in (4096, 2048 * 16 + 1):
+        got = tx.extend_chunked_plain(*args, n, n, 15, 7, 3, chunk)
+        assert [g.tolist() for g in got] == [[tx.CAP, tx.CAP, 0, 7]] * 2
+    q, ref = seqs
+    args = _kx_tensors(q, ref, np.arange(0, 1500, 7, dtype=np.int32),
+                       np.arange(0, 1500, 7, dtype=np.int32)[::-1].copy())
+    want = tx.extend_plain(*args, len(q), len(ref), 15, 7, 3)
+    for chunk in (1, 33):
+        got = tx.extend_chunked_plain(*args, len(q), len(ref), 15, 7, 3,
+                                      chunk)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_kx_kernel_ranges():
+    """The ranges csrc/extend.cu summarises apart tile [0, limit): A's
+    [0, FIRST), then rounds of WARPS ranges doubling to SUB0 << DOUBLINGS."""
+    for limit in (1, tx.FIRST, tx.FIRST + 1, 20_000, tx.CAP):
+        rounds = tx.kernel_ranges(limit)
+        flat = [rg for rd in rounds for rg in rd]
+        assert flat[0] == (0, min(limit, tx.FIRST))
+        assert all(a[1] == b[0] for a, b in zip(flat, flat[1:]))
+        assert flat[-1][1] == limit
+        assert all(len(rd) <= tx.WARPS for rd in rounds[1:])
+        assert all(s % 32 == 0 for s, _ in flat)
+    sizes = [rd[0][1] - rd[0][0] for rd in tx.kernel_ranges(tx.CAP)[1:]]
+    assert sizes[:5] == [256, 512, 1024, 2048, 2048]
+    assert tx.kernel_ranges(0) == []
 
 
 # --------------------------------------------------------------------------

@@ -13,8 +13,11 @@ pipeline calls it (the host engines extend inline, one pair at a time).
 
 `extend` is the wrapper: CPU tensors take `extend_plain` (a scan over the
 job batch in blocks of SPAN positions, the TPU kernel's own formulation),
-CUDA tensors launch the kernel or raise. `extend.launches` counts kernel
-launches.
+CUDA tensors launch the kernel or raise. The kernel is two launches a call
+(csrc/extend.cu: A scans each job's first FIRST positions, B the rest of
+the jobs left in rounds), so `extend.launches` grows by 2 a call.
+`extend_chunked_plain` models how the kernel cuts a job into ranges that
+are summarised apart and combined in order; only tests use it.
 """
 
 import ctypes
@@ -28,11 +31,32 @@ from ..utils.device import resolve_device
 SPAN = 1024            # positions per block step of the plain scan
 MAX_BLOCKS = 256
 CAP = SPAN * MAX_BLOCKS  # longest extension scanned (262,144 bases)
+# How csrc/extend.cu cuts a job (its constants of the same names): launch A
+# scans [0, FIRST); launch B's round k gives each of WARPS warps SUB0 <<
+# min(k, DOUBLINGS) positions.
+FIRST, WARPS, SUB0, DOUBLINGS = 4096, 16, 256, 3
+LAUNCHES_PER_CALL = 2
 
 _SIGNATURES = {
     'kx_extend': [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-    + [ctypes.c_void_p] * 3,
+    + [ctypes.c_void_p] * 4,
 }
+
+
+def kernel_ranges(limit: int):
+    """The ranges [s, e) the kernel summarises apart for a job of `limit`
+    positions, round by round: [[(0, min(limit, FIRST))], [WARPS ranges of
+    round 0 of launch B], ...]; ranges at or past the limit are left out."""
+    rounds = [[(0, min(limit, FIRST))]] if limit > 0 else []
+    pos, k = FIRST, 0
+    while pos < limit:
+        sub = SUB0 << min(k, DOUBLINGS)
+        rounds.append([(s, min(s + sub, limit))
+                       for s in range(pos, pos + WARPS * sub, sub)
+                       if s < limit])
+        pos += WARPS * sub
+        k += 1
+    return rounds
 
 
 def pad_codes(codes: np.ndarray) -> np.ndarray:
@@ -112,11 +136,74 @@ def extend_plain(q, r, qi, ri, nq: int, nr: int, aw: int, am: int, ar: int,
     return (*out, scanned) if return_scanned else out
 
 
+def extend_chunked_plain(q, r, qi, ri, nq: int, nr: int, aw: int, am: int,
+                         ar: int, chunk: int):
+    """Plain model of the kernel's decomposition, for tests: each job's
+    positions are cut into ranges of `chunk`, each range is summarised from
+    the codes alone (its look-back read from the data, or the history
+    before the start: matches) and the summaries are combined in order.
+    A summary: the first violation, the last cut candidate before it, the
+    matches up to that cut and the range's total matches. The job stops at
+    the first range with a violation or holding its limit; its cut is the
+    last cut up to there. Equals extend_plain for any chunk >= 1."""
+    dev = q.device
+    qi64, ri64 = qi.long(), ri.long()
+    limit = torch.clamp(torch.minimum(nq - qi64, nr - ri64), max=CAP)
+    limit = torch.where((qi64 < 0) | (ri64 < 0), 0, limit)
+    back = max(aw, ar) - 1
+    per = max(1, 4096 // chunk)           # ranges summarised a pass
+    loc = torch.arange(chunk, device=dev)
+    j = torch.arange(-back, chunk, device=dev)
+    ranges = torch.arange(per, device=dev)
+    n = qi.numel()
+    best_cut = torch.zeros(n, dtype=torch.int64, device=dev)
+    best_match = torch.zeros(n, dtype=torch.int64, device=dev)
+    carry = torch.zeros(n, dtype=torch.int64, device=dev)
+    active = limit > 0
+    for k0 in range(0, -(-CAP // chunk), per):
+        idx = torch.nonzero(active).reshape(-1)
+        if idx.numel() == 0:
+            break
+        lim = limit[idx, None, None]
+        start = (k0 + ranges) * chunk                       # (per,)
+        pos = start[:, None] + j                            # (per, back+chunk)
+        qa = q[torch.clamp(qi64[idx, None, None] + pos, 0, q.numel() - 1)]
+        ra = r[torch.clamp(ri64[idx, None, None] + pos, 0, r.numel() - 1)]
+        m = torch.where(pos < 0, True, (qa == ra) & (qa < 4) & (pos < lim))
+        cz = torch.nn.functional.pad(torch.cumsum((~m).int(), -1), (1, 0))
+        end = cz[..., back + 1:]
+        viol = end - cz[..., back + 1 - aw:cz.shape[-1] - aw] > am
+        run = end - cz[..., back + 1 - ar:cz.shape[-1] - ar] == 0
+        mm = m[..., back:]                                  # the range's own
+        v = torch.where(viol.any(-1), viol.int().argmax(-1), chunk)
+        cand = run & (loc < v[..., None])
+        cut = (cand * (loc + 1)).amax(-1) - 1               # -1: none
+        mcut = (mm & (loc <= cut[..., None])).sum(-1)
+        mtot = mm.sum(-1)
+        # Combine in order: stop at the first range with a violation or
+        # holding the limit; the last cut up to there wins.
+        last = (v < chunk) | (start + chunk >= lim[:, :, 0])
+        stop = torch.where(last.any(-1), last.int().argmax(-1), per)
+        has = (cut >= 0) & (ranges <= stop[:, None])
+        kc = ((has * (ranges + 1)).amax(-1) - 1).clamp(min=0)[:, None]
+        before = torch.nn.functional.pad(torch.cumsum(mtot, -1), (1, 0))
+        any_cut = has.any(-1)
+        best_cut[idx] = torch.where(
+            any_cut, start[kc[:, 0]] + cut.gather(1, kc)[:, 0] + 1,
+            best_cut[idx])
+        best_match[idx] = torch.where(
+            any_cut, carry[idx] + before.gather(1, kc)[:, 0]
+            + mcut.gather(1, kc)[:, 0], best_match[idx])
+        carry[idx] += before[:, -1]
+        active[idx[stop < per]] = False
+    return best_cut.to(torch.int32), best_match.to(torch.int32)
+
+
 def extend(q, r, qi, ri, nq: int, nr: int, aw: int = 15, am: int = 7,
            ar: int = 3):
     """KX wrapper on tensors: the plain version for CPU tensors, the CUDA
-    kernel for CUDA tensors (or raise). Returns int32 (total_len,
-    nt_match)."""
+    kernel for CUDA tensors (or raise): launches A and B, counted 2 in
+    `extend.launches`. Returns int32 (total_len, nt_match)."""
     _check_params(aw, am, ar)
     dev = q.device
     for name, x in (('q', q), ('r', r), ('qi', qi), ('ri', ri)):
@@ -134,12 +221,14 @@ def extend(q, r, qi, ri, nq: int, nr: int, aw: int = 15, am: int = 7,
     out_match = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
         return out_len, out_match
+    # Launch A's list of jobs left for B, and two counters.
+    scratch = torch.empty(2 * n + 2, dtype=torch.int32, device=dev)
     lib = cuda.library('extend', _SIGNATURES)
     rc = lib.kx_extend(cuda.ptr(q), cuda.ptr(r), cuda.ptr(qi), cuda.ptr(ri),
                        n, nq, nr, aw, am, ar, cuda.ptr(out_len),
-                       cuda.ptr(out_match), cuda.stream(q))
+                       cuda.ptr(out_match), cuda.ptr(scratch), cuda.stream(q))
     cuda.check(lib, rc, 'kx_extend')
-    extend.launches += 1
+    extend.launches += LAUNCHES_PER_CALL
     return out_len, out_match
 
 
