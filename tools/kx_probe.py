@@ -17,7 +17,8 @@ runs in its own process with a time limit. Needs one CUDA card:
     python3 tools/kx_probe.py [--seed N] [--reps N]
 
 Prints one JSON line a variant with the ms of each of two timing runs; then
-the card's name and power limit (nvidia-smi).
+the card's name and power limit (nvidia-smi). Exits 1 if a variant failed
+or the kernel disagreed with extend_plain.
 """
 
 import argparse
@@ -132,9 +133,11 @@ def main():
     from vclust_tpu_torch.utils.build import BUILD_DIR
     out_dir = BUILD_DIR / 'probe_kx'
     if args.variant:
-        for res in run(args.variant, out_dir, args.seed, args.reps):
+        results = run(args.variant, out_dir, args.seed, args.reps)
+        for res in results:
             print(json.dumps(res), flush=True)
-        return
+        sys.exit(0 if all(res.get('eq_plain', True) for res in results)
+                 else 1)
     logs = build(out_dir)
     import chip_smoke as cs
     print(json.dumps({'ptxas': cs.ptxas_summary(logs['base'])}), flush=True)
