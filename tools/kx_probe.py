@@ -1,18 +1,25 @@
 #!/usr/bin/env python3
 """Where KX (vclust_tpu_torch/csrc/extend.cu) spends its time on a card.
 
-Builds only csrc/extend.cu, as it is and with launch B cut out (`a_only`),
+Builds only csrc/extend.cu, as it is and in variants made by text cuts,
 into vclust_tpu_torch/_build/probe_kx/, and times KX with CUDA events on
 chip_smoke.py's `kx` jobs (65,536 jobs from --seed, aw/am/ar at their
 defaults) four ways:
-  all         the kx jobs (kernel == extend_plain is checked here);
+  all         the kx jobs;
   short       the same without the two long edge jobs (the cap job, which
               scans 262,144 positions, and the one across the N run):
               throughput apart from the serial chain;
   cap         the cap job alone: the serial chain;
-  a_only      launch A alone on the kx jobs (B = all - a_only);
-and prints the device time of each launch by torch.profiler. Each variant
-runs in its own process with a time limit. Needs one CUDA card:
+  a_only      launch A alone on the kx jobs (launch B cut out);
+and prints the device time of each launch by torch.profiler. The other
+variants time `all` and `cap` with one design choice undone:
+  address_per_load  each load computes its 64-bit address (not one pointer
+                    and immediate offsets);
+  u8, u16           the loads of 8 or 16 steps in flight (not 4);
+  first2048, first8192  launch A scans 2,048 or 8,192 positions (not
+                    4,096), so more or fewer jobs go on to launch B.
+Every variant but a_only is checked against extend_plain. Each runs in its
+own process with a time limit. Needs one CUDA card:
 
     python3 tools/kx_probe.py [--seed N] [--reps N]
 
@@ -33,11 +40,53 @@ import numpy as np
 REPO = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
+# csrc/extend.cu's loads, and the same loads with an address computed for
+# each (the kernel before it took immediate offsets).
+LOADS = '''\
+__device__ __forceinline__ void load_steps(const int32_t* __restrict__ qp,
+                                           const int32_t* __restrict__ rp,
+                                           int p, int e, int (&a)[U],
+                                           int (&b)[U]) {
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const bool in = p + 32 * u < e;
+    a[u] = in ? __ldg(qp + 32 * u) : 4;
+    b[u] = in ? __ldg(rp + 32 * u) : 4;
+  }
+}'''
+LOADS_PER_ADDRESS = '''\
+__device__ __forceinline__ void load_steps(const int32_t* __restrict__ q,
+                                           const int32_t* __restrict__ r,
+                                           int base, int e, int lane,
+                                           int (&a)[U], int (&b)[U]) {
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int p = base + 32 * u + lane;
+    a[u] = p < e ? __ldg(q + p) : 4;
+    b[u] = p < e ? __ldg(r + p) : 4;
+  }
+}'''
+
 # (text of csrc/extend.cu, its replacement) for each variant.
 CUTS = {
     'base': [],
     'a_only': [('  rest_kernel<<<grid_b',
                 '  if (false) rest_kernel<<<grid_b')],
+    'address_per_load': [(LOADS, LOADS_PER_ADDRESS), (
+        '''  const int32_t* qp = q + s + lane;
+  const int32_t* rp = r + s + lane;
+  load_steps(qp, rp, s + lane, e, a, b);''',
+        '  load_steps(q, r, s, e, lane, a, b);'), (
+        '''    qp += 32 * U;
+    rp += 32 * U;
+    load_steps(qp, rp, base + 32 * U + lane, e, na, nb);''',
+        '    load_steps(q, r, base + 32 * U, e, lane, na, nb);')],
+    'u8': [('constexpr int U = 4; ', 'constexpr int U = 8; ')],
+    'u16': [('constexpr int U = 4; ', 'constexpr int U = 16; ')],
+    'first2048': [('constexpr int FIRST = 4096;',
+                   'constexpr int FIRST = 2048;')],
+    'first8192': [('constexpr int FIRST = 4096;',
+                   'constexpr int FIRST = 8192;')],
 }
 
 
@@ -86,8 +135,10 @@ def run(name: str, out_dir: pathlib.Path, seed: int, reps: int) -> list:
     keep[[0, 2]] = False
     sets = {'all': put[2:], 'short': [put[2][keep], put[3][keep]],
             'cap': [put[2][:1].clone(), put[3][:1].clone()]}
-    if name != 'base':
-        sets = {name: sets['all']}
+    if name == 'a_only':
+        sets = {'all': sets['all']}
+    elif name != 'base':
+        sets = {'all': sets['all'], 'cap': sets['cap']}
     out = []
     for what, (a, b) in sets.items():
         n = a.numel()
@@ -105,7 +156,7 @@ def run(name: str, out_dir: pathlib.Path, seed: int, reps: int) -> list:
 
         call()
         res = {'variant': name, 'jobs': what, 'n': n}
-        if name == 'base':
+        if name != 'a_only':
             want = kx.extend_plain(put[0], put[1], a, b, nq, nr, p.aw, p.am,
                                    p.ar)
             res['eq_plain'] = (torch.equal(lens, want[0])
