@@ -47,8 +47,8 @@
 // round no larger than what came before it) and the rest of one step. Each
 // warp issues the loads of the next U steps before the ballots of the
 // current ones, so a chain costs one round trip every U steps; a lane's
-// loads are one pointer and immediate offsets (an address computed a load
-// cost ~8 instructions each, 13% of the time on the card).
+// loads are one pointer and immediate offsets (an address computed for each
+// load cost 13% of the time on the card: tools/kx_probe.py).
 // Deterministic: a job is combined by one CTA in a fixed order.
 //
 // Left for later: reading the codes as bytes or 2-bit packs instead of
