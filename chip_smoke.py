@@ -64,7 +64,24 @@ Phases, each printing one JSON line; any failure exits non-zero:
               pairs/s, peak bytes, B, each stage's time on one dispatch, and
               the live bytes a query position holds (peaks at 1 and 2 rows,
               C = 16 and 8) against `_dispatch_rows_v2`'s constants;
- 10. the `kernels` line: every kernel with its launches on its path, error
+ 10. mesh   - the port's mesh paths (vclust_tpu_torch/parallel/) on the
+              card, each driven with the launch counts set to 0 just before
+              it and read just after (a path that launched none of its
+              kernels fails): K1's work lists cut among 2 and 3 shards of
+              one card on k1 (a) and (c) == K1 unsharded; the unweighted
+              count (`shared_kmer_counts_device`) of (a)'s 1,536 sets == the
+              host count; its row panels of 512 and 300 genomes (K1 in
+              window mode) == the dense rows; K1's window mode alone at one
+              panel of 4,096 x 16,384 (case c's patterns) == plain, with
+              its ms, the plain ms and the bound; the sharded all2all_gpu
+              (2 shards) on the 48 genomes == the single device, records
+              included, with K2's and K3's launches and pairs/s beside the
+              unsharded run; two processes on this card over gloo
+              (`python -m vclust_tpu_torch.parallel.worker`) both print
+              MULTIHOST_OK; `entry()` == the int product; and
+              `dryrun_multichip` on every visible card, or on 2 shards of
+              cuda:0 when one is visible;
+ 11. the `kernels` line: every kernel with its launches on its path, error
      against its plain version, times and bound.
 The card's name and power limit (nvidia-smi) precede the last line, which
 is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -560,10 +577,11 @@ def phase_k1(torch, dev, seed: int):
     emit(dict(phase='k1', **a))
     b = k1_case(torch, dev, 'b_weighted', idx_b, host_b)
     emit(dict(phase='k1', **b))
-    c = k1_case(torch, dev, 'c_synthetic_16384', synthetic_index(seed),
-                per_chunk=True)
+    idx_c = synthetic_index(seed)
+    c = k1_case(torch, dev, 'c_synthetic_16384', idx_c, per_chunk=True)
     emit(dict(phase='k1', **c))
-    return c, max(a['max_abs_err'], b['max_abs_err'], c['max_abs_err'])
+    return (c, max(a['max_abs_err'], b['max_abs_err'], c['max_abs_err']),
+            (sets, idx_a, idx_c))
 
 
 # --------------------------------------------------------------------------
@@ -1173,10 +1191,10 @@ def pipe_timer(ag):
         return core
 
     def timed(codes, pairs, params=None, index=None, keep_alignments=False,
-              seeds_per_block=None, pipe='v2', device=None):
+              seeds_per_block=None, pipe='v2', device=None, mesh=None):
         t0 = time.perf_counter()
         out = real(codes, pairs, params, index, keep_alignments,
-                   seeds_per_block, pipe, device)
+                   seeds_per_block, pipe, device, mesh)
         st = stats[pipe]
         st['s'] += time.perf_counter() - t0
         st['calls'] += 1
@@ -1533,6 +1551,223 @@ def phase_align_v2(torch, dev, seed):
     return res
 
 
+# --------------------------------------------------------------------------
+# Phase 10: the mesh paths
+# --------------------------------------------------------------------------
+
+def k1_window_case(torch, dev, index, row0: int, rows: int) -> dict:
+    """K1 in window mode on `index`'s patterns, chunked as its square count
+    is: the (rows x n) window of genome rows [row0, row0 + rows), each
+    tile of the band added once; == plain, ms, plain ms and the bound."""
+    from vclust_tpu_torch.ops import prefilter as pf
+    n = index.n
+    rc = max(1024, min(131072, (1 << 28) // (4 * (n + 1))))
+    rc, nc = pf._adapt_chunks(index.gids, index.lens, n, rc, 524288)
+    passes = pf.k1_passes(n, index.gids, index.lens, index.weights, dev, rc,
+                          nc, window=(row0, rows))
+    counts = torch.zeros((rows, n), dtype=torch.int32, device=dev)
+
+    def run_kernel():
+        counts.zero_()
+        for c in passes:
+            pf.occupancy_count(counts, c)
+
+    def run_plain():
+        out = torch.zeros_like(counts)
+        for c in passes:
+            pf.occupancy_count_plain(out, c.gids, c.offs, c.weights,
+                                     row0=row0)
+        return out
+
+    run_kernel()
+    plain = run_plain()
+    torch.cuda.synchronize()
+    err = int((counts.long() - plain.long()).abs().max())
+    if err:
+        fail(f'K1 window ({row0}, {rows}): kernel != plain (max abs err '
+             f'{err})')
+    del plain
+    ms = time_ms(run_kernel, 3)
+    plain_ms = time_ms(run_plain, 1)
+    patterns = sum(int(c.weights.numel()) for c in passes)
+    # Least bytes: the COO and weights read once, the window's counts read
+    # and written once; least operations: one u8 product of the patterns'
+    # occupancy rows of the band against all n genomes.
+    nbytes = 4 * (len(index.gids) + 2 * patterns + len(passes)) + \
+        8 * rows * n
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * patterns * rows * n / INT8_TENSOR_OPS_PER_S * 1e3
+    return dict(at=f'window rows [{row0}, {row0 + rows}) x {n} genomes, '
+                   f'{patterns} patterns (case c)',
+                passes=len(passes), items=sum(len(c.work) for c in passes),
+                split=sorted({c.split for c in passes}), max_abs_err=err,
+                ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+                bound_by='bytes' if t_bytes >= t_ops else 'operations')
+
+
+def run_workers(devices, shards: int, timeout: float = 300.0) -> list:
+    """`python -m vclust_tpu_torch.parallel.worker` in one process a
+    device of `devices`, all of one gloo group on localhost, each with
+    `shards` shards on its device; returns their stdout lines that start
+    with MULTIHOST_OK. Kills them all on the way out."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(('127.0.0.1', 0))
+        port = sock.getsockname()[1]
+    n_procs = len(devices)
+    procs = []
+    try:
+        for pid, device in enumerate(devices):
+            env = dict(os.environ, VCLUST_DIST_COORD=f'127.0.0.1:{port}',
+                       VCLUST_DIST_NPROCS=str(n_procs),
+                       VCLUST_DIST_PROCID=str(pid), PYTHONPATH=str(REPO))
+            procs.append(subprocess.Popen(
+                [sys.executable, '-m', 'vclust_tpu_torch.parallel.worker',
+                 '--device', device, '--shards', str(shards), '--timeout',
+                 str(int(timeout / 2))], cwd=REPO, env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        outs = [p.communicate(timeout=timeout) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    ok = []
+    for pid, (p, (out, err)) in enumerate(zip(procs, outs)):
+        line = [ln for ln in out.splitlines()
+                if ln.startswith(f'MULTIHOST_OK pid={pid}/{n_procs}')]
+        if p.returncode or not line:
+            fail(f'worker {pid} failed (rc {p.returncode}):\n{err[-3000:]}')
+        ok += line
+    return ok
+
+
+def phase_mesh(torch, dev, k1_inputs, k2_row, k3_row) -> dict:
+    """Phase mesh (module docstring, 10). Returns K1's window-mode fields
+    for the kernels line; adds the sharded align's K2 and K3 launches to
+    their rows."""
+    import numpy as np
+    from vclust_tpu_torch.entry import dryrun_multichip, entry
+    from vclust_tpu_torch.ops import align_gpu as ag
+    from vclust_tpu_torch.ops import prefilter as pf
+    from vclust_tpu_torch.parallel.mesh import make_mesh
+    sets_a, idx_a, idx_c = k1_inputs
+    res = dict(phase='mesh', cards=torch.cuda.device_count())
+
+    # K1's work lists cut among shards of this card.
+    split = {}
+    for name, idx in (('a_bench_1536', idx_a), ('c_synthetic_16384',
+                                                idx_c)):
+        whole = pf.shared_kmer_counts_indexed(idx, engine='device',
+                                              device=dev)
+        for shards in (2, 3):
+            pf.occupancy_count.launches = 0
+            t0 = time.perf_counter()
+            got = pf.shared_kmer_counts_indexed(
+                idx, mesh=make_mesh(shards, device=dev))
+            seconds = time.perf_counter() - t0
+            launches = pf.occupancy_count.launches
+            if launches < shards:
+                fail(f'mesh: K1 over {shards} shards launched {launches}')
+            if not np.array_equal(got, whole):
+                fail(f'mesh: K1 over {shards} shards != unsharded ({name})')
+            split[f'{name} x {shards} shards'] = dict(
+                launches=launches, seconds=seconds)
+            del got
+        del whole
+    res['k1_split'] = split
+
+    # The unweighted count and its row panels (K1 in window mode).
+    pf.occupancy_count.launches = 0
+    dense = pf.shared_kmer_counts_device(sets_a, device=dev)
+    res['unweighted_launches'] = pf.occupancy_count.launches
+    if not res['unweighted_launches']:
+        fail('mesh: the unweighted count launched no K1')
+    if not np.array_equal(dense, pf._counts_from_index_host(idx_a)):
+        fail('mesh: the unweighted count != the host count')
+    window_launches = {}
+    for panel in (512, 300):
+        pf.occupancy_count.launches = 0
+        rows = 0
+        for lo, hi, block in pf.shared_kmer_counts_panels(sets_a, panel=panel,
+                                                          device=dev):
+            if not np.array_equal(block, dense[lo:hi]):
+                fail(f'mesh: panel [{lo}, {hi}) of {panel} != dense rows')
+            rows += hi - lo
+        window_launches[panel] = pf.occupancy_count.launches
+        if rows != len(sets_a) or not window_launches[panel]:
+            fail(f'mesh: panels of {panel} did not cover the rows with K1')
+    res['panel_launches'] = window_launches
+    del dense
+    window = k1_window_case(torch, dev, idx_c, 4096, 4096)
+    res['k1_window'] = window
+
+    # The sharded device align engine on the 48 genomes.
+    codes, pairs = align_inputs(mutant_corpus())
+    single = ag.all2all_gpu(codes, pairs, keep_alignments=True, device=dev)
+    mesh2 = make_mesh(2, device=dev)
+    ag.stage1_pack.launches = ag.band_counts.launches = 0
+    sharded = ag.all2all_gpu(codes, pairs, keep_alignments=True, mesh=mesh2)
+    align_launches = {'stage1_pack': ag.stage1_pack.launches,
+                      'band_counts': ag.band_counts.launches}
+    if min(align_launches.values()) < 2:
+        fail(f'mesh: the sharded align launched K2 / K3 {align_launches}')
+    if not (np.array_equal(single[0], sharded[0])
+            and np.array_equal(single[1][0], sharded[1][0])
+            and np.array_equal(single[1][1], sharded[1][1])):
+        fail('mesh: the sharded align != the single device')
+    walls = {'single': [], 'sharded_2': []}
+    for _ in range(2):
+        for key, kw in (('single', dict(device=dev)),
+                        ('sharded_2', dict(mesh=mesh2))):
+            t0 = time.perf_counter()
+            ag.all2all_gpu(codes, pairs, **kw)
+            walls[key].append(time.perf_counter() - t0)
+    res['align'] = dict(corpus='genomes48', pairs=len(pairs),
+                        records=int(len(single[1][0])),
+                        launches=align_launches, warm_s=walls,
+                        pairs_per_s={k: len(pairs) / min(v)
+                                     for k, v in walls.items()})
+    for row in (k2_row, k3_row):
+        row['launches_by_path']['mesh: all2all_gpu 2 shards (genomes48)'] = \
+            align_launches[row['name']]
+
+    # Two processes on this card, and the dry run.
+    t0 = time.perf_counter()
+    res['multihost'] = run_workers([f'cuda:{dev.index or 0}'] * 2, 1)
+    res['multihost_s'] = time.perf_counter() - t0
+    fn, args = entry()
+    counts = fn(*args)[0]
+    want = args[0].int().cpu() @ args[0].int().cpu().T
+    if not torch.equal(counts.cpu(), want):
+        fail('mesh: entry() counts != the int product')
+    # entry()'s step: int8 torch._int_mm, ani-shorter and the keep mask.
+    # Least bytes: the occupancy and sizes read, counts, sim and keep
+    # written; least operations: 2 G^2 M int8.
+    G, M = args[0].shape
+    t_bytes = (G * M + 4 * G + G * G * 9) / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * G * G * M / INT8_TENSOR_OPS_PER_S * 1e3
+    res['entry'] = dict(shape=[G, M], ms=time_ms(lambda: fn(*args), 20),
+                        bound_ms=max(t_bytes, t_ops),
+                        bound_by='bytes' if t_bytes >= t_ops
+                        else 'operations')
+    cards = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    if cards > 1:
+        dryrun_multichip(cards)
+        res['dryrun'] = f'{cards} cards'
+    else:
+        dryrun_multichip(2, device=dev)
+        res['dryrun'] = '2 shards of one card'
+    res['dryrun_s'] = time.perf_counter() - t0
+    emit(res)
+    return dict(launches=sum(window_launches.values()),
+                launches_by_path={f'panels of {p} (1,536 sets)': v
+                                  for p, v in window_launches.items()},
+                **{k: window[k] for k in (
+                    'at', 'max_abs_err', 'ms', 'plain_ms', 'bound_ms',
+                    'bound_by')})
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--seed', type=int, default=0)
@@ -1555,7 +1790,7 @@ def main():
     emit(dict(phase='build', seconds=build_s, sources=list(cuda.SOURCES),
               ptxas={k: ptxas_summary(v) for k, v in cuda.build_log.items()}))
     kx_row = phase_kx(torch, dev, np.random.default_rng(args.seed))
-    c, k1_err = phase_k1(torch, dev, args.seed)
+    c, k1_err, k1_inputs = phase_k1(torch, dev, args.seed)
     phase_cc(torch, dev, args.seed)
     with tempfile.TemporaryDirectory(prefix='vclust_smoke_') as tmp:
         launches, k1_main = phase_main(torch, dev, pathlib.Path(tmp))
@@ -1580,6 +1815,9 @@ def main():
     kx_row['at'] = 'the kx phase jobs'
     k2_row, k3_row = phase_align_v3(torch, dev, args.seed, engine)
     phase_align_v2(torch, dev, args.seed)
+    window = phase_mesh(torch, dev, k1_inputs, k2_row, k3_row)
+    k1_row['window_mode'] = window
+    k1_row['max_abs_err'] = max(k1_row['max_abs_err'], window['max_abs_err'])
     emit({'kernels': [kx_row, k1_row, k2_row, k3_row],
           'seconds': time.perf_counter() - t0})
     smi = subprocess.run(

@@ -167,6 +167,59 @@ def test_k1_kernel_matches_plain(cuda_device, monkeypatch, n, n_patterns,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize('n,n_patterns,max_w,row0,rows', [
+    # one tile row, split-K, the occupancy built from the COO
+    (300, 2000, 1, 128, 128), (300, 2000, 70000, 256, 44),
+    # n % 4 != 0: the element-wise epilogue, at a ragged band end
+    (1001, 3000, 'mixed', 896, 105), (1001, 3000, 1, 0, 1001),
+    # many tiles a band: TMA loads of a scattered occupancy
+    (2101, 1500, 70000, 512, 640), (520, 6000, 1, 384, 136)])
+def test_k1_window_kernel_matches_plain(cuda_device, n, n_patterns, max_w,
+                                        row0, rows):
+    """K1 in window mode (each tile of the row band added once, at its
+    window row) == the plain version over the same window."""
+    idx = _index(n + row0, n, n_patterns, min(100, n), max_w)
+    chunks = tpf.k1_passes(n, idx.gids, idx.lens, idx.weights, cuda_device,
+                           1 << 16, 1 << 20, window=(row0, rows))
+    k = torch.zeros((rows, n), dtype=torch.int32, device=cuda_device)
+    p = torch.zeros_like(k)
+    for c in chunks:
+        tpf.occupancy_count(k, c)
+        tpf.occupancy_count_plain(p, c.gids, c.offs, c.weights, row0=row0)
+    torch.cuda.synchronize()
+    assert torch.equal(k, p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('n,n_patterns,max_w,shards', [
+    (48, 6100, 70000, 3), (300, 4000, 'mixed', 2), (1001, 3000, 70000, 3),
+    (2101, 1500, 70000, 2)])
+def test_k1_split_work_matches_whole(cuda_device, n, n_patterns, max_w,
+                                     shards):
+    """K1 over a mesh of shards on one card (each pass's work list cut
+    among them, each shard's sum apart) == K1 unsharded."""
+    from vclust_tpu_torch.parallel.mesh import make_mesh
+    idx = _index(n + shards, n, n_patterns, min(100, n), max_w)
+    want = tpf.shared_kmer_counts_indexed(idx, engine='device',
+                                          device=cuda_device)
+    before = tpf.occupancy_count.launches
+    got = tpf.shared_kmer_counts_indexed(
+        idx, mesh=make_mesh(shards, device=cuda_device))
+    assert np.array_equal(got, want)
+    assert tpf.occupancy_count.launches - before >= shards
+
+
+@pytest.mark.gpu
+def test_mesh_dry_run_on_one_card(cuda_device):
+    from vclust_tpu_torch.entry import dryrun_multichip, entry
+    fn, args = entry()
+    counts, sim, keep = fn(*args)
+    want = args[0].int().cpu() @ args[0].int().cpu().T
+    assert torch.equal(counts.cpu(), want)
+    dryrun_multichip(2, device=cuda_device)
+
+
+@pytest.mark.gpu
 def test_kx_kernel_matches_plain(cuda_device):
     q, ref = _seqs()
     rng = np.random.default_rng(9)

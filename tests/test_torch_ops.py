@@ -243,6 +243,119 @@ def test_batch_store_blocks_match_dense(tmp_path, corpora):
 
 
 # --------------------------------------------------------------------------
+# The unweighted and panel counts (K1 at weight 1, and in window mode)
+# --------------------------------------------------------------------------
+
+def _small_sets(rng, n, lo=50, hi=500):
+    # tests/test_ops.py:_random_sets
+    return [np.unique(rng.integers(0, 10_000, int(rng.integers(lo, hi)))
+                      .astype(np.uint64)) for _ in range(n)]
+
+
+@pytest.mark.parametrize('n,lo,hi,seed,kw', [
+    (12, 50, 500, 42, {}),                       # tests/test_ops.py:22-26
+    (5, 500, 2000, 1, dict(rows_chunk=256))])    # :29-34, many chunks
+def test_unweighted_device_counts_match_jax(n, lo, hi, seed, kw):
+    sets = _small_sets(np.random.default_rng(seed), n, lo, hi)
+    want = jpf.shared_kmer_counts_device(sets, **kw)
+    got = tpf.shared_kmer_counts_device(sets, device='cpu', **kw)
+    assert got.dtype == np.int64
+    assert np.array_equal(got, want)
+    assert np.array_equal(got, jpf.shared_kmer_counts_host(sets))
+
+
+def _panel_sets(n, universe_size=800, seed=11):
+    rng = np.random.default_rng(seed)
+    universe = rng.choice(2 ** 40, size=universe_size,
+                          replace=False).astype(np.uint64)
+    return [np.sort(universe[rng.random(len(universe))
+                             < rng.uniform(0.02, 0.2)]) for _ in range(n)]
+
+
+@pytest.mark.parametrize('n,panel,kw', [
+    (23, 7, dict(rows_chunk=512, nnz_chunk=4096)),  # tests/test_ops.py:93-110
+    (300, 128, {}),                                 # 128-aligned panels
+    (300, 100, dict(nnz_chunk=4096))])              # unaligned, chunked
+def test_panel_counts_match_jax(n, panel, kw):
+    sets = (_panel_sets(n, 3000) if n == 23 else _panel_sets(n))
+    dense = jpf.shared_kmer_counts_host(sets)
+    want = list(jpf.shared_kmer_counts_panels(sets, panel=panel, **kw))
+    got = list(tpf.shared_kmer_counts_panels(sets, panel=panel,
+                                             device='cpu', **kw))
+    assert [g[:2] for g in got] == [w[:2] for w in want]
+    out = np.zeros_like(dense)
+    for (lo, hi, block), (_, _, jblock) in zip(got, want):
+        assert block.shape == (hi - lo, n) and block.dtype == np.int64
+        assert np.array_equal(block, jblock)
+        out[lo:hi] = block
+    assert np.array_equal(out, dense)
+
+
+def _index300(seed=5, n=300, n_patterns=700):
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(2, 40, n_patterns).astype(np.int32)
+    gids = np.concatenate([np.sort(rng.choice(n, ln, replace=False))
+                           for ln in lens])
+    weights = rng.integers(1, 70_000, n_patterns)
+    return tpf.index_from_numpy(n, np.full(n, 10 ** 6), gids, lens, weights)
+
+
+@pytest.mark.parametrize('row0,rows', [(0, 128), (128, 172), (256, 44),
+                                       (0, 300)])
+def test_k1_window_matches_dense_rows(row0, rows):
+    """K1's window on the CPU (`occupancy_count` of a pass planned for the
+    window: whole, then a part of its work list the way a shard gets it)
+    == the rows of the square count."""
+    idx = _index300()
+    n = idx.n
+    _, square = tpf.device_chunks(idx, 'cpu', nnz_chunk=2048)
+    dense = torch.zeros((n, n), dtype=torch.int32)
+    for c in square:
+        tpf.occupancy_count(dense, c)
+    passes = tpf.k1_passes(n, idx.gids, idx.lens, idx.weights, 'cpu', 1024,
+                           2048, window=(row0, rows))
+    assert len(passes) == len(square) == 1 and len(passes[0].parts) > 1
+    got = torch.zeros((rows, n), dtype=torch.int32)
+    for c in passes:
+        # Every tile of the row band, each k-block once.
+        tiles = {tuple(t) for t in c.work[:, :2].tolist()}
+        assert tiles == {tuple(t) for t in tpf.k1_panel_tiles(row0, rows, n)}
+        assert tpf._work_is_whole(c)
+        tpf.occupancy_count(got, c)
+    assert torch.equal(got, dense[row0:row0 + rows])
+    assert torch.equal(
+        tpf.occupancy_count_plain(torch.zeros_like(got), passes[0].gids,
+                                  passes[0].offs, passes[0].weights,
+                                  row0=row0),
+        tpf.occupancy_count_plain(torch.zeros((n, n), dtype=torch.int32),
+                                  passes[0].gids, passes[0].offs,
+                                  passes[0].weights)[row0:row0 + rows])
+    parts = torch.zeros_like(got)
+    for c in passes:
+        for w in tpf.k1_split_work(c.work.numpy(), c.kb_limbs.numpy(), 3):
+            if len(w):
+                sub = tpf.k1_shard(c, w, 'cpu')
+                assert not tpf._work_is_whole(sub)
+                tpf.occupancy_count(parts, sub)
+    assert torch.equal(parts, got)
+
+
+@pytest.mark.parametrize('items,nkb,parts', [(1, 1, 3), (5, 7, 2),
+                                             (132, 1, 8), (40, 9, 3)])
+def test_k1_split_work_is_contiguous_and_balanced(items, nkb, parts):
+    rng = np.random.default_rng(items + parts)
+    kb_limbs = np.sort(rng.integers(1, 4, nkb)).astype(np.int32)
+    lo = rng.integers(0, nkb, items)
+    work = np.column_stack([np.arange(items), np.arange(items), lo,
+                            lo + 1]).astype(np.int32)
+    runs = tpf.k1_split_work(work, kb_limbs, parts)
+    assert len(runs) == parts
+    assert np.array_equal(np.concatenate(runs), work)
+    cost = [int(kb_limbs[r[:, 2]].sum()) for r in runs]
+    assert max(cost) - min(cost) <= 2 * kb_limbs.max() or items < parts
+
+
+# --------------------------------------------------------------------------
 # KX
 # --------------------------------------------------------------------------
 

@@ -85,6 +85,8 @@
 namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
+// Devices a process may launch on (launch state is kept per device).
+constexpr int MAX_DEVICES = 64;
 
 // ---- shared-memory barriers, TMA and wgmma (as in csrc/occupancy.cu) ----
 
@@ -459,14 +461,16 @@ band_kernel(const int8_t* __restrict__ wins, const int8_t* __restrict__ q,
 template <int NC>
 int launch_bands(const int8_t* wins, const int8_t* qb, int n, int win,
                  int8_t* cnt, int32_t* bb, cudaStream_t s) {
-  static int per_sm = 0;
+  static int per_sm_of[MAX_DEVICES] = {};
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  int& per_sm = per_sm_of[dev];
   if (!per_sm) {
     cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &per_sm, band_kernel<NC>, K3_WARPS * 32, 0);
     if (err != cudaSuccess) return (int)err;
   }
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const int need = (n + K3_WARPS - 1) / K3_WARPS;  // CTAs with a block
   const int blocks = need < sms * per_sm ? need : sms * per_sm;
@@ -553,21 +557,22 @@ int launch_stage1(const uint8_t* qocc, const uint8_t* rocc,
                   int32_t* p_sum, int32_t* p_a, int32_t* p_b,
                   cudaStream_t s) {
   using T = K2Tile<CONS, BN>;
-  static bool configured = false;
-  if (!configured) {
+  static bool configured[MAX_DEVICES] = {};  // the attribute is per device
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (!configured[dev]) {
     cudaError_t err = cudaFuncSetAttribute(
         stage1_kernel<CONS, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         T::SMEM);
     if (err != cudaSuccess) return (int)err;
-    configured = true;
+    configured[dev] = true;
   }
   CUtensorMap q_map, r_map;
   int rc;
   if ((rc = encode_qocc(&q_map, qocc, Gq, M2, H, T::BM)) ||
       (rc = encode_rocc(&r_map, rocc, Gr, NRB, H, BN)))
     return rc;
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const long long tiles = (long long)tasks * ((M2 + T::BM - 1) / T::BM) *
                           ((NRB + BN - 1) / BN);

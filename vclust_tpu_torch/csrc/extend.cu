@@ -61,6 +61,8 @@ namespace {
 
 constexpr int CAP = 1024 * 256;  // SPAN * MAX_BLOCKS of the TPU kernel
 constexpr unsigned FULL = 0xFFFFFFFFu;
+// Devices a process may launch on (launch state is kept per device).
+constexpr int MAX_DEVICES = 64;
 constexpr int U = 4;             // steps whose loads are in flight together
 constexpr int FIRST = 4096;      // positions launch A scans
 constexpr int JOBS_PER_BLOCK = 2;
@@ -257,11 +259,14 @@ int kx_extend(const int32_t* q, const int32_t* r, const int32_t* qi,
               const int32_t* ri, int n_jobs, int nq, int nr, int aw, int am,
               int ar, int32_t* out_len, int32_t* out_match, int32_t* scratch,
               void* stream) {
-  static int grid_b = 0;
+  static int grid_b_of[MAX_DEVICES] = {};  // launch B's CTAs, per device
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  int& grid_b = grid_b_of[dev];
   if (grid_b == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
+    int sms = 0, per_sm = 0;
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, rest_kernel,
                                                   WARPS * 32, 0);

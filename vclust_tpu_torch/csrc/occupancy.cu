@@ -64,6 +64,17 @@
 //     (one tile split many ways), the producer warpgroup writes each
 //     k-block's occupancy straight from the COO into the ring, so a pass
 //     is one launch with no occupancy in device memory.
+//
+// An output window serves the row panels of the JAX package's
+// `_panel_matmul_accum` (its ops/prefilter.py:528-545), which hold a
+// (panel x n) block and never n x n: counts is then the rows x n block of
+// genome rows [row0, row0 + rows), row0 a multiple of 128, and with mirror
+// = 0 each work item (ti, tj), ti > tj allowed, adds its tile once, at row
+// ti*128 - row0 (the host lists every tile of the row band). The operands
+// stay in genome coordinates, so the occupancy and its COO build are the
+// same; only the epilogue's place changes. A shard of a mesh runs a part
+// of a square pass's work list on a square counts of its own (mirror = 1,
+// row0 = 0, rows = n); the shards' sums add up to the whole.
 
 #include <cuda.h>           // CUtensorMap and its enums (types only)
 #include <cuda_runtime.h>
@@ -270,8 +281,9 @@ __device__ __forceinline__ void kblock_products(int (&acc)[L][64],
 }
 
 // One work item (ti, tj, kb_lo, kb_hi) a CTA: the 128 x 128 tile of genomes
-// [ti*128, +128) x [tj*128, +128), ti <= tj, over k-blocks [kb_lo, kb_hi).
-// Warpgroups 0-1 consume (64 tile rows each), warpgroup 2 produces.
+// [ti*128, +128) x [tj*128, +128), over k-blocks [kb_lo, kb_hi); ti <= tj
+// when mirror != 0. Counts row r holds genome row0 + r. Warpgroups 0-1
+// consume (64 tile rows each), warpgroup 2 produces.
 template <int L>
 __global__ void __launch_bounds__(THREADS, 1)
 count_kernel(const __grid_constant__ CUtensorMap occ_map,
@@ -281,7 +293,8 @@ count_kernel(const __grid_constant__ CUtensorMap occ_map,
              const uint8_t* __restrict__ wbytes,
              const int32_t* __restrict__ kb_limbs,
              const int4* __restrict__ work, int32_t* __restrict__ counts,
-             int n, int atomic, int from_coo, int tma_out) {
+             int n, int row0, int rows, int mirror, int atomic, int from_coo,
+             int tma_out) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;  // 128-byte swizzle atoms
@@ -293,6 +306,7 @@ count_kernel(const __grid_constant__ CUtensorMap occ_map,
   const int4 item = work[blockIdx.x];
   const int i0 = item.x * TILE, j0 = item.y * TILE;
   const bool diag = item.x == item.y;  // B is A: load one tile
+  const bool twice = mirror && !diag;  // also add the transpose at (j, i)
   const int kb_lo = item.z, kb_hi = item.w;
 
   if (threadIdx.x == 0) {
@@ -441,11 +455,11 @@ count_kernel(const __grid_constant__ CUtensorMap occ_map,
       return v;
     };
     if (tma_out) {
-      // Stage the tile, and its transpose off the diagonal, in the ring
-      // (idle now) and let TMA add them into counts in L2: coalesced,
-      // atomic per element (so split-K needs nothing more), clipped at n,
-      // and no read of counts by the SM. A diagonal tile is symmetric and
-      // is added whole.
+      // Stage the tile, and its transpose off the diagonal when mirrored,
+      // in the ring (idle now) and let TMA add them into counts in L2:
+      // coalesced, atomic per element (so split-K needs nothing more),
+      // clipped at n and at the window's rows, and no read of counts by the
+      // SM. A diagonal tile is symmetric and is added whole.
       named_sync_consumers();  // both warpgroups are done with the ring
       int32_t* d = reinterpret_cast<int32_t*>(smem);
       int32_t* m = d + TILE * TILE;
@@ -456,7 +470,7 @@ count_kernel(const __grid_constant__ CUtensorMap occ_map,
           const int r = row + 8 * h, c = 8 * c8 + 2 * t;
           const uint32_t v0 = value(c8, h, 0), v1 = value(c8, h, 1);
           *reinterpret_cast<int2*>(d + r * TILE + c) = make_int2(v0, v1);
-          if (!diag) {
+          if (twice) {
             m[c * TILE + r] = v0;
             m[(c + 1) * TILE + r] = v1;
           }
@@ -464,14 +478,15 @@ count_kernel(const __grid_constant__ CUtensorMap occ_map,
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       named_sync_consumers();
       if (threadIdx.x == 0) {
-        tma_reduce_add(&counts_map, base, j0, i0);
-        if (!diag) tma_reduce_add(&counts_map, base + TILE * TILE * 4, i0, j0);
+        tma_reduce_add(&counts_map, base, j0, i0 - row0);
+        if (twice) tma_reduce_add(&counts_map, base + TILE * TILE * 4, i0, j0);
         asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
         asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
       }
     } else {
       // Row stride not a multiple of 16 bytes (n % 4 != 0): add element by
-      // element, i < j at (i, j) and (j, i), i == j once.
+      // element; mirrored, i < j at (i, j) and (j, i) and i == j once, else
+      // each (i, j) of the window once.
       const bool at = atomic != 0;
 #pragma unroll
       for (int c8 = 0; c8 < TILE / 8; ++c8)
@@ -482,7 +497,13 @@ count_kernel(const __grid_constant__ CUtensorMap occ_map,
           for (int e = 0; e < 2; ++e) {
             const int j = j0 + 8 * c8 + 2 * t + e;
             const uint32_t v = value(c8, h, e);
-            if (v == 0 || i > j || j >= n) continue;
+            if (v == 0 || j >= n) continue;
+            if (!mirror) {
+              if ((unsigned)(i - row0) < (unsigned)rows)
+                add_count(counts + (int64_t)(i - row0) * n + j, v, at);
+              continue;
+            }
+            if (i > j) continue;
             add_count(counts + (int64_t)i * n + j, v, at);
             if (i < j) add_count(counts + (int64_t)j * n + i, v, at);
           }
@@ -548,23 +569,31 @@ struct CountArgs {
   const int32_t* work;
   int n_items;
   int32_t* counts;
-  int n, atomic, from_coo, tma_out;
+  int n, row0, rows, mirror, atomic, from_coo, tma_out;
 };
+
+// Devices whose count_kernel<L> takes SMEM_BYTES (an attribute is set per
+// device, and a process may launch on several).
+constexpr int MAX_DEVICES = 64;
 
 template <int L>
 int launch_count(const CountArgs& a, cudaStream_t s) {
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        count_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        SMEM_BYTES);
+  static bool configured[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (!configured[dev]) {
+    err = cudaFuncSetAttribute(count_kernel<L>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               SMEM_BYTES);
     if (err != cudaSuccess) return (int)err;
-    configured = true;
+    configured[dev] = true;
   }
   count_kernel<L><<<a.n_items, THREADS, SMEM_BYTES, s>>>(
       a.occ_map, a.counts_map, a.gids, a.offs, a.ng, a.wbytes, a.kb_limbs,
-      reinterpret_cast<const int4*>(a.work), a.counts, a.n, a.atomic,
-      a.from_coo, a.tma_out);
+      reinterpret_cast<const int4*>(a.work), a.counts, a.n, a.row0, a.rows,
+      a.mirror, a.atomic, a.from_coo, a.tma_out);
   return (int)cudaGetLastError();
 }
 
@@ -572,12 +601,15 @@ int launch_count(const CountArgs& a, cudaStream_t s) {
 
 extern "C" {
 
-// One pass: counts (n x n, int32) += occ^T diag(w) occ for the pass's ng
-// patterns, whose genome ids are gids[offs[r] .. offs[r+1]) (ids in [0, n)).
-// wbytes holds, for each of the nkb k-blocks, the 3 x 128 limb bytes of its
+// One pass: counts += occ^T diag(w) occ for the pass's ng patterns, whose
+// genome ids are gids[offs[r] .. offs[r+1]) (ids in [0, n)). counts (int32)
+// is the rows x n window of genome rows [row0, row0 + rows), row0 a multiple
+// of 128; with mirror != 0 it is the whole n x n (row0 = 0, rows = n). wbytes
+// holds, for each of the nkb k-blocks, the 3 x 128 limb bytes of its
 // patterns' weights (limb-major); kb_limbs the limb count of each k-block
-// (1..n_limbs); work the n_items (ti, tj, kb_lo, kb_hi) int32 quadruples,
-// which must cover each tile with ti <= tj and each k-block exactly once;
+// (1..n_limbs); work the n_items (ti, tj, kb_lo, kb_hi) int32 quadruples, no
+// (tile, k-block) twice: mirrored, tiles with ti <= tj (each added at (i, j)
+// and (j, i)), else tiles of the window's row band (each added once);
 // atomic != 0 when a tile has more than one item. With from_coo != 0 the
 // kernel builds its tiles' occupancy from the COO and occT is not used (may
 // be null); otherwise occT is scratch of n x (nkb * 128) bytes, zeroed and
@@ -585,12 +617,13 @@ extern "C" {
 int k1_count_chunk(const int32_t* gids, const int32_t* offs, int ng,
                    const uint8_t* wbytes, const int32_t* kb_limbs, int nkb,
                    const int32_t* work, int n_items, int atomic, int n_limbs,
-                   int from_coo, uint8_t* occT, int n, int32_t* counts,
-                   void* stream) {
+                   int from_coo, uint8_t* occT, int n, int row0, int rows,
+                   int mirror, int32_t* counts, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t ld = (int64_t)nkb * KB;
   if (ng < 1 || ng > ld || n < 1 || n_items < 1 || n_limbs < 1 ||
-      n_limbs > MAX_LIMBS)
+      n_limbs > MAX_LIMBS || row0 < 0 || row0 % TILE || rows < 1 ||
+      rows > n - row0 || (mirror && (row0 || rows != n)))
     return (int)cudaErrorInvalidValue;
   CountArgs a = {};
   a.gids = gids;
@@ -602,6 +635,9 @@ int k1_count_chunk(const int32_t* gids, const int32_t* offs, int ng,
   a.n_items = n_items;
   a.counts = counts;
   a.n = n;
+  a.row0 = row0;
+  a.rows = rows;
+  a.mirror = mirror;
   a.atomic = atomic;
   a.from_coo = from_coo;
   // TMA needs rows a multiple of 16 bytes apart.
@@ -609,7 +645,7 @@ int k1_count_chunk(const int32_t* gids, const int32_t* offs, int ng,
   int rc;
   if (a.tma_out &&
       (rc = encode_map(&a.counts_map, CU_TENSOR_MAP_DATA_TYPE_INT32, counts, n,
-                       n, (uint64_t)n * 4, TILE, TILE,
+                       rows, (uint64_t)n * 4, TILE, TILE,
                        CU_TENSOR_MAP_SWIZZLE_NONE)))
     return rc;
   if (!a.from_coo) {

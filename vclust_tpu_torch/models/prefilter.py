@@ -13,7 +13,9 @@ is counted block by block through the persisted batch store, so device
 memory holds one (batch x batch) block instead of the dense (n x n) matrix.
 Results are identical by construction since counting is over the same
 merged sets either way. Device work runs on `device` (default cuda, see
-utils/device); backend='host' counts on the host and needs no device.
+utils/device), or, when more than one card is visible, over a mesh of all
+of them (parallel/mesh.py:auto_mesh), as the JAX package's stage does;
+backend='host' counts on the host and needs no device.
 """
 
 from concurrent.futures import ThreadPoolExecutor
@@ -65,7 +67,7 @@ def _block_entries(block, sim, lo, hi, min_kmers, min_ident):
 
 
 def _batched_entries(genomes, kmer_sets, sizes, k, bsz, min_kmers,
-                     min_ident, device):
+                     min_ident, device, mesh=None):
     """Out-of-core blockwise counting through the persisted batch store
     (the kmer-db `--batch-size`/`all2all-parts` analog, reference
     vclust.py:1404-1462): per-batch artifacts on disk, one (batch_i,
@@ -87,7 +89,8 @@ def _batched_entries(genomes, kmer_sets, sizes, k, bsz, min_kmers,
             off_i, n_i = store.batches[i]
             for j in range(i, nb):
                 off_j, n_j = store.batches[j]
-                ro, co, block = store.pair_block(i, j, device=device)
+                ro, co, block = store.pair_block(i, j, device=device,
+                                                 mesh=mesh)
                 col_sizes = sizes[co:co + block.shape[1]]
                 row_sizes = sizes[ro:ro + block.shape[0]]
                 sim = _ani(block, col_sizes, k, row_sizes=row_sizes)
@@ -115,9 +118,19 @@ def run_prefilter(
     backend: str = 'auto',
     num_threads: Optional[int] = None,
     device=None,
+    mesh=None,
 ) -> FilterMatrix:
+    """The prefilter stage over `genomes`. Counts on `device`, or over
+    `mesh` (parallel/mesh.py); on CUDA the default mesh is every visible
+    card when there are several (`auto_mesh`)."""
     logger = get_logger()
-    device = resolve_device(device) if backend != 'host' else None
+    if backend == 'host':
+        device = mesh = None
+    elif mesh is None:
+        device = resolve_device(device)
+        if device.type == 'cuda':
+            from ..parallel.mesh import auto_mesh
+            mesh = auto_mesh()
     names = [g.name for g in genomes]
     n = len(genomes)
     logger.info(f'Building canonical {k}-mer sets for {n} genomes')
@@ -125,18 +138,21 @@ def run_prefilter(
     sizes = np.array([len(s) for s in kmer_sets], dtype=np.int64)
     logger.info('Counting shared k-mers (occupancy matmul)')
 
+    if mesh is not None:
+        logger.info(f'Counting over a {len(mesh.devices)}-device mesh')
     use_batches = (backend != 'host'
                    and (batch_size > 0 or n > _AUTO_PANEL_THRESHOLD))
     all_i, all_j, all_v = [], [], []
     if use_batches:
         bsz = batch_size if batch_size > 0 else _AUTO_PANEL
         for ri, cj, v in _batched_entries(genomes, kmer_sets, sizes, k, bsz,
-                                          min_kmers, min_ident, device):
+                                          min_kmers, min_ident, device, mesh):
             all_i.append(ri)
             all_j.append(cj)
             all_v.append(v)
     else:
-        counts = shared_kmer_counts(kmer_sets, backend=backend, device=device)
+        counts = shared_kmer_counts(kmer_sets, backend=backend, device=device,
+                                    mesh=mesh)
         sim = ani_shorter(counts, sizes, k)
         ri, cj, v = _block_entries(counts, sim, 0, n, min_kmers, min_ident)
         all_i.append(ri)

@@ -48,7 +48,11 @@ on live device bytes (`_dispatch_rows`, `_dispatch_rows_v2`).
 tensors take `stage1_pack_plain` / `band_counts_plain`, CUDA tensors
 launch the kernel or raise. Each wrapper's `launches` counts its kernel
 launches. Entry points: `all2all_gpu` and `_all2all_single`, on `cuda`
-unless the caller asks for the CPU (utils/device.py).
+unless the caller asks for the CPU (utils/device.py), or over a mesh
+(parallel/mesh.py): each dispatch's rows are cut into one contiguous slice
+a shard, each slice runs on its shard's device against a copy of the
+arena there, and the results are joined in shard order (over the
+processes too), as the JAX package's sharded group runs do.
 """
 
 import os
@@ -758,11 +762,12 @@ def stage1_pack(qocc, rocc, r_rows, q_rows):
     outs = torch.zeros((3, R, K, M2 // 2), dtype=torch.int32, device=dev)
     if R * K and M2 and NRB:
         lib = cuda.library('align_v3', cuda.ALIGN_V3_SIGNATURES)
-        rc = lib.k2_stage1(cuda.ptr(qocc), cuda.ptr(rocc), cuda.ptr(r_rows),
-                           cuda.ptr(q_rows), R * K, K, qocc.shape[0],
-                           rocc.shape[0], M2, NRB, H,
-                           cuda.ptr(outs[0]), cuda.ptr(outs[1]),
-                           cuda.ptr(outs[2]), cuda.stream(qocc))
+        with torch.cuda.device(dev):
+            rc = lib.k2_stage1(cuda.ptr(qocc), cuda.ptr(rocc),
+                               cuda.ptr(r_rows), cuda.ptr(q_rows), R * K, K,
+                               qocc.shape[0], rocc.shape[0], M2, NRB, H,
+                               cuda.ptr(outs[0]), cuda.ptr(outs[1]),
+                               cuda.ptr(outs[2]), cuda.stream(qocc))
         cuda.check(lib, rc, 'k2_stage1')
         stage1_pack.launches += 1
     return outs[0], outs[1], outs[2]
@@ -836,8 +841,9 @@ def band_counts(wins, qb):
     bb = torch.empty(n, dtype=torch.int32, device=dev)
     if n:
         lib = cuda.library('align_v3', cuda.ALIGN_V3_SIGNATURES)
-        rc = lib.k3_bands(cuda.ptr(wins), cuda.ptr(qb), n, win,
-                          cuda.ptr(cnt), cuda.ptr(bb), cuda.stream(wins))
+        with torch.cuda.device(dev):
+            rc = lib.k3_bands(cuda.ptr(wins), cuda.ptr(qb), n, win,
+                              cuda.ptr(cnt), cuda.ptr(bb), cuda.stream(wins))
         cuda.check(lib, rc, 'k3_bands')
         band_counts.launches += 1
     return cnt, bb
@@ -1335,7 +1341,7 @@ def _all2all_single(codes_list: Sequence[np.ndarray], pairs: np.ndarray,
                     index: Optional[GenomeIndex] = None,
                     keep_alignments: bool = False,
                     seeds_per_block: Optional[int] = None, pipe: str = 'v2',
-                    device=None):
+                    device=None, mesh=None):
     """All-vs-all aggregates on the device for unordered candidate `pairs`
     over ids-ordered genomes: the JAX package's `_all2all_single` on one
     device. pipe='v3' runs the v3 pipe on every bucket up to V3_MAX_BUCKET
@@ -1350,14 +1356,20 @@ def _all2all_single(codes_list: Sequence[np.ndarray], pairs: np.ndarray,
     (q=j, r=i) first. Segments past the per-pair cap (MAXSEG) are dropped
     from the rows, with a warning (aggregates stay exact).
 
-    Runs on `index.device`, else `device` (default cuda). Raises for
-    genomes longer than MAX_TPU_LEN."""
+    Runs on `index.device`, else `device` (default cuda), or with `mesh`
+    over its shards: a dispatch's rows B come from the budget rounded down
+    to a multiple of the shard count, and are cut into one slice a shard
+    (parallel/distributed.py:shard_rows); the arena, built on the index's
+    device, is copied once to each other device of the mesh. Results do not
+    depend on B or on the cut. Raises for genomes longer than
+    MAX_TPU_LEN."""
     if pipe not in ('v2', 'v3'):
         raise ValueError(f'pipe={pipe!r}: expected v2 or v3')
     params = params or AlignParams()
     C = SEEDS_PER_BLOCK if seeds_per_block is None else seeds_per_block
     mqd, mrd, reg = params.mqd, params.mrd, params.reg
-    idx = index or GenomeIndex(codes_list, device=device)
+    idx = index or GenomeIndex(
+        codes_list, device=device if mesh is None else mesh.devices[0])
     lens = idx.lens
     pairs = np.asarray(pairs, dtype=np.int32).reshape(-1, 2)
 
@@ -1420,33 +1432,61 @@ def _all2all_single(codes_list: Sequence[np.ndarray], pairs: np.ndarray,
                 t_col.append(col_)
         tmap = tuple(np.asarray(x, np.int64) for x in (t_w, t_i_, t_prow,
                                                         t_col))
-        dev = b['fwd'].device
         static = dict(Lq=kb, Lr=kb, K=K, mqd=mqd, mrd=mrd, reg=reg,
                       with_alns=keep_alignments)
         if use_v3:
             B = _dispatch_rows(kb, K, idx.device, keep_alignments)
         else:
             B = _dispatch_rows_v2(kb, K, keep_alignments)
-        results = []
-        for lo in range(0, n, B):
-            rr, rl, qr = (torch.from_numpy(a[lo:lo + B]).to(dev)
-                          for a in (r_rows, rlens, q_rows))
+
+        def run(b, rr, rl, qr, ql):
             if use_v3:
-                results.append(_row_core_v3(b, rr, rl, qr, V3_TBAND, V3_SMIN,
-                                            **static))
-            else:
-                ql = torch.from_numpy(qlens[lo:lo + B]).to(dev)
-                results.append(_row_core(b, rr, rl, qr, ql, C=C, **static))
+                return _row_core_v3(b, rr, rl, qr, V3_TBAND, V3_SMIN,
+                                    **static)
+            return _row_core(b, rr, rl, qr, ql, C=C, **static)
+
+        results = []   # (first row, shard, device results), in that order
+        if mesh is None:
+            dev = b['fwd'].device
+            for lo in range(0, n, B):
+                results.append((lo, 0, run(b, *(
+                    torch.from_numpy(a[lo:lo + B]).to(dev)
+                    for a in (r_rows, rlens, q_rows, qlens)))))
+        else:
+            from ..parallel.distributed import replicate, shard_rows
+            from ..parallel.mesh import local_shards
+            shards, n_shards = local_shards(mesh)
+            B = max(B // n_shards, 1) * n_shards
+            arrays = {k: replicate(mesh, v) for k, v in b.items()
+                      if torch.is_tensor(v)}
+            on = {d: dict(b, **{k: v[d] for k, v in arrays.items()})
+                  for d in dict.fromkeys(mesh.devices)}
+            for lo in range(0, n, B):
+                cut = [shard_rows(mesh, a[lo:lo + B])
+                       for a in (r_rows, rlens, q_rows, qlens)]
+                for i, (s, d) in enumerate(shards):
+                    if len(cut[0][i]):
+                        results.append((lo, s, run(on[d], *(
+                            c[i] for c in cut))))
         pending.append((results, tmap, _maxseg(kb, reg)))
+    if mesh is not None:
+        # Host copies of this process's slices, joined with every other
+        # process's in dispatch and shard order.
+        from ..parallel.distributed import gather
+        host = [[(lo, s, _to_host(r)) for lo, s, r in results]
+                for results, _, _ in pending]
+        everyone = gather(mesh, host)
+        pending = [(sorted((x for h in everyone for x in h[w]),
+                           key=lambda x: x[:2]), tmap, maxseg)
+                   for w, (_, tmap, maxseg) in enumerate(pending)]
     task_alns = {}   # (prow, col) -> (n, 6) int32 records
     saturated = []   # pairs whose records overflowed the cap (MAXSEG)
     for results, tmap, maxseg in pending:   # transfers post-dispatch
+        res = [_to_host(r) for _, _, r in results]
         if keep_alignments:
-            flat = np.concatenate([r[0].cpu().numpy() for r in results])
-            recs = np.concatenate([r[1].cpu().numpy() for r in results])
-            nrec = np.concatenate([r[2].cpu().numpy() for r in results])
+            flat, recs, nrec = (np.concatenate(x) for x in zip(*res))
         else:
-            flat = np.concatenate([r.cpu().numpy() for r in results])
+            flat = np.concatenate(res)
         t_w, t_i_, t_prow, t_col = tmap
         out.reshape(-1, 2, 3)[t_prow, t_col // 3] = flat[t_w, t_i_]
         if keep_alignments:
@@ -1473,6 +1513,14 @@ def _all2all_single(codes_list: Sequence[np.ndarray], pairs: np.ndarray,
     return out, (np.concatenate(blocks) if blocks else empty, counts)
 
 
+def _to_host(r):
+    """A dispatch's results (a tensor, or a tuple of them with records) as
+    numpy arrays; host arrays pass through."""
+    if isinstance(r, tuple):
+        return tuple(_to_host(x) for x in r)
+    return r.cpu().numpy() if torch.is_tensor(r) else r
+
+
 def _merge_records(recs_all, recs_sub, rerun):
     """The records of every directed task, taking those of the pairs
     `rerun` (bool, one a pair) from recs_sub (their own run) and the rest
@@ -1497,7 +1545,7 @@ def _merge_records(recs_all, recs_sub, rerun):
 def all2all_gpu(codes_list: Sequence[np.ndarray], pairs: np.ndarray,
                 params: Optional[AlignParams] = None,
                 index: Optional[GenomeIndex] = None,
-                keep_alignments: bool = False, device=None):
+                keep_alignments: bool = False, device=None, mesh=None):
     """The device align engine's all-vs-all, the JAX package's
     `all2all_tpu` on one device; output as `_all2all_single`'s.
 
@@ -1511,15 +1559,22 @@ def all2all_gpu(codes_list: Sequence[np.ndarray], pairs: np.ndarray,
     tANI < RERUN_HI aligned again at SEEDS_PER_BLOCK (so aggregates
     outside that band can differ with and without records, as in the JAX
     package). A fixed sampling density is `_all2all_single`'s
-    seeds_per_block."""
-    idx = index or GenomeIndex(codes_list, device=device)
+    seeds_per_block. With `mesh`, every `_all2all_single` call runs over
+    it."""
+    idx = index or GenomeIndex(
+        codes_list, device=device if mesh is None else mesh.devices[0])
     pairs = np.asarray(pairs, dtype=np.int32).reshape(-1, 2)
     pipe = os.environ.get('VCLUST_ALIGN_PIPE', 'v3')
     if pipe not in ('v2', 'v3'):
         raise ValueError(f'VCLUST_ALIGN_PIPE={pipe!r}: expected v2 or v3')
 
+    # `mesh` only when there is one: the calls keep _all2all_single's
+    # positional form otherwise.
+    over = {} if mesh is None else {'mesh': mesh}
+
     def run(p, C, keep, pipe_='v2'):
-        return _all2all_single(codes_list, p, params, idx, keep, C, pipe_)
+        return _all2all_single(codes_list, p, params, idx, keep, C, pipe_,
+                               **over)
 
     if pipe == 'v3':
         res = run(pairs, SEEDS_PER_BLOCK, keep_alignments, 'v3')

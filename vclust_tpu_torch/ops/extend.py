@@ -224,9 +224,11 @@ def extend(q, r, qi, ri, nq: int, nr: int, aw: int = 15, am: int = 7,
     # Launch A's list of jobs left for B, and two counters.
     scratch = torch.empty(2 * n + 2, dtype=torch.int32, device=dev)
     lib = cuda.library('extend', _SIGNATURES)
-    rc = lib.kx_extend(cuda.ptr(q), cuda.ptr(r), cuda.ptr(qi), cuda.ptr(ri),
-                       n, nq, nr, aw, am, ar, cuda.ptr(out_len),
-                       cuda.ptr(out_match), cuda.ptr(scratch), cuda.stream(q))
+    with torch.cuda.device(dev):
+        rc = lib.kx_extend(cuda.ptr(q), cuda.ptr(r), cuda.ptr(qi),
+                           cuda.ptr(ri), n, nq, nr, aw, am, ar,
+                           cuda.ptr(out_len), cuda.ptr(out_match),
+                           cuda.ptr(scratch), cuda.stream(q))
     cuda.check(lib, rc, 'kx_extend')
     extend.launches += LAUNCHES_PER_CALL
     return out_len, out_match

@@ -1,8 +1,8 @@
 """Shared-k-mer counting as an exact weighted occupancy count on the device.
 
-The port of the JAX package's ops/prefilter.py on one device (no mesh).
-The host builds kmer-db's pattern-compressed incidence index (reference
-contract vclust.py:915-1055; SURVEY.md section 2.4): per distinct genome
+The port of the JAX package's ops/prefilter.py. The host builds kmer-db's
+pattern-compressed incidence index (reference contract
+vclust.py:915-1055; SURVEY.md section 2.4): per distinct genome
 set ("pattern") of the k-mers shared by >= 2 genomes, its genome ids and
 its multiplicity weight. The device turns it into exact pair counts,
 pass by pass, with kernel K1 (csrc/occupancy.cu):
@@ -20,6 +20,14 @@ count of each k-block, the list of tiles on or above the diagonal, split
 along k when they are fewer than the SMs, and whether the kernel builds
 the occupancy from the COO.
 
+The same kernel serves the unweighted counts (`shared_kmer_counts_device`:
+every k-mer group of >= 2 genomes at weight 1, one limb), the row panels
+(`shared_kmer_counts_panels`: an output window of (panel x n) rows, each
+tile of the row band added once) and a mesh (`shared_kmer_counts_indexed`
+with `mesh`: each pass's work list cut among the mesh's shards, each
+shard's sum in a counts of its own on its device, the sums added on the
+host and across processes; parallel/mesh.py).
+
 `occupancy_count` is K1's wrapper: CPU tensors take
 `occupancy_count_plain` (the scatter and a float64 product, exact for
 integers below 2^53), CUDA tensors launch the kernel or raise.
@@ -28,7 +36,7 @@ integers below 2^53), CUDA tensors launch the kernel or raise.
 
 import ctypes
 import pathlib
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -61,7 +69,7 @@ _K1_PASS_BYTES = 3 << 29
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     'k1_count_chunk': [_P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _P, _I,
-                       _P, _P],
+                       _I, _I, _I, _P, _P],
 }
 
 
@@ -279,8 +287,9 @@ class BatchIndexStore:
             out.append(np.load(self.dir / f'batch{b:05d}.sizes.npy'))
         return np.concatenate(out) if out else np.empty(0, np.int64)
 
-    def pair_block(self, i: int, j: int, device=None):
-        """Exact shared-k-mer counts between batches i and j (i <= j).
+    def pair_block(self, i: int, j: int, device=None, mesh=None):
+        """Exact shared-k-mer counts between batches i and j (i <= j), on
+        `device` or over `mesh`.
 
         Returns (rows_offset, cols_offset, counts) where counts is the
         (n_i, n_j) int64 block (full square block for i == j).
@@ -290,7 +299,7 @@ class BatchIndexStore:
         if i == j:
             local = gi - off_i
             idx = PrefilterIndex.from_coo(np.asarray(ki), local, szi)
-            counts = shared_kmer_counts_indexed(idx, device=device)
+            counts = shared_kmer_counts_indexed(idx, device=device, mesh=mesh)
             return off_i, off_i, counts
         kj, gj, szj = self._load(j)
         off_j, n_j = self.batches[j]
@@ -301,30 +310,64 @@ class BatchIndexStore:
         ks, gs = ks[order], gs[order]
         sizes = np.concatenate([szi, szj])
         idx = PrefilterIndex.from_coo(ks, gs, sizes)
-        counts = shared_kmer_counts_indexed(idx, device=device)
+        counts = shared_kmer_counts_indexed(idx, device=device, mesh=mesh)
         return off_i, off_j, counts[:n_i, n_i:]
 
 
-def occupancy_count_plain(counts, gids, offs, weights, n_limbs=None):
+def occupancy_count_plain(counts, gids, offs, weights, n_limbs=None,
+                          row0=0):
     """Plain torch version of K1 on any device: scatter the chunk's {0,1}
     (patterns x genomes) occupancy and add occ^T (w occ) in float64, which
-    is exact for integer sums below 2^53. Updates counts in place."""
-    n = counts.shape[0]
+    is exact for integer sums below 2^53. counts is the (rows, n) window of
+    genome rows [row0, row0 + rows) (the whole n x n at row0 = 0). Updates
+    counts in place."""
+    rows, n = counts.shape
+    occ, w_occ = _plain_operands(n, gids, offs, weights, counts.device)
+    prod = occ[:, row0:row0 + rows].T @ w_occ
+    counts += torch.round(prod).to(counts.dtype)
+    return counts
+
+
+def _plain_operands(n, gids, offs, weights, device):
+    """The float64 occupancy (patterns x n) and its rows times the weights."""
     ng = offs.numel() - 1
     sizes = (offs[1:] - offs[:-1]).long()
-    rows = torch.repeat_interleave(
-        torch.arange(ng, device=counts.device), sizes)
-    occ = torch.zeros((ng, n), dtype=torch.float64, device=counts.device)
+    rows = torch.repeat_interleave(torch.arange(ng, device=device), sizes)
+    occ = torch.zeros((ng, n), dtype=torch.float64, device=device)
     occ[rows, gids.long()] = 1.0
-    prod = occ.T @ (occ * weights.to(torch.float64)[:, None])
-    counts += torch.round(prod).to(counts.dtype)
+    return occ, occ * weights.to(torch.float64)[:, None]
+
+
+def _count_work_plain(counts, chunk: 'K1Chunk'):
+    """The plain version of a pass whose work list holds only some of its
+    tiles or k-blocks (a mesh shard's part): for each k range of the list,
+    the product over its patterns, added on the tiles that take that range
+    (and their transposes, mirrored). Updates counts in place."""
+    rows, n = counts.shape
+    row0 = chunk.window[0] if chunk.window else 0
+    ng = chunk.weights.numel()
+    occ, w_occ = _plain_operands(n, chunk.gids, chunk.offs, chunk.weights,
+                                 counts.device)
+    work = chunk.work.cpu().numpy()
+    nt = -(-n // K1_TILE)
+    for lo, hi in np.unique(work[:, 2:], axis=0):
+        sel = work[(work[:, 2] == lo) & (work[:, 3] == hi)]
+        tiles = torch.zeros((nt, nt), dtype=torch.bool)
+        tiles[sel[:, 0], sel[:, 1]] = True
+        if chunk.window is None:
+            tiles[sel[:, 1], sel[:, 0]] = True
+        mask = tiles.repeat_interleave(K1_TILE, 0).repeat_interleave(
+            K1_TILE, 1)[row0:row0 + rows, :n].to(counts.device)
+        p = slice(lo * K1_KBLOCK, min(hi * K1_KBLOCK, ng))
+        prod = occ[p, row0:row0 + rows].T @ w_occ[p]
+        counts += torch.round(prod * mask).to(counts.dtype)
     return counts
 
 
 class K1Chunk(NamedTuple):
     """One K1 pass: the COO of a run of consecutive chunks, each chunk's
     patterns in weight-byte order, and the host's plan for it."""
-    n: int                  # genomes: counts is n x n
+    n: int                  # genomes: counts is n x n, or window[1] x n
     parts: tuple            # patterns of each chunk in the pass, in order
     gids: torch.Tensor      # int32 genome ids of the ng patterns
     offs: torch.Tensor      # int32 (ng + 1) offsets of the patterns in gids
@@ -333,17 +376,38 @@ class K1Chunk(NamedTuple):
     kb_limbs: torch.Tensor  # int32 (nkb): limb count of each k-block
     work: torch.Tensor      # int32 (items, 4): (ti, tj, kb_lo, kb_hi)
     n_limbs: int            # the largest of kb_limbs
-    split: int              # k ranges a tile (1: no split-K)
+    split: int              # most work items of one tile (1: no split-K)
     from_coo: bool          # occupancy built from the COO (`k1_from_coo`)
+    # None: counts is n x n, tiles ti <= tj added at (i, j) and (j, i).
+    # (row0, rows): counts is the rows x n window of genome rows [row0,
+    # row0 + rows), row0 a multiple of 128, tiles of its row band added once.
+    window: Optional[tuple] = None
+
+
+def _work_is_whole(chunk: K1Chunk) -> bool:
+    """Whether the work list covers every tile of its counts (the upper
+    tiles, or the window's row band) at every k-block. Lists are valid (no
+    (tile, k-block) twice), so the covered count tells."""
+    work = chunk.work.cpu().numpy()
+    nt = -(-chunk.n // K1_TILE)
+    if chunk.window is None:
+        tiles = nt * (nt + 1) // 2
+    else:
+        row0, rows = chunk.window
+        tiles = (-(-(row0 + rows) // K1_TILE) - row0 // K1_TILE) * nt
+    return int((work[:, 3] - work[:, 2]).sum()) == tiles * \
+        chunk.kb_limbs.numel()
 
 
 def occupancy_count(counts, chunk: K1Chunk):
     """K1 wrapper, one pass: counts (n, n) int32 += occ^T diag(w) occ for
     the pass's patterns r, whose genome ids are gids[offs[r]:offs[r+1]]
-    (ids in [0, n); offs starting at 0). The pass comes from
-    `device_chunks`. CPU tensors take the plain version, one chunk at a
-    time (as the JAX package bounds its memory), CUDA tensors the kernel
-    (or raise). Updates counts in place."""
+    (ids in [0, n); offs starting at 0), or the (rows, n) rows of it that
+    the pass's window holds. The pass comes from `device_chunks` (or
+    `k1_passes`), its work list whole or a mesh shard's part. CPU tensors
+    take the plain version, one chunk at a time (as the JAX package bounds
+    its memory), CUDA tensors the kernel (or raise). Updates counts in
+    place."""
     dev = counts.device
     cuda.require(counts, 'counts', torch.int32, 2, dev)
     for name, dtype, ndim in (('gids', torch.int32, 1),
@@ -353,12 +417,16 @@ def occupancy_count(counts, chunk: K1Chunk):
                               ('kb_limbs', torch.int32, 1),
                               ('work', torch.int32, 2)):
         cuda.require(getattr(chunk, name), name, dtype, ndim, dev)
-    n = counts.shape[0]
+    n = chunk.n
+    row0, rows = chunk.window or (0, n)
     ng = chunk.offs.numel() - 1
     nkb = -(-ng // K1_KBLOCK)
-    if counts.shape != (n, n) or n != chunk.n:
-        raise ValueError(f'counts must be {chunk.n} x {chunk.n}, got '
+    if counts.shape != (rows, n):
+        raise ValueError(f'counts must be {rows} x {n}, got '
                          f'{tuple(counts.shape)}')
+    if row0 % K1_TILE or row0 < 0 or rows < 1 or row0 + rows > n:
+        raise ValueError(f'window rows [{row0}, {row0 + rows}) must start '
+                         f'at a multiple of {K1_TILE} and lie in [0, {n})')
     if chunk.weights.numel() != ng or ng < 1:
         raise ValueError('weights must hold one entry per pattern (>= 1)')
     if (chunk.kb_limbs.numel() != nkb
@@ -369,12 +437,14 @@ def occupancy_count(counts, chunk: K1Chunk):
     if not 1 <= chunk.n_limbs <= 3:
         raise ValueError(f'n_limbs must be 1..3, got {chunk.n_limbs}')
     if dev.type == 'cpu':
+        if not _work_is_whole(chunk):
+            return _count_work_plain(counts, chunk)
         lo = 0
         for part in chunk.parts:
             offs = chunk.offs[lo:lo + part + 1]
             occupancy_count_plain(counts, chunk.gids[offs[0]:offs[-1]],
                                   offs - offs[0],
-                                  chunk.weights[lo:lo + part])
+                                  chunk.weights[lo:lo + part], row0=row0)
             lo += part
         return counts
     if dev.type != 'cuda':
@@ -383,12 +453,14 @@ def occupancy_count(counts, chunk: K1Chunk):
     occ = (None if chunk.from_coo else
            torch.empty((n, nkb * K1_KBLOCK), dtype=torch.uint8, device=dev))
     lib = cuda.library('occupancy', _SIGNATURES)
-    rc = lib.k1_count_chunk(
-        cuda.ptr(chunk.gids), cuda.ptr(chunk.offs), ng, cuda.ptr(chunk.wbytes),
-        cuda.ptr(chunk.kb_limbs), nkb, cuda.ptr(chunk.work),
-        chunk.work.shape[0], int(chunk.split > 1), chunk.n_limbs,
-        int(chunk.from_coo), None if occ is None else cuda.ptr(occ), n,
-        cuda.ptr(counts), cuda.stream(counts))
+    with torch.cuda.device(dev):
+        rc = lib.k1_count_chunk(
+            cuda.ptr(chunk.gids), cuda.ptr(chunk.offs), ng,
+            cuda.ptr(chunk.wbytes), cuda.ptr(chunk.kb_limbs), nkb,
+            cuda.ptr(chunk.work), chunk.work.shape[0], int(chunk.split > 1),
+            chunk.n_limbs, int(chunk.from_coo),
+            None if occ is None else cuda.ptr(occ), n, row0, rows,
+            int(chunk.window is None), cuda.ptr(counts), cuda.stream(counts))
     cuda.check(lib, rc, 'k1_count_chunk')
     occupancy_count.launches += 1
     return counts
@@ -447,6 +519,21 @@ def k1_tiles(n: int) -> np.ndarray:
     within a band, so that the tiles in flight at once share operands."""
     nt = -(-n // K1_TILE)
     ti, tj = np.triu_indices(nt)
+    return _band_order(ti, tj)
+
+
+def k1_panel_tiles(row0: int, rows: int, n: int) -> np.ndarray:
+    """K1's output tiles (ti, tj) of the (rows x n) window of genome rows
+    [row0, row0 + rows), row0 a multiple of 128: every tile of its row band,
+    in k1_tiles's band order."""
+    nt = -(-n // K1_TILE)
+    ti, tj = np.meshgrid(np.arange(row0 // K1_TILE,
+                                   -(-(row0 + rows) // K1_TILE)),
+                         np.arange(nt), indexing='ij')
+    return _band_order(ti.ravel(), tj.ravel())
+
+
+def _band_order(ti, tj) -> np.ndarray:
     order = np.lexsort((ti, tj, ti // _K1_BAND))
     return np.stack([ti[order], tj[order]], axis=1)
 
@@ -485,23 +572,38 @@ def k1_from_coo(work: np.ndarray, nnz: int) -> bool:
 
 
 def device_chunks(index: 'PrefilterIndex', device, rows_chunk: int = 131072,
-                  nnz_chunk: int = 524288):
-    """The index's chunks as K1 inputs on `device`: chunked as the JAX
-    package chunks it, each chunk's patterns reordered by the byte count of
-    their weight (integer sums do not depend on order), consecutive chunks
-    merged into passes (`_k1_passes`), each pass with K1's plan
-    (`k1_limb_plan`, `k1_work` for this device's SMs; for the CPU, an
-    H100's). Returns (n_limbs, [K1Chunk, ...]), one K1Chunk a pass, n_limbs
-    the index's largest weight byte count."""
-    device = torch.device(device)
+                  nnz_chunk: int = 524288, shards: int = 1):
+    """The index's chunks as K1 inputs on `device` (`k1_passes`), with the
+    JAX package's rows_chunk cap of its indexed count. Returns (n_limbs,
+    [K1Chunk, ...]), one K1Chunk a pass, n_limbs the index's largest weight
+    byte count."""
     n = index.n
-    sg, shared_lens, weights = index.gids, index.lens, index.weights
     rows_chunk = max(1024, min(rows_chunk, (1 << 28) // (4 * (n + 1))))
-    rows_chunk, nnz_chunk = _adapt_chunks(sg, shared_lens, n, rows_chunk,
-                                          nnz_chunk)
+    rows_chunk, nnz_chunk = _adapt_chunks(index.gids, index.lens, n,
+                                          rows_chunk, nnz_chunk)
+    return _n_limbs(index.weights), k1_passes(
+        n, index.gids, index.lens, index.weights, device, rows_chunk,
+        nnz_chunk, shards=shards)
+
+
+def k1_passes(n: int, sg, shared_lens, weights, device, rows_chunk: int,
+              nnz_chunk: int, window=None, shards: int = 1):
+    """K1 passes on `device` for the pattern COO (sg, shared_lens) of n
+    genomes and the patterns' weights: chunked as the JAX package chunks it
+    (`_chunk_groups`; rows_chunk and nnz_chunk already capped and fitted
+    to the data as the caller's JAX function does), each chunk's patterns
+    reordered by the byte count of their weight (integer sums do not
+    depend on order),
+    consecutive chunks merged into passes (`_k1_passes`), each pass with
+    K1's plan (`k1_limb_plan`, and `k1_work` for this device's SMs times
+    `shards`, the mesh shards that will share the list; for the CPU an
+    H100's). window: None for the n x n count, or (row0, rows) for the
+    rows x n window of genome rows [row0, row0 + rows) (`k1_panel_tiles`).
+    Returns [K1Chunk, ...], one a pass."""
+    device = torch.device(device)
     assert nnz_chunk >= n, 'nnz_chunk must be >= number of genomes'
     if not len(shared_lens):
-        return 1, []
+        return []
     assert weights.max(initial=0) < (1 << 24), 'pattern weight overflow'
     cum, chunks = _chunk_groups(shared_lens, rows_chunk, nnz_chunk)
     # Weight-byte order inside each chunk (chunks are contiguous, in order).
@@ -518,13 +620,13 @@ def device_chunks(index: 'PrefilterIndex', device, rows_chunk: int = 131072,
 
     n_sms = (torch.cuda.get_device_properties(device).multi_processor_count
              if device.type == 'cuda' else _H100_SMS)
-    tiles = k1_tiles(n)
+    tiles = k1_tiles(n) if window is None else k1_panel_tiles(*window, n)
     passes = [(p[0][0], p[-1][1], tuple(hi - lo for lo, hi in p))
               for p in _k1_passes(n, chunks)]
     plans = []
     for g_lo, g_hi, _ in passes:
         wbytes, kb_limbs = k1_limb_plan(weights[g_lo:g_hi])
-        work, split = k1_work(tiles, kb_limbs, n_sms)
+        work, split = k1_work(tiles, kb_limbs, n_sms * shards)
         plans.append((wbytes, kb_limbs, work, split,
                       k1_from_coo(work, int(cum[g_hi] - cum[g_lo]))))
 
@@ -547,9 +649,36 @@ def device_chunks(index: 'PrefilterIndex', device, rows_chunk: int = 131072,
             n, parts, gids_d[int(cum[g_lo]):int(cum[g_hi])],
             offs_d[o:o + ng + 1], w_d[g_lo:g_hi], wb_d[kb:kb + nkb],
             kbl_d[kb:kb + nkb], work_d[it:it + len(work)],
-            int(kb_limbs.max()), split, from_coo))
+            int(kb_limbs.max()), split, from_coo, window))
         o, kb, it = o + ng + 1, kb + nkb, it + len(work)
-    return _n_limbs(index.weights), out
+    return out
+
+
+def k1_split_work(work: np.ndarray, kb_limbs: np.ndarray, parts: int):
+    """K1's work list cut into `parts` contiguous runs of about equal limb
+    products (a run may be empty), one a mesh shard."""
+    cum = np.concatenate([[0], np.cumsum(kb_limbs, dtype=np.int64)])
+    prefix = np.concatenate([[0], np.cumsum(cum[work[:, 3]]
+                                            - cum[work[:, 2]])])
+    target = prefix[-1] * np.arange(1, parts) / parts
+    hi = np.searchsorted(prefix, target).clip(1, len(prefix) - 1)
+    cut = np.where(target - prefix[hi - 1] < prefix[hi] - target, hi - 1, hi)
+    bounds = np.concatenate([[0], np.maximum.accumulate(cut), [len(work)]])
+    return [work[lo:hi] for lo, hi in zip(bounds[:-1], bounds[1:])]
+
+
+def k1_shard(chunk: K1Chunk, work: np.ndarray, device) -> K1Chunk:
+    """A pass on `device` with the part `work` of its work list: split
+    counts the items of its most divided tile (atomic adds when above 1),
+    and the occupancy build is decided for this part."""
+    _, per_tile = np.unique(work[:, :2], axis=0, return_counts=True)
+    return chunk._replace(
+        **{f: getattr(chunk, f).to(device)
+           for f in ('gids', 'offs', 'weights', 'wbytes', 'kb_limbs')},
+        work=torch.from_numpy(np.ascontiguousarray(work, np.int32)).to(
+            device),
+        split=int(per_tile.max()),
+        from_coo=k1_from_coo(work, int(chunk.gids.numel())))
 
 
 def _k1_passes(n: int, chunks):
@@ -570,26 +699,135 @@ def shared_kmer_counts_indexed(index: 'PrefilterIndex',
                                rows_chunk: int = 131072,
                                nnz_chunk: int = 524288,
                                engine: str = 'auto',
-                               device=None) -> np.ndarray:
+                               device=None, mesh=None) -> np.ndarray:
     """Exact pair counts from a PrefilterIndex (the kmer-db all2all-sp
     analog) with K1, chunk by chunk, on `device` (default cuda, see
-    utils/device). engine='auto' answers corpora of <= 32 genomes on the
-    host, as the JAX package does; engine='device' always counts on the
-    device. Returns an int64 (n, n) matrix whose diagonal is the k-mer-set
-    sizes."""
-    dev = resolve_device(device)
+    utils/device), or over `mesh` (parallel/mesh.py): each pass's work list
+    is cut among the mesh's shards (`k1_split_work`), each shard adds its
+    part into an n x n counts of its own on its device, and the sums are
+    added on the host and over the mesh's processes (the tiles and k-blocks
+    of the shards are disjoint, so the sum is the count). engine='auto'
+    answers corpora of <= 32 genomes on the host without a mesh, as the JAX
+    package does; engine='device' always counts on the device. Returns an
+    int64 (n, n) matrix whose diagonal is the k-mer-set sizes."""
     n = index.n
     if n == 0:
         return np.zeros((0, 0), dtype=np.int64)
-    if engine == 'auto' and n <= _HOST_MAX_GENOMES:
-        return _counts_from_index_host(index)
-    _, chunks = device_chunks(index, dev, rows_chunk, nnz_chunk)
-    counts = torch.zeros((n, n), dtype=torch.int32, device=dev)
-    for chunk in chunks:
-        occupancy_count(counts, chunk)
-    out = counts.cpu().numpy().astype(np.int64)
+    if mesh is not None:
+        out = _counts_sharded(index, mesh, rows_chunk, nnz_chunk)
+    else:
+        dev = resolve_device(device)
+        if engine == 'auto' and n <= _HOST_MAX_GENOMES:
+            return _counts_from_index_host(index)
+        _, chunks = device_chunks(index, dev, rows_chunk, nnz_chunk)
+        counts = torch.zeros((n, n), dtype=torch.int32, device=dev)
+        for chunk in chunks:
+            occupancy_count(counts, chunk)
+        out = counts.cpu().numpy().astype(np.int64)
     np.fill_diagonal(out, index.sizes)
     return out
+
+
+def _counts_sharded(index, mesh, rows_chunk, nnz_chunk) -> np.ndarray:
+    """The off-diagonal counts of `index` over `mesh` (see
+    shared_kmer_counts_indexed): this process's shards' launches first,
+    then their sums."""
+    from ..parallel.distributed import reduce_sum
+    from ..parallel.mesh import local_shards
+    n = index.n
+    shards, n_shards = local_shards(mesh)
+    _, chunks = device_chunks(index, shards[0][1], rows_chunk, nnz_chunk,
+                              shards=n_shards)
+    parts = [k1_split_work(c.work.cpu().numpy(), c.kb_limbs.cpu().numpy(),
+                           n_shards) for c in chunks]
+    sums = []
+    for s, dev in shards:
+        counts = torch.zeros((n, n), dtype=torch.int32, device=dev)
+        for chunk, part in zip(chunks, parts):
+            if len(part[s]):
+                occupancy_count(counts, k1_shard(chunk, part[s], dev))
+        sums.append(counts)
+    out = np.zeros((n, n), np.int64)
+    for counts in sums:
+        out += counts.cpu().numpy()
+    return reduce_sum(mesh, out)
+
+
+def shared_kmer_counts_device(kmer_sets, rows_chunk: int = 131072,
+                              nnz_chunk: int = 524288,
+                              device=None) -> np.ndarray:
+    """Exact pairwise shared-k-mer counts for sorted distinct uint64 sets,
+    without the pattern index (the JAX package's unweighted
+    `shared_kmer_counts_device`): the host groups the (k-mer, genome)
+    incidence by k-mer and drops singleton groups (`_group_coo`), and K1
+    counts the groups at weight 1 on `device` (default cuda), chunked as
+    the JAX package chunks them. Returns an int64 (n, n) matrix whose
+    diagonal is the set sizes."""
+    dev = resolve_device(device)
+    n = len(kmer_sets)
+    if n == 0:
+        return np.zeros((0, 0), dtype=np.int64)
+    sizes = np.array([len(s) for s in kmer_sets], dtype=np.int64)
+    sg, shared_lens = _group_coo(kmer_sets)
+    # The JAX package caps the occupancy block (rows x (n + 1) bf16) at
+    # ~1 GiB.
+    rows_chunk = max(1024, min(rows_chunk, (1 << 30) // (2 * (n + 1))))
+    rows_chunk, nnz_chunk = _adapt_chunks(sg, shared_lens, n, rows_chunk,
+                                          nnz_chunk)
+    counts = torch.zeros((n, n), dtype=torch.int32, device=dev)
+    for chunk in k1_passes(n, sg, shared_lens,
+                           np.ones(len(shared_lens), np.int64), dev,
+                           rows_chunk, nnz_chunk):
+        occupancy_count(counts, chunk)
+    out = counts.cpu().numpy().astype(np.int64)
+    np.fill_diagonal(out, sizes)
+    return out
+
+
+def shared_kmer_counts_panels(kmer_sets, panel: int = 4096,
+                              rows_chunk: int = 131072,
+                              nnz_chunk: int = 524288, device=None):
+    """Stream the pair-count matrix in row panels of `panel` genomes (the
+    JAX package's `shared_kmer_counts_panels`, the out-of-core analog of
+    kmer-db's `--batch-size`/`all2all-parts`, reference vclust.py:1404-1462):
+    the device holds a (panel x n) block, never n x n. Each panel keeps the
+    k-mer groups with a member in it and counts them at weight 1 with K1 in
+    window mode on `device` (default cuda), over the panel's rows rounded
+    out to 128 (the window), then sliced.
+
+    Yields (lo, hi, counts_block) with counts_block int64 of shape
+    (hi-lo, n); diagonal entries are set to the genome's k-mer-set size."""
+    dev = resolve_device(device)
+    n = len(kmer_sets)
+    if n == 0:
+        return
+    sizes = np.array([len(s) for s in kmer_sets], dtype=np.int64)
+    sg, shared_lens = _group_coo(kmer_sets)
+    panel = min(panel, n)
+    rows_chunk = max(
+        1024, min(rows_chunk, (1 << 30) // (2 * (n + panel + 2))))
+    rows_chunk, nnz_chunk = _adapt_chunks(sg, shared_lens, n, rows_chunk,
+                                          nnz_chunk)
+    n_groups = len(shared_lens)
+    group_of_entry = np.repeat(np.arange(n_groups, dtype=np.int64),
+                               shared_lens)
+    for lo in range(0, n, panel):
+        hi = min(lo + panel, n)
+        row0 = lo // K1_TILE * K1_TILE
+        rows = min(-(-hi // K1_TILE) * K1_TILE, n) - row0
+        counts = torch.zeros((rows, n), dtype=torch.int32, device=dev)
+        # Keep only groups with >= 1 member in [lo, hi): others cannot
+        # touch this row panel.
+        touched = np.zeros(n_groups, dtype=bool)
+        touched[group_of_entry[(sg >= lo) & (sg < hi)]] = True
+        lens_sel = shared_lens[touched]
+        for chunk in k1_passes(n, sg[touched[group_of_entry]], lens_sel,
+                               np.ones(len(lens_sel), np.int64), dev,
+                               rows_chunk, nnz_chunk, window=(row0, rows)):
+            occupancy_count(counts, chunk)
+        block = counts[lo - row0:hi - row0].cpu().numpy().astype(np.int64)
+        block[np.arange(hi - lo), np.arange(lo, hi)] = sizes[lo:hi]
+        yield lo, hi, block
 
 
 def _adapt_chunks(sg, shared_lens, n, rows_chunk, nnz_chunk):
@@ -632,17 +870,19 @@ def shared_kmer_counts_host(kmer_sets) -> np.ndarray:
     return counts
 
 
-def shared_kmer_counts(kmer_sets, backend: str = 'auto',
-                       device=None) -> np.ndarray:
+def shared_kmer_counts(kmer_sets, backend: str = 'auto', device=None,
+                       mesh=None) -> np.ndarray:
     """Pair counts of per-genome sorted k-mer sets. backend='host' is the
     sort-merge on the host; 'auto' takes it too for <= 32 genomes, as the
-    JAX package does, and otherwise counts on `device` with K1."""
+    JAX package does, and otherwise counts with K1 on `device`, or over
+    `mesh`."""
     if backend == 'host':
         return shared_kmer_counts_host(kmer_sets)
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else None
     if backend == 'auto' and len(kmer_sets) <= _HOST_MAX_GENOMES:
         return shared_kmer_counts_host(kmer_sets)
-    return shared_kmer_counts_indexed(PrefilterIndex(kmer_sets), device=dev)
+    return shared_kmer_counts_indexed(PrefilterIndex(kmer_sets), device=dev,
+                                      mesh=mesh)
 
 
 def ani_shorter(counts: np.ndarray, sizes: np.ndarray, k: int,
