@@ -1555,16 +1555,11 @@ def phase_align_v2(torch, dev, seed):
 # Phase 10: the mesh paths
 # --------------------------------------------------------------------------
 
-def k1_window_case(torch, dev, index, row0: int, rows: int) -> dict:
-    """K1 in window mode on `index`'s patterns, chunked as its square count
-    is: the (rows x n) window of genome rows [row0, row0 + rows), each
-    tile of the band added once; == plain, ms, plain ms and the bound."""
+def k1_passes_case(torch, dev, at: str, n: int, passes, window=None):
+    """K1 on `passes` (of n genomes; `window` (row0, rows) or the n x n
+    count) == plain, with its ms, the plain ms and the bound."""
     from vclust_tpu_torch.ops import prefilter as pf
-    n = index.n
-    rc = max(1024, min(131072, (1 << 28) // (4 * (n + 1))))
-    rc, nc = pf._adapt_chunks(index.gids, index.lens, n, rc, 524288)
-    passes = pf.k1_passes(n, index.gids, index.lens, index.weights, dev, rc,
-                          nc, window=(row0, rows))
+    row0, rows = window or (0, n)
     counts = torch.zeros((rows, n), dtype=torch.int32, device=dev)
 
     def run_kernel():
@@ -1584,25 +1579,46 @@ def k1_window_case(torch, dev, index, row0: int, rows: int) -> dict:
     torch.cuda.synchronize()
     err = int((counts.long() - plain.long()).abs().max())
     if err:
-        fail(f'K1 window ({row0}, {rows}): kernel != plain (max abs err '
-             f'{err})')
+        fail(f'K1 ({at}): kernel != plain (max abs err {err})')
     del plain
     ms = time_ms(run_kernel, 3)
     plain_ms = time_ms(run_plain, 1)
     patterns = sum(int(c.weights.numel()) for c in passes)
-    # Least bytes: the COO and weights read once, the window's counts read
-    # and written once; least operations: one u8 product of the patterns'
-    # occupancy rows of the band against all n genomes.
-    nbytes = 4 * (len(index.gids) + 2 * patterns + len(passes)) + \
-        8 * rows * n
+    nnz = sum(int(c.gids.numel()) for c in passes)
+    # Least bytes: the COO and weights read once, the counts read and
+    # written once; least operations: one u8 product of the patterns'
+    # occupancy rows of the counts' rows against all n genomes.
+    nbytes = 4 * (nnz + 2 * patterns + len(passes)) + 8 * rows * n
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = 2.0 * patterns * rows * n / INT8_TENSOR_OPS_PER_S * 1e3
-    return dict(at=f'window rows [{row0}, {row0 + rows}) x {n} genomes, '
-                   f'{patterns} patterns (case c)',
+    return dict(at=f'{at}: {rows} x {n} counts, {patterns} patterns',
                 passes=len(passes), items=sum(len(c.work) for c in passes),
                 split=sorted({c.split for c in passes}), max_abs_err=err,
                 ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
                 bound_by='bytes' if t_bytes >= t_ops else 'operations')
+
+
+def k1_split_ms(torch, dev, index, shards: int) -> float:
+    """The time of K1 over `shards` shards of one card, launches only: each
+    shard's part of each pass's work list into its own n x n counts (the
+    sums' trip to the host left out)."""
+    from vclust_tpu_torch.ops import prefilter as pf
+    n = index.n
+    _, chunks = pf.device_chunks(index, dev, shards=shards)
+    parts = [pf.k1_split_work(c.work.cpu().numpy(), c.kb_limbs.cpu().numpy(),
+                              shards) for c in chunks]
+    subs = [[pf.k1_shard(c, p[s], dev) for c, p in zip(chunks, parts)
+             if len(p[s])] for s in range(shards)]
+    sums = [torch.zeros((n, n), dtype=torch.int32, device=dev)
+            for _ in range(shards)]
+
+    def run():
+        for buf, sub in zip(sums, subs):
+            buf.zero_()
+            for c in sub:
+                pf.occupancy_count(buf, c)
+
+    return time_ms(run, 2)
 
 
 def run_workers(devices, shards: int, timeout: float = 300.0) -> list:
@@ -1698,8 +1714,20 @@ def phase_mesh(torch, dev, k1_inputs, k2_row, k3_row) -> dict:
             fail(f'mesh: panels of {panel} did not cover the rows with K1')
     res['panel_launches'] = window_launches
     del dense
-    window = k1_window_case(torch, dev, idx_c, 4096, 4096)
+    res['k1_unweighted'] = k1_passes_case(
+        torch, dev, 'unweighted, (a)\'s 1,536 sets', len(sets_a),
+        pf.unweighted_passes(sets_a, dev))
+    n_c = idx_c.n
+    rc = max(1024, min(131072, (1 << 28) // (4 * (n_c + 1))))
+    rc, nc = pf._adapt_chunks(idx_c.gids, idx_c.lens, n_c, rc, 524288)
+    panel = min(4096, n_c // 4 // pf.K1_TILE * pf.K1_TILE)   # 4,096 at c
+    window = k1_passes_case(
+        torch, dev, f'window rows [{panel}, {2 * panel}), case c', n_c,
+        pf.k1_passes(n_c, idx_c.gids, idx_c.lens, idx_c.weights, dev, rc, nc,
+                     window=(panel, panel)), window=(panel, panel))
     res['k1_window'] = window
+    res['k1_split_ms'] = {f'c_synthetic_16384 x {k} shards':
+                          k1_split_ms(torch, dev, idx_c, k) for k in (2, 3)}
 
     # The sharded device align engine on the 48 genomes.
     codes, pairs = align_inputs(mutant_corpus())

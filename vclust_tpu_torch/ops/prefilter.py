@@ -767,21 +767,27 @@ def shared_kmer_counts_device(kmer_sets, rows_chunk: int = 131072,
     n = len(kmer_sets)
     if n == 0:
         return np.zeros((0, 0), dtype=np.int64)
-    sizes = np.array([len(s) for s in kmer_sets], dtype=np.int64)
+    counts = torch.zeros((n, n), dtype=torch.int32, device=dev)
+    for chunk in unweighted_passes(kmer_sets, dev, rows_chunk, nnz_chunk):
+        occupancy_count(counts, chunk)
+    out = counts.cpu().numpy().astype(np.int64)
+    np.fill_diagonal(out, [len(s) for s in kmer_sets])
+    return out
+
+
+def unweighted_passes(kmer_sets, device, rows_chunk: int = 131072,
+                      nnz_chunk: int = 524288):
+    """`shared_kmer_counts_device`'s K1 passes on `device`: the k-mer
+    groups of >= 2 genomes (`_group_coo`) at weight 1, with the JAX
+    package's rows_chunk cap of that function (its occupancy block, rows x
+    (n + 1) bf16, at ~1 GiB)."""
+    n = len(kmer_sets)
     sg, shared_lens = _group_coo(kmer_sets)
-    # The JAX package caps the occupancy block (rows x (n + 1) bf16) at
-    # ~1 GiB.
     rows_chunk = max(1024, min(rows_chunk, (1 << 30) // (2 * (n + 1))))
     rows_chunk, nnz_chunk = _adapt_chunks(sg, shared_lens, n, rows_chunk,
                                           nnz_chunk)
-    counts = torch.zeros((n, n), dtype=torch.int32, device=dev)
-    for chunk in k1_passes(n, sg, shared_lens,
-                           np.ones(len(shared_lens), np.int64), dev,
-                           rows_chunk, nnz_chunk):
-        occupancy_count(counts, chunk)
-    out = counts.cpu().numpy().astype(np.int64)
-    np.fill_diagonal(out, sizes)
-    return out
+    return k1_passes(n, sg, shared_lens, np.ones(len(shared_lens), np.int64),
+                     device, rows_chunk, nnz_chunk)
 
 
 def shared_kmer_counts_panels(kmer_sets, panel: int = 4096,
