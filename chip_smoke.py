@@ -71,10 +71,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
               one card on k1 (a) and (c) == K1 unsharded; the unweighted
               count (`shared_kmer_counts_device`) of (a)'s 1,536 sets == the
               host count; its row panels of 512 and 300 genomes (K1 in
-              window mode) == the dense rows; K1's window mode alone at one
-              panel of 4,096 x 16,384 (case c's patterns) == plain, with
-              its ms, the plain ms and the bound; the sharded all2all_gpu
-              (2 shards) on the 48 genomes == the single device, records
+              window mode) == the dense rows; K1 on the unweighted count's
+              passes and K1's window mode alone at one panel of 4,096 x
+              16,384 (case c's patterns) == plain, each with its ms, the
+              plain ms, the bound and the time of a bf16 torch.matmul of
+              the same counts; the sharded all2all_gpu (2 shards, the
+              dispatches dealt to them) on the 48 genomes == the single
+              device, records
               included, with K2's and K3's launches and pairs/s beside the
               unsharded run; two processes on this card over gloo
               (`python -m vclust_tpu_torch.parallel.worker`) both print
@@ -507,32 +510,33 @@ def k1_case(torch, dev, name, index, host=None, per_chunk=False):
     rows = sum(int(c.weights.numel()) for c in passes)
     nbytes = 4 * (len(index.gids) + rows + len(passes) + rows) + 8 * n * n
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 2.0 * rows * n * n / INT8_TENSOR_OPS_PER_S * 1e3
+    t_ops = 2.0 * k1_least_products(rows, n, n) / INT8_TENSOR_OPS_PER_S * 1e3
     res.update(ms=ms, pairs_per_s=pairs / (ms / 1e3), plain_ms=plain_ms,
                bound_ms=max(t_bytes, t_ops),
                bound_by='bytes' if t_bytes >= t_ops else 'operations',
-               library_ms=k1_library_ms(torch, dev, index, passes, n_limbs,
+               library_ms=k1_library_ms(torch, dev, n, passes, n_limbs,
                                         reps))
     return res
 
 
-def k1_library_ms(torch, dev, index, passes, n_limbs, reps) -> float:
+def k1_library_ms(torch, dev, n, passes, n_limbs, reps, window=None):
     """Yardstick only, never called by the port: torch.matmul on the bf16
-    occupancy, one product per pass and weight byte, with the reduced-
-    precision bf16 reduction switched off, each timed over `reps` calls as
-    the kernel is. Operand building is not timed."""
-    n = index.n
+    occupancy, one product per pass and weight byte (of the window's
+    (row0, rows) genome rows against all n, else all n against all n),
+    with the reduced-precision bf16 reduction switched off, each timed
+    over `reps` calls as the kernel is. Operand building is not timed."""
+    row0, rows = window or (0, n)
     prev = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     total = 0.0
     try:
         for c in passes:
             ng = c.weights.numel()
-            rows = torch.repeat_interleave(
+            pat = torch.repeat_interleave(
                 torch.arange(ng, device=dev), (c.offs[1:] - c.offs[:-1]).long())
             occ = torch.zeros((ng, n), dtype=torch.bfloat16, device=dev)
-            occ[rows, c.gids.long()] = 1
-            occ_t = occ.T
+            occ[pat, c.gids.long()] = 1
+            occ_t = occ.T[row0:row0 + rows]
             ops = [(occ * ((c.weights >> (8 * l)) & 255).to(
                 torch.bfloat16)[:, None]) for l in range(n_limbs)]
             for b in ops:
@@ -542,6 +546,14 @@ def k1_library_ms(torch, dev, index, passes, n_limbs, reps) -> float:
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
             prev
     return total
+
+
+def k1_least_products(patterns: int, n: int, rows: int) -> float:
+    """The u8 products of the least work for a rows x n block of counts
+    whose rows are genomes of the n columns: the counts are symmetric, so
+    the block's rows x rows square on the diagonal holds rows (rows - 1) / 2
+    entries twice; n (n + 1) / 2 entries for the whole square."""
+    return float(patterns) * (rows * n - rows * (rows - 1) / 2)
 
 
 def phase_k1(torch, dev, seed: int):
@@ -1586,37 +1598,39 @@ def k1_passes_case(torch, dev, at: str, n: int, passes, window=None):
     patterns = sum(int(c.weights.numel()) for c in passes)
     nnz = sum(int(c.gids.numel()) for c in passes)
     # Least bytes: the COO and weights read once, the counts read and
-    # written once; least operations: one u8 product of the patterns'
-    # occupancy rows of the counts' rows against all n genomes.
+    # written once; least operations: one u8 product a pattern for each
+    # distinct entry of the counts (`k1_least_products`).
     nbytes = 4 * (nnz + 2 * patterns + len(passes)) + 8 * rows * n
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 2.0 * patterns * rows * n / INT8_TENSOR_OPS_PER_S * 1e3
+    t_ops = (2.0 * k1_least_products(patterns, n, rows)
+             / INT8_TENSOR_OPS_PER_S * 1e3)
+    n_limbs = max(c.n_limbs for c in passes)
     return dict(at=f'{at}: {rows} x {n} counts, {patterns} patterns',
                 passes=len(passes), items=sum(len(c.work) for c in passes),
                 split=sorted({c.split for c in passes}), max_abs_err=err,
                 ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
-                bound_by='bytes' if t_bytes >= t_ops else 'operations')
+                bound_by='bytes' if t_bytes >= t_ops else 'operations',
+                library_ms=k1_library_ms(torch, dev, n, passes, n_limbs, 3,
+                                         window))
 
 
 def k1_split_ms(torch, dev, index, shards: int) -> float:
     """The time of K1 over `shards` shards of one card, launches only: each
-    shard's part of each pass's work list into its own n x n counts (the
-    sums' trip to the host left out)."""
+    shard's part of each pass's work list into the card's one n x n counts
+    (the sum's trip to the host left out)."""
     from vclust_tpu_torch.ops import prefilter as pf
     n = index.n
     _, chunks = pf.device_chunks(index, dev, shards=shards)
     parts = [pf.k1_split_work(c.work.cpu().numpy(), c.kb_limbs.cpu().numpy(),
                               shards) for c in chunks]
-    subs = [[pf.k1_shard(c, p[s], dev) for c, p in zip(chunks, parts)
-             if len(p[s])] for s in range(shards)]
-    sums = [torch.zeros((n, n), dtype=torch.int32, device=dev)
-            for _ in range(shards)]
+    subs = [pf.k1_shard(c, p[s], dev) for s in range(shards)
+            for c, p in zip(chunks, parts) if len(p[s])]
+    counts = torch.zeros((n, n), dtype=torch.int32, device=dev)
 
     def run():
-        for buf, sub in zip(sums, subs):
-            buf.zero_()
-            for c in sub:
-                pf.occupancy_count(buf, c)
+        counts.zero_()
+        for c in subs:
+            pf.occupancy_count(counts, c)
 
     return time_ms(run, 2)
 
@@ -1788,12 +1802,17 @@ def phase_mesh(torch, dev, k1_inputs, k2_row, k3_row) -> dict:
         res['dryrun'] = '2 shards of one card'
     res['dryrun_s'] = time.perf_counter() - t0
     emit(res)
+    keys = ('at', 'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
+            'library_ms')
+    unweighted = res['k1_unweighted']
     return dict(launches=sum(window_launches.values()),
                 launches_by_path={f'panels of {p} (1,536 sets)': v
                                   for p, v in window_launches.items()},
-                **{k: window[k] for k in (
-                    'at', 'max_abs_err', 'ms', 'plain_ms', 'bound_ms',
-                    'bound_by')})
+                **{k: window[k] for k in keys}), dict(
+        launches=res['unweighted_launches'],
+        launches_by_path={'shared_kmer_counts_device (1,536 sets)':
+                          res['unweighted_launches']},
+        **{k: unweighted[k] for k in keys})
 
 
 def main():
@@ -1843,9 +1862,11 @@ def main():
     kx_row['at'] = 'the kx phase jobs'
     k2_row, k3_row = phase_align_v3(torch, dev, args.seed, engine)
     phase_align_v2(torch, dev, args.seed)
-    window = phase_mesh(torch, dev, k1_inputs, k2_row, k3_row)
+    window, unweighted = phase_mesh(torch, dev, k1_inputs, k2_row, k3_row)
     k1_row['window_mode'] = window
-    k1_row['max_abs_err'] = max(k1_row['max_abs_err'], window['max_abs_err'])
+    k1_row['unweighted'] = unweighted
+    k1_row['max_abs_err'] = max(k1_row['max_abs_err'], window['max_abs_err'],
+                                unweighted['max_abs_err'])
     emit({'kernels': [kx_row, k1_row, k2_row, k3_row],
           'seconds': time.perf_counter() - t0})
     smi = subprocess.run(

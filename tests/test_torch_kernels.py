@@ -197,7 +197,8 @@ def test_k1_window_kernel_matches_plain(cuda_device, n, n_patterns, max_w,
 def test_k1_split_work_matches_whole(cuda_device, n, n_patterns, max_w,
                                      shards):
     """K1 over a mesh of shards on one card (each pass's work list cut
-    among them, each shard's sum apart) == K1 unsharded."""
+    among them, their parts added into the card's one counts) == K1
+    unsharded."""
     from vclust_tpu_torch.parallel.mesh import make_mesh
     idx = _index(n + shards, n, n_patterns, min(100, n), max_w)
     want = tpf.shared_kmer_counts_indexed(idx, engine='device',

@@ -197,19 +197,41 @@ def _equal(a, b, keep):
             and np.array_equal(a[1][1], b[1][1]))
 
 
+def _spy_cores(setattr_, calls):
+    """Route the row cores through spies that log (pipe, rows) a call."""
+    cores = {'v3': ag._row_core_v3, 'v2': ag._row_core}
+
+    def spy(pipe):
+        def core(b, r_rows, *args, **kw):
+            calls.append((pipe, len(r_rows)))
+            return cores[pipe](b, r_rows, *args, **kw)
+        return core
+
+    setattr_(ag, '_row_core_v3', spy('v3'))
+    setattr_(ag, '_row_core', spy('v2'))
+    return cores
+
+
 @pytest.fixture(scope='module')
 def hybrid_single():
     """The hybrid corpus's single-device runs: all2all_gpu (hybrid) and v3
-    alone, with and without records."""
+    alone, with and without records, and the dispatches' rows of each."""
     codes = _hybrid_codes()
     pairs = _pairs(len(codes))
-    out = {}
+    out, calls = {}, {}
     for keep in (False, True):
-        out['hybrid', keep] = ag.all2all_gpu(codes, pairs, device='cpu',
-                                             keep_alignments=keep)
-        out['v3', keep] = ag._all2all_single(
-            codes, pairs, device='cpu', keep_alignments=keep, pipe='v3')
-    return codes, pairs, out
+        for path in ('hybrid', 'v3'):
+            calls[path, keep] = []
+            cores = _spy_cores(setattr, calls[path, keep])
+            try:
+                out[path, keep] = (
+                    ag.all2all_gpu(codes, pairs, device='cpu',
+                                   keep_alignments=keep) if path == 'hybrid'
+                    else ag._all2all_single(codes, pairs, device='cpu',
+                                            keep_alignments=keep, pipe='v3'))
+            finally:
+                ag._row_core_v3, ag._row_core = cores['v3'], cores['v2']
+    return codes, pairs, out, calls
 
 
 @pytest.mark.parametrize('keep', [False, True])
@@ -219,36 +241,29 @@ def hybrid_single():
 def test_sharded_align_matches_single_device(hybrid_single, monkeypatch,
                                              keep, path, shards, rows, cap):
     """The sharded engine == the single device's, bit for bit: dispatches
-    of `rows` rows (rounded down to the shard count, so some slices are
-    short or empty), and sub-arenas under a MAX_ARENA cap."""
-    codes, pairs, single = hybrid_single
+    of `rows` rows dealt to the shards (so some shards get none), and
+    sub-arenas under a MAX_ARENA cap."""
+    codes, pairs, single, single_calls = hybrid_single
     want = single[path, keep]
     if rows is not None:
         monkeypatch.setattr(ag, '_dispatch_rows', lambda L, K, d, a: rows)
         monkeypatch.setattr(ag, '_dispatch_rows_v2', lambda L, K, a: rows)
     monkeypatch.setattr(ag, 'MAX_ARENA', cap)
     mesh = _cpu_mesh(shards)
-    cores = {'v3': ag._row_core_v3, 'v2': ag._row_core}
     calls = []
-
-    def spy(pipe):
-        def core(b, r_rows, *args, **kw):
-            calls.append((pipe, len(r_rows)))
-            return cores[pipe](b, r_rows, *args, **kw)
-        return core
-
-    monkeypatch.setattr(ag, '_row_core_v3', spy('v3'))
-    monkeypatch.setattr(ag, '_row_core', spy('v2'))
+    _spy_cores(monkeypatch.setattr, calls)
     if path == 'v3':
         got = ag._all2all_single(codes, pairs, keep_alignments=keep,
                                  pipe='v3', mesh=mesh)
     else:
         got = ag.all2all_gpu(codes, pairs, keep_alignments=keep, mesh=mesh)
     assert _equal(got, want, keep)
-    # Each slice is at most B / shards rows; the hybrid re-ran hard pairs
-    # on v2 over the mesh too.
-    per = max((rows or 10 ** 9) // shards, 1)
-    assert calls and all(n <= per for _, n in calls)
+    # Whole dispatches of at most B rows, none cut among the shards: at
+    # the single device's B, the single device's dispatches. The hybrid
+    # re-ran hard pairs on v2 over the mesh too.
+    assert calls and all(n <= (rows or 10 ** 9) for _, n in calls)
+    if rows is None and not cap:
+        assert calls == single_calls[path, keep]
     assert ('v2' in {p for p, _ in calls}) == (path == 'hybrid')
 
 

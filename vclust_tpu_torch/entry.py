@@ -94,7 +94,7 @@ def dryrun_multichip(n_devices: int, device=None) -> None:
                     got[co:co + blk.shape[1], ro:ro + blk.shape[0]] = blk.T
     np.testing.assert_array_equal(got, expect)
 
-    # 2. The device align engine, each dispatch's rows over the mesh.
+    # 2. The device align engine, its dispatches dealt to the mesh's shards.
     codes = _mutants(np.random.default_rng(0), 4)
     pairs = np.array([(i, j) for i in range(4) for j in range(i + 1, 4)],
                      dtype=np.int32)

@@ -202,22 +202,18 @@ def run_align(
 def _run_align_gpu(genomes, order, objects, result, candidates, params,
                    out_filters, keep_alignments=False):
     """Device batch path: one program run per length bucket
-    (ops/align_gpu.py:all2all_gpu), over a mesh of every visible card when
-    there are several (parallel/mesh.py:auto_mesh). Emits the same measure
-    columns as the JAX package's device engine, bit for bit; with
-    keep_alignments, the per-alignment rows come from the device's segment
-    records. Pairs touching genomes beyond the device engine's position
-    range (align_gpu.MAX_TPU_LEN) go to the exact native engine (the
-    Python oracle where the native library is absent)."""
+    (ops/align_gpu.py:all2all_gpu). Emits the same measure columns as the
+    JAX package's device engine, bit for bit; with keep_alignments, the
+    per-alignment rows come from the device's segment records. Pairs
+    touching genomes beyond the device engine's position range
+    (align_gpu.MAX_TPU_LEN) go to the exact native engine (the Python
+    oracle where the native library is absent)."""
     from ..ops import align_gpu
-    from ..parallel.mesh import auto_mesh
     from ..utils.device import resolve_device
     logger = get_logger()
     device = resolve_device()
-    mesh = auto_mesh() if device.type == 'cuda' else None
     logger.info(f'Aligning {len(candidates)} genome pairs (GPU engine, '
-                + (f'{len(mesh.devices)}-device mesh)' if mesh else
-                   f'{device})'))
+                f'{device})')
     codes_list = [_genome_codes(genomes[order[pos]])
                   for pos in range(len(order))]
     oversized = {pos for pos, c in enumerate(codes_list)
@@ -244,7 +240,7 @@ def _run_align_gpu(genomes, order, objects, result, candidates, params,
     if (~host).any():
         res = align_gpu.all2all_gpu(codes_list, pairs[~host], params,
                                     keep_alignments=keep_alignments,
-                                    device=device, mesh=mesh)
+                                    device=device)
         _place(~host, res if keep_alignments else (res, None))
     if host.any():
         eng = 'native' if lz_native.available() else 'Python'

@@ -13,9 +13,9 @@ is counted block by block through the persisted batch store, so device
 memory holds one (batch x batch) block instead of the dense (n x n) matrix.
 Results are identical by construction since counting is over the same
 merged sets either way. Device work runs on `device` (default cuda, see
-utils/device), or, when more than one card is visible, over a mesh of all
-of them (parallel/mesh.py:auto_mesh), as the JAX package's stage does;
-backend='host' counts on the host and needs no device.
+utils/device), or over a `mesh` the caller passes (parallel/mesh.py;
+the CLI passes none, and the module says why); backend='host' counts on
+the host and needs no device.
 """
 
 from concurrent.futures import ThreadPoolExecutor
@@ -121,16 +121,12 @@ def run_prefilter(
     mesh=None,
 ) -> FilterMatrix:
     """The prefilter stage over `genomes`. Counts on `device`, or over
-    `mesh` (parallel/mesh.py); on CUDA the default mesh is every visible
-    card when there are several (`auto_mesh`)."""
+    `mesh` (parallel/mesh.py)."""
     logger = get_logger()
     if backend == 'host':
         device = mesh = None
     elif mesh is None:
         device = resolve_device(device)
-        if device.type == 'cuda':
-            from ..parallel.mesh import auto_mesh
-            mesh = auto_mesh()
     names = [g.name for g in genomes]
     n = len(genomes)
     logger.info(f'Building canonical {k}-mer sets for {n} genomes')

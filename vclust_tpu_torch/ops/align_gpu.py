@@ -49,10 +49,13 @@ tensors take `stage1_pack_plain` / `band_counts_plain`, CUDA tensors
 launch the kernel or raise. Each wrapper's `launches` counts its kernel
 launches. Entry points: `all2all_gpu` and `_all2all_single`, on `cuda`
 unless the caller asks for the CPU (utils/device.py), or over a mesh
-(parallel/mesh.py): each dispatch's rows are cut into one contiguous slice
-a shard, each slice runs on its shard's device against a copy of the
-arena there, and the results are joined in shard order (over the
-processes too), as the JAX package's sharded group runs do.
+(parallel/mesh.py): the dispatches are dealt to the shards in turn, each
+runs on its shard's device against a copy of the arena there, and the
+results are joined in row order (over the processes too). The JAX
+package cuts each dispatch into one slice a shard instead: its sharded
+group run is one program across the devices, where here each slice
+would be launches of its own, so a cut multiplies the launches that
+bound small dispatches by the shard count.
 """
 
 import os
@@ -64,6 +67,8 @@ import torch
 from . import cuda
 from .lz_parse_py import AlignParams
 from ..core.seq import revcomp_codes
+from ..parallel.distributed import gather, replicate
+from ..parallel.mesh import local_shards, make_mesh
 from ..utils.device import resolve_device
 from ..utils.logging import get_logger
 
@@ -1357,12 +1362,11 @@ def _all2all_single(codes_list: Sequence[np.ndarray], pairs: np.ndarray,
     from the rows, with a warning (aggregates stay exact).
 
     Runs on `index.device`, else `device` (default cuda), or with `mesh`
-    over its shards: a dispatch's rows B come from the budget rounded down
-    to a multiple of the shard count, and are cut into one slice a shard
-    (parallel/distributed.py:shard_rows); the arena, built on the index's
-    device, is copied once to each other device of the mesh. Results do not
-    depend on B or on the cut. Raises for genomes longer than
-    MAX_TPU_LEN."""
+    over its shards: the dispatches of B rows (from the budget of one
+    device) are dealt to the shards in turn, counted over the groups, and
+    each group's arena, built on the index's device, is copied once to
+    each other device of the mesh. Results do not depend on B or on the
+    deal. Raises for genomes longer than MAX_TPU_LEN."""
     if pipe not in ('v2', 'v3'):
         raise ValueError(f'pipe={pipe!r}: expected v2 or v3')
     params = params or AlignParams()
@@ -1370,6 +1374,9 @@ def _all2all_single(codes_list: Sequence[np.ndarray], pairs: np.ndarray,
     mqd, mrd, reg = params.mqd, params.mrd, params.reg
     idx = index or GenomeIndex(
         codes_list, device=device if mesh is None else mesh.devices[0])
+    mesh = mesh or make_mesh(device=idx.device)
+    shards, n_shards = local_shards(mesh)
+    local = dict(shards)
     lens = idx.lens
     pairs = np.asarray(pairs, dtype=np.int32).reshape(-1, 2)
 
@@ -1390,6 +1397,7 @@ def _all2all_single(codes_list: Sequence[np.ndarray], pairs: np.ndarray,
                 (qi, prow, col))
 
     out = np.zeros((len(pairs), 6), dtype=np.int64)
+    dealt = 0
     work = []      # (kb, by_ref_subset, cacheable)
     for kb, by_ref in sorted(groups.items()):
         if MAX_ARENA and len(_group_gids(by_ref)) > MAX_ARENA:
@@ -1445,44 +1453,30 @@ def _all2all_single(codes_list: Sequence[np.ndarray], pairs: np.ndarray,
                                     **static)
             return _row_core(b, rr, rl, qr, ql, C=C, **static)
 
-        results = []   # (first row, shard, device results), in that order
-        if mesh is None:
-            dev = b['fwd'].device
-            for lo in range(0, n, B):
-                results.append((lo, 0, run(b, *(
+        # Dispatches are dealt to the shards in turn, counted over the
+        # groups; a process runs those of its own shards.
+        arena = replicate(mesh, b)
+        results = []   # (first row, device results), in row order
+        for lo in range(0, n, B):
+            dev = local.get(dealt % n_shards)
+            dealt += 1
+            if dev is not None:
+                results.append((lo, run(arena[dev], *(
                     torch.from_numpy(a[lo:lo + B]).to(dev)
                     for a in (r_rows, rlens, q_rows, qlens)))))
-        else:
-            from ..parallel.distributed import replicate, shard_rows
-            from ..parallel.mesh import local_shards
-            shards, n_shards = local_shards(mesh)
-            B = max(B // n_shards, 1) * n_shards
-            arrays = {k: replicate(mesh, v) for k, v in b.items()
-                      if torch.is_tensor(v)}
-            on = {d: dict(b, **{k: v[d] for k, v in arrays.items()})
-                  for d in dict.fromkeys(mesh.devices)}
-            for lo in range(0, n, B):
-                cut = [shard_rows(mesh, a[lo:lo + B])
-                       for a in (r_rows, rlens, q_rows, qlens)]
-                for i, (s, d) in enumerate(shards):
-                    if len(cut[0][i]):
-                        results.append((lo, s, run(on[d], *(
-                            c[i] for c in cut))))
         pending.append((results, tmap, _maxseg(kb, reg)))
-    if mesh is not None:
-        # Host copies of this process's slices, joined with every other
-        # process's in dispatch and shard order.
-        from ..parallel.distributed import gather
-        host = [[(lo, s, _to_host(r)) for lo, s, r in results]
-                for results, _, _ in pending]
-        everyone = gather(mesh, host)
-        pending = [(sorted((x for h in everyone for x in h[w]),
-                           key=lambda x: x[:2]), tmap, maxseg)
-                   for w, (_, tmap, maxseg) in enumerate(pending)]
+    # Host copies of this process's dispatches, joined with every other
+    # process's in row order.
+    host = [[(lo, _to_host(r)) for lo, r in results]
+            for results, _, _ in pending]
+    everyone = gather(mesh, host)
+    pending = [(sorted((x for h in everyone for x in h[w]),
+                       key=lambda x: x[0]), tmap, maxseg)
+               for w, (_, tmap, maxseg) in enumerate(pending)]
     task_alns = {}   # (prow, col) -> (n, 6) int32 records
     saturated = []   # pairs whose records overflowed the cap (MAXSEG)
-    for results, tmap, maxseg in pending:   # transfers post-dispatch
-        res = [_to_host(r) for _, _, r in results]
+    for results, tmap, maxseg in pending:
+        res = [r for _, r in results]
         if keep_alignments:
             flat, recs, nrec = (np.concatenate(x) for x in zip(*res))
         else:

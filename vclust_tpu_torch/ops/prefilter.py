@@ -24,9 +24,9 @@ The same kernel serves the unweighted counts (`shared_kmer_counts_device`:
 every k-mer group of >= 2 genomes at weight 1, one limb), the row panels
 (`shared_kmer_counts_panels`: an output window of (panel x n) rows, each
 tile of the row band added once) and a mesh (`shared_kmer_counts_indexed`
-with `mesh`: each pass's work list cut among the mesh's shards, each
-shard's sum in a counts of its own on its device, the sums added on the
-host and across processes; parallel/mesh.py).
+with `mesh`: each pass's work list cut among the mesh's shards, a counts
+on each device, the devices' counts added on the first device and across
+processes on the host; parallel/mesh.py).
 
 `occupancy_count` is K1's wrapper: CPU tensors take
 `occupancy_count_plain` (the scatter and a float64 product, exact for
@@ -42,6 +42,8 @@ import numpy as np
 import torch
 
 from . import cuda
+from ..parallel.distributed import reduce_sum
+from ..parallel.mesh import local_shards, make_mesh
 from ..utils.device import resolve_device
 
 # Corpora of at most this many genomes are counted on the host when the
@@ -701,56 +703,46 @@ def shared_kmer_counts_indexed(index: 'PrefilterIndex',
                                engine: str = 'auto',
                                device=None, mesh=None) -> np.ndarray:
     """Exact pair counts from a PrefilterIndex (the kmer-db all2all-sp
-    analog) with K1, chunk by chunk, on `device` (default cuda, see
-    utils/device), or over `mesh` (parallel/mesh.py): each pass's work list
-    is cut among the mesh's shards (`k1_split_work`), each shard adds its
-    part into an n x n counts of its own on its device, and the sums are
-    added on the host and over the mesh's processes (the tiles and k-blocks
-    of the shards are disjoint, so the sum is the count). engine='auto'
-    answers corpora of <= 32 genomes on the host without a mesh, as the JAX
-    package does; engine='device' always counts on the device. Returns an
-    int64 (n, n) matrix whose diagonal is the k-mer-set sizes."""
+    analog) with K1, chunk by chunk, over `mesh` (parallel/mesh.py), or
+    without one on `device` (default cuda, see utils/device), a mesh of one
+    shard. Each pass's work list is cut among the mesh's shards
+    (`k1_split_work`); the shards of a device add their parts into one
+    n x n counts there, the other devices' counts are added into the first
+    device's, and that is summed over the processes of the mesh's group on
+    the host (the shards' tiles and k-blocks are disjoint, so the sum is
+    the count). engine='auto' answers corpora of <= 32 genomes on
+    the host without a mesh, as the JAX package does; engine='device'
+    always counts on the device. Returns an int64 (n, n) matrix whose
+    diagonal is the k-mer-set sizes."""
     n = index.n
     if n == 0:
         return np.zeros((0, 0), dtype=np.int64)
-    if mesh is not None:
-        out = _counts_sharded(index, mesh, rows_chunk, nnz_chunk)
-    else:
+    if mesh is None:
         dev = resolve_device(device)
         if engine == 'auto' and n <= _HOST_MAX_GENOMES:
             return _counts_from_index_host(index)
-        _, chunks = device_chunks(index, dev, rows_chunk, nnz_chunk)
-        counts = torch.zeros((n, n), dtype=torch.int32, device=dev)
-        for chunk in chunks:
-            occupancy_count(counts, chunk)
-        out = counts.cpu().numpy().astype(np.int64)
-    np.fill_diagonal(out, index.sizes)
-    return out
-
-
-def _counts_sharded(index, mesh, rows_chunk, nnz_chunk) -> np.ndarray:
-    """The off-diagonal counts of `index` over `mesh` (see
-    shared_kmer_counts_indexed): this process's shards' launches first,
-    then their sums."""
-    from ..parallel.distributed import reduce_sum
-    from ..parallel.mesh import local_shards
-    n = index.n
+        mesh = make_mesh(device=dev)
     shards, n_shards = local_shards(mesh)
     _, chunks = device_chunks(index, shards[0][1], rows_chunk, nnz_chunk,
                               shards=n_shards)
     parts = [k1_split_work(c.work.cpu().numpy(), c.kb_limbs.cpu().numpy(),
                            n_shards) for c in chunks]
-    sums = []
-    for s, dev in shards:
-        counts = torch.zeros((n, n), dtype=torch.int32, device=dev)
-        for chunk, part in zip(chunks, parts):
-            if len(part[s]):
-                occupancy_count(counts, k1_shard(chunk, part[s], dev))
-        sums.append(counts)
-    out = np.zeros((n, n), np.int64)
-    for counts in sums:
-        out += counts.cpu().numpy()
-    return reduce_sum(mesh, out)
+    runs = [(dev, [k1_shard(c, p[s], dev) for c, p in zip(chunks, parts)
+                   if len(p[s])]) for s, dev in shards]
+    sums = {}
+    for dev, sub in runs:       # every launch first, then the sums
+        counts = sums.get(dev)
+        if counts is None:
+            counts = sums[dev] = torch.zeros((n, n), dtype=torch.int32,
+                                             device=dev)
+        for chunk in sub:
+            occupancy_count(counts, chunk)
+    first, *others = sums.values()
+    for counts in others:
+        first += counts.to(first.device)
+    out = reduce_sum(mesh, first.cpu().numpy().astype(np.int64))
+    np.fill_diagonal(out, index.sizes)
+    return out
 
 
 def shared_kmer_counts_device(kmer_sets, rows_chunk: int = 131072,

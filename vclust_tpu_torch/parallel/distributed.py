@@ -61,20 +61,20 @@ def process_info() -> Optional[tuple]:
     return dist.get_rank(), dist.get_world_size()
 
 
-def global_mesh(axis: str = 'pairs', devices=None) -> Mesh:
+def global_mesh(devices=None) -> Mesh:
     """1-D mesh over every shard of every process of the group: this
     process's `devices` (default its visible cards), shards ranked
     process-major. Every process must hold as many shards."""
     import torch.distributed as dist
     if process_info() is None:
         raise RuntimeError('no multi-process group: call maybe_initialize()')
-    local = (make_mesh(axis=axis).devices if devices is None else
+    local = (make_mesh().devices if devices is None else
              tuple(_indexed(torch.device(d)) for d in devices))
     counts = [None] * dist.get_world_size()
     dist.all_gather_object(counts, len(local))
     if len(set(counts)) != 1:
         raise ValueError(f'processes hold unequal shard counts {counts}')
-    return Mesh(local, axis, dist.group.WORLD)
+    return Mesh(local, dist.group.WORLD)
 
 
 def gather(mesh: Optional[Mesh], obj) -> list:
@@ -110,18 +110,11 @@ def reduce_sum(mesh: Optional[Mesh], x: np.ndarray) -> np.ndarray:
 
 
 def replicate(mesh: Mesh, x) -> dict:
-    """A host array placed once on each distinct device of this process's
-    shards: {device: tensor}. Every process must pass the same value."""
-    t = x if torch.is_tensor(x) else torch.from_numpy(np.asarray(x))
-    return {d: t.to(d) for d in dict.fromkeys(mesh.devices)}
-
-
-def shard_rows(mesh: Mesh, x) -> list:
-    """This process's shards' row slices of a host array (rows cut into
-    one contiguous slice a shard of the whole mesh, the last ones shorter
-    when they do not divide), each on its shard's device."""
-    from .mesh import local_shards
-    t = x if torch.is_tensor(x) else torch.from_numpy(np.asarray(x))
-    shards, n_shards = local_shards(mesh)
-    per = -(-t.shape[0] // n_shards)
-    return [t[s * per:(s + 1) * per].to(d) for s, d in shards]
+    """`x` placed once on each distinct device of this process's shards:
+    {device: copy}. x is a tensor or a dict (its tensors placed, other
+    values kept); a tensor is not copied to the device it is on."""
+    def to(d, v):
+        if isinstance(v, dict):
+            return {k: to(d, u) for k, u in v.items()}
+        return v.to(d) if torch.is_tensor(v) else v
+    return {d: to(d, x) for d in dict.fromkeys(mesh.devices)}

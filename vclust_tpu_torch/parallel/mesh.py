@@ -9,12 +9,21 @@ gathered on the host (parallel/distributed.py).
 
 What runs over a mesh:
 - K1's pair counts (ops/prefilter.py, `shared_kmer_counts_indexed(mesh=)`):
-  each pass's work list is cut among the shards;
-- the device align engine (ops/align_gpu.py, `all2all_gpu(mesh=)`): each
-  dispatch's rows are cut into one slice a shard, and the arena is copied
-  once to each distinct device;
+  each pass's work list is cut among the shards, the shards of a device
+  add into one counts there, and the devices' counts are added on the
+  first device;
+- the device align engine (ops/align_gpu.py, `all2all_gpu(mesh=)`): the
+  dispatches are dealt to the shards in turn, and each group's arena is
+  copied once to each distinct device;
 - the dense products below: each shard's row block of occ occ^T against
   every row, as int8 operands with int32 sums (`int_products`).
+
+The CLI runs on one card even where several are visible (the JAX
+package's CLI takes `auto_mesh()`): on four H100s, `prefilter` on 192
+genomes and `align --engine gpu` on 48 and 192 took as long or longer in
+a process over all four cards as in one that saw one card. Each further
+card starts its context and loads its kernels before it works, and at
+these sizes that costs what the cards save.
 """
 
 from typing import NamedTuple, Optional
@@ -27,7 +36,6 @@ from ..utils.device import resolve_device
 
 class Mesh(NamedTuple):
     devices: tuple           # torch.device of each of this process's shards
-    axis: str = 'pairs'
     group: Optional[object] = None   # the process group spanned, if any
 
 
@@ -38,8 +46,7 @@ def _indexed(dev: torch.device) -> torch.device:
     return dev
 
 
-def make_mesh(n_devices: Optional[int] = None, device=None,
-              axis: str = 'pairs') -> Mesh:
+def make_mesh(n_devices: Optional[int] = None, device=None) -> Mesh:
     """A mesh of this process alone. device None: the visible cards, all of
     them or the first n_devices (raises without CUDA or with fewer cards).
     A device (e.g. 'cpu', 'cuda:0'): n_devices shards (default 1), all on
@@ -58,14 +65,14 @@ def make_mesh(n_devices: Optional[int] = None, device=None,
         if n < 1:
             raise ValueError(f'a mesh needs a shard, got {n}')
         devices = [_indexed(resolve_device(device))] * n
-    return Mesh(tuple(devices), axis)
+    return Mesh(tuple(devices))
 
 
-def auto_mesh(axis: str = 'pairs') -> Optional[Mesh]:
+def auto_mesh() -> Optional[Mesh]:
     """Mesh over all visible cards, or None when fewer than two are
     present."""
     if torch.cuda.is_available() and torch.cuda.device_count() > 1:
-        return make_mesh(axis=axis)
+        return make_mesh()
     return None
 
 

@@ -71,7 +71,7 @@ def main(argv=None) -> None:
     np.testing.assert_array_equal(sharded_pair_counts(mesh, occ),
                                   want.numpy())
 
-    # The device align engine: each dispatch's rows over every shard.
+    # The device align engine: its dispatches dealt to every shard.
     from ..entry import _assert_same, _mutants
     from ..ops import align_gpu
     codes = _mutants(np.random.default_rng(0), 6)
