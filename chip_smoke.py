@@ -30,40 +30,41 @@ Phases, each printing one JSON line; any failure exits non-zero:
               matrix), align --filter, cluster; then the example corpus, whose
               fltr.txt and clusters.tsv must equal example/output/;
   6. align_engine - the device align engine from the CLI: `align --engine
-              gpu --out-aln` over the 66 pairs of example/multifasta.fna
-              (K2 and K3 counted from 0 around it): ani.tsv, ani.ids.tsv
-              and ani.aln.tsv == tests/golden_torch/engine_tpu/ (the JAX
-              CLI's `--engine tpu`) byte for byte; then `--filter
-              --filter-threshold 0.7 --engine gpu` and cluster, whose
-              clusters.tsv must equal example/output/clusters.tsv. Prints
-              the hard pairs re-aligned on v2, the launches, the seconds and
-              dispatches in v3 and in v2, the seconds on the host, warm
-              pairs/s and the tANI of the 8 truth pairs;
+              gpu --out-aln` over the 66 pairs of example/multifasta.fna:
+              ani.tsv, ani.ids.tsv and ani.aln.tsv == tests/golden_torch/
+              engine_tpu/ (the JAX CLI's `--engine tpu`) byte for byte; then
+              `--filter --filter-threshold 0.7 --engine gpu` and cluster,
+              whose clusters.tsv must equal example/output/clusters.tsv.
+              Prints the hard pairs re-aligned on v2, the launches, the
+              seconds and dispatches in v3 and in v2, the seconds on the
+              host, warm pairs/s and the tANI of the 8 truth pairs;
   7. align_v3 - the v3 align pipe (ops/align_gpu.py:_all2all_single(...,
               pipe='v3')) on bench.py's 48-genome corpus (1,128 pairs,
               buckets 49,152 and 65,536) and its contig corpus (128 x 3,500
-              bases, 8,128 pairs, bucket 4,096), K2 and K3 counted from 0
-              around each run: aggregates and records == the same function
-              with the plain K2 and K3, bit for bit; warm pairs/s, index
-              seconds, peak device memory and a profiler breakdown of one
-              warm run; the max |dtANI| against the native C++ engine
-              (printed, not held); then K2 and K3 alone on one full
-              dispatch at 65,536 and at 4,096 (== plain, with ms,
-              device_ms, plain_ms, bound; library_ms for K2), and the time
-              of each stage of the 65,536 dispatch;
+              bases, 8,128 pairs, bucket 4,096): aggregates and records ==
+              the same function with the plain K2, K3, K5 and K4, bit for
+              bit; warm pairs/s, index seconds, peak device memory and a
+              profiler breakdown of one warm run; the max |dtANI| against
+              the native C++ engine (printed, not held); then K2 and K3
+              alone on one full dispatch at 65,536 and at 4,096, and K5 and
+              K4 (without and with records) alone at 65,536 (each == plain,
+              with ms, device_ms, plain_ms, bound; library_ms for K2), and
+              the time of each stage of the 65,536 dispatch;
   8. align_hybrid - the engine's default all2all_gpu (v3, then v2 on the
               hard pairs) on the 48 genomes: hard pairs, the dispatches of
               each pipe, warm pairs/s with and without the hybrid, busy
               share and top device entries under the profiler, max |dtANI|
-              against the native engine;
-              each v2 stage's time on one dispatch at 65,536;
+              against the native engine; with records == the all-plain
+              run; each v2 stage's time on one dispatch at 65,536, K4 alone
+              there against its plain version;
   9. align_v2 - the v2 pipe alone above V3_MAX_BUCKET: 4 genomes of
               158-249 kb concatenated from example genomes plus a 5% mutant
               each (buckets 196,608 and 262,144, 64-bit packs), all 28
-              pairs with records: == the port on the CPU for two pairs;
-              pairs/s, peak bytes, B, each stage's time on one dispatch, and
-              the live bytes a query position holds (peaks at 1 and 2 rows,
-              C = 16 and 8) against `_dispatch_rows_v2`'s constants;
+              pairs with records: == the all-plain run, and == the port on
+              the CPU for two pairs; pairs/s, peak bytes, B, each stage's
+              time on one dispatch (K4 alone against plain), and the live
+              bytes a query position holds (peaks at 1 and 2 rows, C = 16
+              and 8) against `_dispatch_rows_v2`'s constants;
  10. mesh   - the port's mesh paths (vclust_tpu_torch/parallel/) on the
               card, each driven with the launch counts set to 0 just before
               it and read just after (a path that launched none of its
@@ -77,15 +78,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
               plain ms, the bound and the time of a bf16 torch.matmul of
               the same counts; the sharded all2all_gpu (2 shards, the
               dispatches dealt to them) on the 48 genomes == the single
-              device, records
-              included, with K2's and K3's launches and pairs/s beside the
-              unsharded run; two processes on this card over gloo
-              (`python -m vclust_tpu_torch.parallel.worker`) both print
-              MULTIHOST_OK; `entry()` == the int product; and
-              `dryrun_multichip` on every visible card, or on 2 shards of
-              cuda:0 when one is visible;
- 11. the `kernels` line: every kernel with its launches on its path, error
-     against its plain version, times and bound.
+              device and == its all-plain run, records included, with the
+              align kernels' launches and pairs/s beside the unsharded run;
+              two processes on this card over gloo (`python -m
+              vclust_tpu_torch.parallel.worker`) both print MULTIHOST_OK;
+              `entry()` == the int product; and `dryrun_multichip` on every
+              visible card, or on 2 shards of cuda:0 when one is visible;
+ 11. the `kernels` line: every kernel (KX, K1, K2, K3, K4, K5) with its
+     launches on its path, error against its plain version, times and
+     bound.
+On every align path (phases 6-10) K2, K3, K5 and K4 are counted from 0
+around the run: each v3 dispatch launches K2, K3, K5 and K4 once, each v2
+dispatch K4 once, and any other count fails.
 The card's name and power limit (nvidia-smi) precede the last line, which
 is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -791,17 +795,55 @@ def align_inputs(corpus):
     return codes, pairs
 
 
+# The align kernels' wrappers in ops/align_gpu.py (K2, K3, K5, K4; also
+# the names of their rows in the kernels line) and their plain versions.
+ALIGN_KERNELS = (('stage1_pack', 'stage1_pack_plain'),
+                 ('band_counts', 'band_counts_plain'),
+                 ('_propagate_v3', 'propagate_v3_plain'),
+                 ('_blocks_to_measures', 'blocks_to_measures_plain'))
+
+
 @contextlib.contextmanager
-def plain_k2_k3(ag):
-    """Inside: the pipe calls the plain K2 and K3 (same tensors, same
-    device) instead of the kernels."""
-    saved = ag.stage1_pack, ag.band_counts
-    ag.stage1_pack, ag.band_counts = ag.stage1_pack_plain, \
-        ag.band_counts_plain
+def plain_kernels(ag):
+    """Inside: the align pipes call the plain versions of K2, K3, K5 and
+    K4 (same tensors, same device) instead of the kernels."""
+    saved = {k: getattr(ag, k) for k, _ in ALIGN_KERNELS}
+    for k, plain in ALIGN_KERNELS:
+        setattr(ag, k, getattr(ag, plain))
     try:
         yield
     finally:
-        ag.stage1_pack, ag.band_counts = saved
+        for k, fn in saved.items():
+            setattr(ag, k, fn)
+
+
+def zero_align_launches(ag) -> None:
+    for k, _ in ALIGN_KERNELS:
+        getattr(ag, k).launches = 0
+
+
+def align_launches(ag) -> dict:
+    return {k: getattr(ag, k).launches for k, _ in ALIGN_KERNELS}
+
+
+def check_align_launches(path: str, launches: dict, dispatches: dict):
+    """Each v3 dispatch launches K2, K3, K5 and K4 once, each v2 dispatch
+    K4 once; a path that launched none of its kernels fails."""
+    v3, v2 = dispatches['v3'], dispatches['v2']
+    want = {'stage1_pack': v3, 'band_counts': v3, '_propagate_v3': v3,
+            '_blocks_to_measures': v3 + v2}
+    if launches != want or not v3 + v2:
+        fail(f'{path}: launches {launches} for {v3} v3 and {v2} v2 '
+             f'dispatches (want {want})')
+
+
+def same_records(path: str, got, want) -> None:
+    """Aggregates, record counts and records equal, bit for bit."""
+    for what, a, b in (('aggregates', got[0], want[0]),
+                       ('record counts', got[1][1], want[1][1]),
+                       ('records', got[1][0], want[1][0])):
+        if a.shape != b.shape or not (a == b).all():
+            fail(f'{path}: {what}, kernels != plain')
 
 
 def profile_breakdown(torch, fn, top: int = 10) -> dict:
@@ -847,27 +889,22 @@ def align_v3_corpus(torch, dev, name, corpus, ag, reps: int = 3):
 
     # The path, counted from 0.
     torch.cuda.reset_peak_memory_stats()
-    ag.stage1_pack.launches = 0
-    ag.band_counts.launches = 0
-    t0 = time.perf_counter()
-    got = ag._all2all_single(codes, pairs, index=idx, keep_alignments=True,
-                             pipe='v3')
-    first_s = time.perf_counter() - t0
-    launches = {'stage1_pack': ag.stage1_pack.launches,
-                'band_counts': ag.band_counts.launches}
+    zero_align_launches(ag)
+    with pipe_timer(ag) as st:
+        t0 = time.perf_counter()
+        got = ag._all2all_single(codes, pairs, index=idx,
+                                 keep_alignments=True, pipe='v3')
+        first_s = time.perf_counter() - t0
+    launches = align_launches(ag)
     peak = torch.cuda.max_memory_allocated()
-    if min(launches.values()) < 1:
-        fail(f'align_v3 {name}: K2 or K3 did not launch ({launches})')
+    dispatches = {p: st[p]['dispatches'] for p in st}
+    check_align_launches(f'align_v3 {name}', launches, dispatches)
 
-    # The same function with the plain K2 and K3.
-    with plain_k2_k3(ag):
+    # The same function with the plain K2, K3, K5 and K4.
+    with plain_kernels(ag):
         want = ag._all2all_single(codes, pairs, index=idx,
                                   keep_alignments=True, pipe='v3')
-    for what, a, b in (('aggregates', got[0], want[0]),
-                       ('record counts', got[1][1], want[1][1]),
-                       ('records', got[1][0], want[1][0])):
-        if a.shape != b.shape or not np.array_equal(a, b):
-            fail(f'align_v3 {name}: {what}, kernels != plain')
+    same_records(f'align_v3 {name}', got, want)
     out = got[0]
     if out.shape != (len(pairs), 6) or (out < 0).any():
         fail(f'align_v3 {name}: malformed aggregates')
@@ -888,7 +925,7 @@ def align_v3_corpus(torch, dev, name, corpus, ag, reps: int = 3):
                 index_bound_ms=index_bytes / HBM_BYTES_PER_S * 1e3,
                 first_run_s=first_s, warm_s=walls,
                 pairs_per_s=len(pairs) / min(walls), path_launches=launches,
-                peak_mem_gib=peak / 2 ** 30,
+                dispatches=dispatches, peak_mem_gib=peak / 2 ** 30,
                 aligned_pairs=int((out[:, 0] + out[:, 3] > 0).sum()),
                 records=int(len(got[1][0])), kernels_eq_plain=True,
                 profile=prof), codes, pairs, idx, out
@@ -954,6 +991,163 @@ K3_DESIGN = ('bit planes (low, high, is-a-base) built with __ballot_sync, '
              'loop, a lane a shift: funnel shifts, the match mask, __popc; '
              'bands without N skip the is-a-base planes; the election in a '
              'register and one __reduce_max_sync; no shared memory')
+K4_DESIGN = ('positions as bits, 32 a word (a word a fine block); a CTA a '
+             'pair over chunks of 1,024 words, 4 consecutive words a thread '
+             'with 3 words of halo each side for the runs, the +-39 '
+             'dilations and the 15-windows; three block-wide scans a chunk '
+             '(count of m, last anchored match, break and MAL run; last '
+             'segment start; accepted segments before a thread) and a walk '
+             'over the anchored matches that closes each segment at the '
+             'next start: no cummax, no sort')
+K5_DESIGN = ("a CTA a pair; its blocks' (diagonal, strand, assigned, count) "
+             'in shared memory twice (a step reads one copy and writes the '
+             'other), one __syncthreads a step, a thread a block gathering '
+             "its neighbour's count from the bands; then a warp a block "
+             'writes the flags, a lane a position')
+NO_LIBRARY = {
+    '_blocks_to_measures': 'none: no PyTorch call computes the segmentation '
+                           '(its plain version is some 80 torch ops)',
+    '_propagate_v3': 'none: no PyTorch call computes the neighbour adoption '
+                     '(its plain version is some 100 torch ops)'}
+
+# Int32 issue slots a word of 32 positions needs in the least bit-parallel
+# sequence of the back half (K4's operation bound):
+#   32  pack the two flag arrays to bits: 8 words of 4 bytes each, a
+#       multiply and a shift-or into place
+#    2  the switch refinement: a select under the mask below the switch
+#       point (the point's own search, on switchable blocks only, is left
+#       out)
+#   18  runs of MSL = 7: 6 funnel shifts and 3 LOP3 for the starts, as many
+#       for the fill
+#   30  runs of MAL = 11: 10 and 5, twice
+#   24  the +-39 dilations: 5 doubling steps of a shift and an OR each way,
+#       and the steps of 8
+#   44  the 15-wide density rule: a 4-bit sum of 15 shifted copies (14
+#       funnel shifts, 11 full adders of 2 LOP3; >= 8 is the top bit) and
+#       the fill 14 ahead (4 doubling steps)
+#    2  the anchored matches
+#   10  what the scans carry: the population count of m (4 slots), the
+#       last set bit of the anchored matches, breaks and MAL runs
+K4_SLOTS_PER_WORD = 162
+
+
+def k4_bound(n: int, Lq: int, width: int = 0) -> dict:
+    """K4's least time on n pairs: the bytes (the two flag arrays, 13 bytes
+    a block of per-block inputs, rlen, the aggregates and counts and, with
+    records, `width` rows of 24 bytes a pair) and the int32 slots."""
+    words = n * (Lq // 32)
+    nbytes = 2 * n * Lq + 13 * words + 20 * n + 24 * n * width
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = K4_SLOTS_PER_WORD * words / INT32_SLOTS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by='bytes' if t_bytes >= t_ops else 'operations',
+                bound_bytes_ms=t_bytes, bound_ops_ms=t_ops, bytes=nbytes,
+                int32_slots=K4_SLOTS_PER_WORD * words)
+
+
+def k4_alone(torch, ag, flat, rl, Lq: int, kw: dict, at: str) -> dict:
+    """K4 alone on one dispatch's back-half inputs, without and with
+    records, each against its plain version on the same tensors: error,
+    ms, device_ms, plain_ms and the bound."""
+    out = dict(at=at)
+    for alns in (False, True):
+        def run(fn, alns=alns):
+            return fn(*flat, rl, Lq=Lq, with_alns=alns, **kw)
+        got, want = run(ag._blocks_to_measures), \
+            run(ag.blocks_to_measures_plain)
+        torch.cuda.synchronize()
+        got, want = (got, want) if alns else ((got,), (want,))
+        if any(g.shape != w.shape for g, w in zip(got, want)):
+            fail(f'K4 at {at}: shapes differ from plain')
+        err = max(int((g - w).abs().max()) if g.numel() else 0
+                  for g, w in zip(got, want))
+        if err:
+            fail(f'K4 != plain at {at} (records {alns}; max abs err {err})')
+        out['records' if alns else 'aggregates'] = dict(
+            max_abs_err=err, ms=time_ms(lambda: run(ag._blocks_to_measures),
+                                        5),
+            device_ms=device_ms(lambda: run(ag._blocks_to_measures), 5),
+            plain_ms=time_ms(lambda: run(ag.blocks_to_measures_plain), 3),
+            **k4_bound(rl.shape[0], Lq, got[1].shape[1] if alns else 0))
+    return out
+
+
+def k5_bytes(torch, ag, el, g3) -> int:
+    """The least bytes of stages 5-6 on `el`: the 32-byte sectors its
+    gathers need, each read once (a step's count of each block whose
+    neighbour differs, at the neighbour's diagonal in the bands of its
+    strand that hold it, and those bands' first diagonals; the query bases
+    and window bytes at each flag's diagonal), the per-block election read
+    once and every output written once. Replays the plain version's steps
+    to find them."""
+    BAND, WIN = g3['BAND'], g3['WIN']
+    nb, R, K, NBF = el['base'].shape
+    N = R * K
+    base = el['base'].reshape(nb, N, NBF)
+    cnt = el['cnt'].reshape(nb, N, NBF, BAND)
+    A, S, D = (el[k].reshape(N, NBF) for k in ('A', 'S', 'D'))
+    cc = torch.where(A, el['cnt_best'].reshape(N, NBF), -1)
+    blk = torch.arange(N * NBF, device=A.device).view(N, NBF)
+    reads = {'cnt': [], 'base': [], 'win': [], 'qb': []}
+
+    def gather(Sx, Dx, need, flags=False):
+        out = torch.full((N, NBF), -1, dtype=torch.int32, device=A.device)
+        for i, is_rc in enumerate(ag._BAND_IS_RC):
+            mine = need & (Sx if is_rc else ~Sx)
+            reads['base'].append((i * N * NBF + blk[mine]) * 4 // 32)
+            tn = Dx - base[i]
+            ok = mine & (tn >= 0) & (tn < BAND)
+            at = (i * N * NBF + blk[ok]) * (WIN if flags else BAND) + tn[ok]
+            reads['win' if flags else 'cnt'] += [at // 32] + (
+                [(at + 31) // 32] if flags else [])
+            cv = torch.gather(cnt[i], -1, tn.clamp(0, BAND - 1).long()[
+                ..., None])[..., 0].int()
+            out = torch.maximum(out, torch.where(ok, cv, -1))
+        return out
+
+    for _ in range(ag.EXT_ITERS):
+        for shf in (ag._sh_r, ag._sh_l):
+            Dn, Sn, An = shf(D, 1, 0), shf(S, 1, False), shf(A, 1, False)
+            need = An & ((Dn != D) | (Sn != S))
+            cn = torch.where(need, gather(Sn, Dn, need), -1)
+            better = (cn >= ag.EXT_MIN) & (cn > cc + ag.EXT_MARGIN)
+            adopt = better | (A & (cn >= ag.EXT_MIN)
+                              & (cn + ag.V3_CONT >= cc) & (cn <= cc))
+            D, S = torch.where(adopt, Dn, D), torch.where(adopt, Sn, S)
+            A, cc = A | better, torch.where(adopt, cn, cc)
+    Ap, Sp, Dp = ag._sh_r(A, 1, False), ag._sh_r(S, 1, False), \
+        ag._sh_r(D, 1, 0)
+    sw = A & Ap & ((D != Dp) | (S != Sp))
+    gather(S, D, A, flags=True)
+    gather(Sp, Dp, sw, flags=True)
+    reads['qb'].append(blk[A | sw])
+    sectors = sum(len(torch.unique(torch.cat(v))) for v in reads.values()
+                  if v)
+    blocks = N * NBF
+    return 32 * sectors + 10 * blocks + 2 * blocks * 32 + 13 * blocks
+
+
+def k5_alone(torch, ag, el, g3, at: str) -> dict:
+    """K5 alone on one dispatch's stage-4 results, against its plain
+    version on the same tensors: error, ms, device_ms, plain_ms, bound."""
+    got, want = ag._propagate_v3(el, g3), ag.propagate_v3_plain(el, g3)
+    torch.cuda.synchronize()
+    err = max(int((g.int() - w.int()).abs().max()) for g, w in zip(got, want))
+    if err or any(g.dtype != w.dtype for g, w in zip(got, want)):
+        fail(f'K5 != plain at {at} (max abs err {err})')
+    nbytes = k5_bytes(torch, ag, el, g3)
+    # All the band counts and windows, as the old bound read them.
+    whole = (el['cnt'].numel() + el['win'].numel()) / HBM_BYTES_PER_S * 1e3
+    return dict(
+        name='_propagate_v3', route='cuda',
+        source='vclust_tpu_torch/csrc/align_v3.cu',
+        replaces='vclust_tpu/ops/align_tpu.py:1235', design=K5_DESIGN,
+        max_abs_err=err, ms=time_ms(lambda: ag._propagate_v3(el, g3), 5),
+        device_ms=device_ms(lambda: ag._propagate_v3(el, g3), 5),
+        plain_ms=time_ms(lambda: ag.propagate_v3_plain(el, g3), 3),
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by='bytes',
+        library_ms=None, library=NO_LIBRARY['_propagate_v3'], at=at,
+        bytes=nbytes, bound_all_counts_and_windows_ms=whole)
 
 
 def k2_k3_alone(torch, dev, ag, b, codes, seed: int, kb: int):
@@ -987,7 +1181,7 @@ def k2_k3_alone(torch, dev, ag, b, codes, seed: int, kb: int):
     if k2_err:
         fail(f'K2 != plain at bucket {kb} (max abs err {k2_err})')
     cnt1, g1, cnt2, g2 = ag._stage1_v3(*s1)
-    with plain_k2_k3(ag):
+    with plain_kernels(ag):
         if not all(torch.equal(x, y) for x, y in zip(
                 (cnt1, g1, cnt2, g2), ag._stage1_v3(*s1))):
             fail(f'K2 at bucket {kb}: cnt1, g1, cnt2, g2 != plain')
@@ -1051,50 +1245,57 @@ def k2_k3_alone(torch, dev, ag, b, codes, seed: int, kb: int):
 
 def align_v3_dispatch(torch, dev, ag, idx, codes, seed: int, kb=65536):
     """K2 and K3 alone on one full dispatch at bucket `kb` (k2_k3_alone);
-    then the time of each stage of that dispatch."""
+    K5 alone on its stage-4 results and K4 alone on its stage-5-6 results
+    (without and with records), each against its plain version; then the
+    time of each stage of that dispatch."""
     b = idx.bucket[(kb, 'v3')]
     k2, k3, (s1, rlens, (cnt1, g1, cnt2, g2), B, K, g3) = k2_k3_alone(
         torch, dev, ag, b, codes, seed, kb)
     r_rows, q_rows = s1[2:]
-    tasks = B * K
+    N = B * K
+    at = f'bucket {kb}: B={B} rows x K={K}, NBF={kb // ag.FINE}'
 
-    # Each stage of the dispatch (kernels on), and the back half (K4's
-    # torch ops) alone, with its bytes bound: the two flag arrays read once.
     p = ag.AlignParams()
     kw = dict(mqd=p.mqd, mrd=p.mrd, reg=p.reg)
     tb, sm = ag.V3_TBAND, ag.V3_SMIN
     el = ag._bands_v3(b, r_rows, rlens, q_rows, cnt1, g1, cnt2, g2, tb, sm,
                       g3)
-    m1, m0, sw, A, S, D, Ap, Sp, Dp = ag._propagate_v3(el, g3)
-    N = tasks
-    flat = [x.reshape((N,) + x.shape[2:]) for x in (m1, m0, sw, A, S, D, Ap,
-                                                    Sp, Dp)]
+    k5 = k5_alone(torch, ag, el, g3, at)
+    flat = [x.reshape((N,) + x.shape[2:])
+            for x in ag._propagate_v3(el, g3)]
     rl = rlens[:, None].expand(B, K).reshape(N)
-
-    def back(with_alns=False):
-        return ag._blocks_to_measures(*flat, rl, Lq=kb, with_alns=with_alns,
-                                      **kw)
-
+    k4 = k4_alone(torch, ag, flat, rl, kb, kw, at)
     stages = dict(
         stage1_ms=time_ms(lambda: ag._stage1_v3(*s1), 3),
         bands_ms=time_ms(lambda: ag._bands_v3(
             b, r_rows, rlens, q_rows, cnt1, g1, cnt2, g2, tb, sm, g3), 3),
-        propagate_ms=time_ms(lambda: ag._propagate_v3(el, g3), 3),
-        # Least bytes of stages 5-6: the bands' counts and windows and the
-        # query bases read once, the two flag arrays written once.
-        propagate_bound_ms=(el['cnt'].numel() + el['win'].numel()
-                            + 3 * N * kb) / HBM_BYTES_PER_S * 1e3,
-        back_half_ms=time_ms(back, 3),
-        back_half_records_ms=time_ms(lambda: back(True), 3),
+        propagate_ms=k5['ms'], propagate_plain_ms=k5['plain_ms'],
+        back_half_ms=k4['aggregates']['ms'],
+        back_half_records_ms=k4['records']['ms'],
+        back_half_plain_ms=k4['aggregates']['plain_ms'],
+        back_half_records_plain_ms=k4['records']['plain_ms'],
         row_core_ms=time_ms(lambda: ag._row_core_v3(
-            b, r_rows, rlens, q_rows, tb, sm, Lq=kb, Lr=kb, K=K, **kw), 3))
-    k4 = dict(name='_blocks_to_measures', route='torch ops',
-              ms=stages['back_half_ms'],
-              bound_ms=2.0 * N * kb / HBM_BYTES_PER_S * 1e3,
-              bound_by='bytes')
+            b, r_rows, rlens, q_rows, tb, sm, Lq=kb, Lr=kb, K=K, **kw), 3),
+        row_core_records_ms=time_ms(lambda: ag._row_core_v3(
+            b, r_rows, rlens, q_rows, tb, sm, Lq=kb, Lr=kb, K=K,
+            with_alns=True, **kw), 3))
+    with plain_kernels(ag):
+        stages['row_core_plain_ms'] = time_ms(lambda: ag._row_core_v3(
+            b, r_rows, rlens, q_rows, tb, sm, Lq=kb, Lr=kb, K=K, **kw), 3)
     emit(dict(phase='align_v3_dispatch', bucket=kb, rows=B, K=K,
-              k2=k2, k3=k3, k4=k4, stages=stages))
-    return k2, k3
+              k2=k2, k3=k3, k4=k4, k5=k5, stages=stages))
+    k4_row = dict(
+        name='_blocks_to_measures', route='cuda',
+        source='vclust_tpu_torch/csrc/back_half.cu',
+        replaces='vclust_tpu/ops/align_tpu.py:454', design=K4_DESIGN,
+        **{k: k4['aggregates'][k] for k in (
+            'max_abs_err', 'ms', 'device_ms', 'plain_ms', 'bound_ms',
+            'bound_by', 'bound_bytes_ms', 'bound_ops_ms')},
+        library_ms=None, library=NO_LIBRARY['_blocks_to_measures'], at=at,
+        with_records=k4['records'])
+    k4_row['max_abs_err'] = max(k4_row['max_abs_err'],
+                                k4['records']['max_abs_err'])
+    return k2, k3, k4_row, k5
 
 
 def k2_library_ms(torch, qocc, rocc, r_rows, q_rows) -> float:
@@ -1131,17 +1332,21 @@ def k2_library_ms(torch, qocc, rocc, r_rows, q_rows) -> float:
 
 
 def phase_align_v3(torch, dev, seed: int, engine: dict):
-    """Phases align_v3 and align_hybrid. K2's and K3's `launches` are
-    those of the CLI engine path (phase align_engine); the other paths'
-    are beside them."""
+    """Phases align_v3 and align_hybrid. The `launches` of K2, K3, K5 and
+    K4 are those of the CLI engine path (phase align_engine); the other
+    paths' are beside them. Returns their four rows."""
     from vclust_tpu_torch.ops import align_gpu as ag
     res48, codes, pairs, idx, out = align_v3_corpus(
         torch, dev, 'genomes48', mutant_corpus(), ag)
     res48.update(cpu_reference_check(dev, ag, codes, pairs, out))
     res48.update(native_dtani(codes, pairs, out))
     emit(res48)
-    k2, k3 = align_v3_dispatch(torch, dev, ag, idx, codes, seed)
-    phase_align_hybrid(torch, dev, ag, idx, codes, pairs, out, seed)
+    k2, k3, k4, k5 = align_v3_dispatch(torch, dev, ag, idx, codes, seed)
+    hybrid = phase_align_hybrid(torch, dev, ag, idx, codes, pairs, out,
+                                seed)
+    k4['at_v2'] = hybrid['v2_dispatch']['k4']
+    k4['max_abs_err'] = max(k4['max_abs_err'], *(
+        k4['at_v2'][v]['max_abs_err'] for v in ('aggregates', 'records')))
     del idx
     res_c, c_codes, _, c_idx, _ = align_v3_corpus(
         torch, dev, 'contigs128', contig_corpus(), ag)
@@ -1157,15 +1362,17 @@ def phase_align_v3(torch, dev, seed: int, engine: dict):
         row['at_4096'] = {key: at[key] for key in (
             'at', 'max_abs_err', 'ms', 'device_ms', 'plain_ms', 'bound_ms',
             'bound_by', 'library_ms')}
-    for row in (k2, k3):
+    rows = (k2, k3, k5, k4)
+    for row in rows:
         key = row['name']
         row['launches'] = engine['path_launches'][key]
         row['launches_by_path'] = {
             'align --engine gpu (example, 66 pairs)':
                 engine['path_launches'][key],
             'align_v3 genomes48': res48['path_launches'][key],
-            'align_v3 contigs128': res_c['path_launches'][key]}
-    return k2, k3
+            'align_v3 contigs128': res_c['path_launches'][key],
+            'align_hybrid genomes48': hybrid['path_launches'][key]}
+    return rows
 
 
 # --------------------------------------------------------------------------
@@ -1224,19 +1431,20 @@ def pipe_timer(ag):
 
 def engine_run(ag, out: pathlib.Path, *extra):
     """`align --engine gpu` of example/multifasta.fna into out/ani.tsv
-    (with `extra` arguments), K2 and K3 counted from 0 around it. Returns
-    (wall seconds, launches, pipe stats)."""
+    (with `extra` arguments), K2, K3, K5 and K4 counted from 0 around it,
+    each held to the dispatches of its pipes. Returns (wall seconds,
+    launches, pipe stats)."""
     from vclust_tpu_torch.utils.data import example_dir
     out.mkdir()
-    ag.stage1_pack.launches = 0
-    ag.band_counts.launches = 0
+    zero_align_launches(ag)
     with pipe_timer(ag) as st:
         t0 = time.perf_counter()
         cli('align', '-i', example_dir() / 'multifasta.fna', '-o',
             out / 'ani.tsv', '--engine', 'gpu', '-v', '0', *extra)
         wall = time.perf_counter() - t0
-    launches = {'stage1_pack': ag.stage1_pack.launches,
-                'band_counts': ag.band_counts.launches}
+    launches = align_launches(ag)
+    check_align_launches('align --engine gpu', launches,
+                         {p: st[p]['dispatches'] for p in st})
     return wall, launches, st
 
 
@@ -1257,8 +1465,6 @@ def phase_align_engine(torch, work: pathlib.Path):
     cold = work / 'engine_cold'
     wall, launches, st = engine_run(ag, cold, '--out-aln',
                                     cold / 'ani.aln.tsv')
-    if min(launches.values()) < 1:
-        fail(f'align --engine gpu: K2 or K3 did not launch ({launches})')
     for name in names:
         if (cold / name).read_bytes() != (gold / name).read_bytes():
             fail(f'align --engine gpu: {name} != the JAX --engine tpu '
@@ -1316,9 +1522,9 @@ def phase_align_engine(torch, work: pathlib.Path):
 
 def v2_dispatch(torch, dev, ag, b, codes, kb, seed, C=None):
     """One v2 dispatch at bucket `kb` (B rows of K = 8 queries from the
-    arena `b`): each stage's event time, its bytes bound and the live
-    bytes of the dispatch at 1 and 2 rows (their difference a row),
-    without and with records."""
+    arena `b`): each stage's event time (K4 alone against its plain
+    version, k4_alone), its bytes bound and the live bytes of the dispatch
+    at 1 and 2 rows (their difference a row), without and with records."""
     import numpy as np
     C = C or ag.SEEDS_PER_BLOCK
     K = ag.K_QUERIES
@@ -1353,14 +1559,17 @@ def v2_dispatch(torch, dev, ag, b, codes, kb, seed, C=None):
     N = B * K
     flat = [x.reshape((N,) + x.shape[2:]) for x in flags]
     rl = rlens[:, None].expand(B, K).reshape(N)
+    k4 = k4_alone(torch, ag, flat, rl, kb, dict(mqd=p.mqd, mrd=p.mrd,
+                                                reg=p.reg),
+                  f'v2 bucket {kb}: B={B} rows x K={K}, C={C}')
     stages = dict(
         votes_ms=time_ms(lambda: ag._votes_v2(b, r_rows, q_rows, Lq=kb,
                                               Lr=kb, C=C), 3),
         election_ms=time_ms(lambda: ag._elect_v2(votes, Lq=kb, Lr=kb), 3),
         propagation_ms=time_ms(lambda: ag._propagate_v2(
             b, r_rows, rlens, q_rows, qlens, A, S, D, Lr=kb), 3),
-        back_half_ms=time_ms(lambda: ag._blocks_to_measures(
-            *flat, rl, Lq=kb, mqd=p.mqd, mrd=p.mrd, reg=p.reg), 3),
+        back_half_ms=k4['aggregates']['ms'],
+        back_half_plain_ms=k4['aggregates']['plain_ms'],
         row_core_ms=time_ms(lambda: ag._row_core(
             b, r_rows, rlens, q_rows, qlens, **kw), 3))
     del votes, flags, flat
@@ -1375,7 +1584,7 @@ def v2_dispatch(torch, dev, ag, b, codes, kb, seed, C=None):
     one, two = peak(1), peak(2)
     one_r, two_r = peak(1, True), peak(2, True)
     return dict(bucket=kb, rows=B, K=K, C=C, pack_bits=b['pack_bits'],
-                stages=stages,
+                stages=stages, k4=k4,
                 bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by='bytes',
                 peak_bytes_1_row=one, peak_bytes_2_rows=two,
                 bytes_per_row=two - one,
@@ -1392,14 +1601,25 @@ def phase_align_hybrid(torch, dev, ag, idx, codes, pairs, v3_out, seed):
     """all2all_gpu at its defaults on the 48 genomes (their v3 arenas from
     phase align_v3 reused); the hybrid against v3 alone."""
     import numpy as np
+    zero_align_launches(ag)
     with pipe_timer(ag) as st:
         t0 = time.perf_counter()
         out = ag.all2all_gpu(codes, pairs, index=idx)
         first_s = time.perf_counter() - t0
+    launches = align_launches(ag)
+    check_align_launches('align_hybrid', launches,
+                         {p: st[p]['dispatches'] for p in st})
     if st['v3']['pairs'] != len(pairs):
         fail('align_hybrid: v3 did not run every pair')
     hard = st['v2']['pairs']
     changed = int((out != v3_out).any(axis=1).sum())
+    # With records, the kernels against the plain K2, K3, K5 and K4.
+    with_recs = ag.all2all_gpu(codes, pairs, index=idx, keep_alignments=True)
+    with plain_kernels(ag):
+        want = ag.all2all_gpu(codes, pairs, index=idx, keep_alignments=True)
+    same_records('align_hybrid', with_recs, want)
+    if not np.array_equal(with_recs[0], out):
+        fail('align_hybrid: aggregates differ with records')
     walls = {'hybrid': [], 'v3_alone': []}
     cov = ag.V3_RERUN_COV
     for _ in range(3):
@@ -1421,7 +1641,8 @@ def phase_align_hybrid(torch, dev, ag, idx, codes, pairs, v3_out, seed):
                pairs_per_s={k: len(pairs) / min(v) for k, v in walls.items()},
                v2_s_first=st['v2']['s'], v3_s_first=st['v3']['s'],
                dispatches_first={p: st[p]['dispatches'] for p in st},
-               profile=prof)
+               path_launches=launches, records=int(len(with_recs[1][0])),
+               kernels_eq_plain=True, profile=prof)
     res.update(native_dtani(codes, pairs, out))
     kb = 65536
     res['v2_dispatch'] = v2_dispatch(torch, dev, ag,
@@ -1505,14 +1726,20 @@ def phase_align_v2(torch, dev, seed):
     idx = ag.GenomeIndex(codes, device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ag.stage1_pack.launches = 0
-    t0 = time.perf_counter()
-    got = ag._all2all_single(codes, pairs, index=idx, keep_alignments=True,
-                             pipe='v2')
-    first_s = time.perf_counter() - t0
+    zero_align_launches(ag)
+    with pipe_timer(ag) as st:
+        t0 = time.perf_counter()
+        got = ag._all2all_single(codes, pairs, index=idx,
+                                 keep_alignments=True, pipe='v2')
+        first_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    if ag.stage1_pack.launches:
-        fail('align_v2: the v2 pipe launched K2')
+    launches = align_launches(ag)
+    dispatches = {p: st[p]['dispatches'] for p in st}
+    check_align_launches('align_v2', launches, dispatches)
+    with plain_kernels(ag):
+        want = ag._all2all_single(codes, pairs, index=idx,
+                                  keep_alignments=True, pipe='v2')
+    same_records('align_v2', got, want)
     out = got[0]
     if out.shape != (len(pairs), 6) or (out < 0).any():
         fail('align_v2: malformed aggregates')
@@ -1551,7 +1778,8 @@ def phase_align_v2(torch, dev, seed):
                    {idx.bucket[k]['pack_bits'] for k in idx.bucket}),
                first_run_s=first_s, warm_s=walls,
                pairs_per_s=len(pairs) / min(walls), peak_mem_gib=peak / 2 ** 30,
-               records=int(len(got[1][0])),
+               records=int(len(got[1][0])), path_launches=launches,
+               dispatches=dispatches, kernels_eq_plain=True,
                tani=((out[:, 1] + out[:, 4]) / den).round(5).tolist(),
                cpu_eq_pairs=check.tolist(),
                cpu_eq_records=int(len(cpu[1][0])), wide_pack=wide,
@@ -1671,10 +1899,10 @@ def run_workers(devices, shards: int, timeout: float = 300.0) -> list:
     return ok
 
 
-def phase_mesh(torch, dev, k1_inputs, k2_row, k3_row) -> dict:
+def phase_mesh(torch, dev, k1_inputs, align_rows) -> dict:
     """Phase mesh (module docstring, 10). Returns K1's window-mode fields
-    for the kernels line; adds the sharded align's K2 and K3 launches to
-    their rows."""
+    for the kernels line; adds the sharded align's K2, K3, K5 and K4
+    launches to their rows."""
     import numpy as np
     from vclust_tpu_torch.entry import dryrun_multichip, entry
     from vclust_tpu_torch.ops import align_gpu as ag
@@ -1747,16 +1975,21 @@ def phase_mesh(torch, dev, k1_inputs, k2_row, k3_row) -> dict:
     codes, pairs = align_inputs(mutant_corpus())
     single = ag.all2all_gpu(codes, pairs, keep_alignments=True, device=dev)
     mesh2 = make_mesh(2, device=dev)
-    ag.stage1_pack.launches = ag.band_counts.launches = 0
-    sharded = ag.all2all_gpu(codes, pairs, keep_alignments=True, mesh=mesh2)
-    align_launches = {'stage1_pack': ag.stage1_pack.launches,
-                      'band_counts': ag.band_counts.launches}
-    if min(align_launches.values()) < 2:
-        fail(f'mesh: the sharded align launched K2 / K3 {align_launches}')
+    zero_align_launches(ag)
+    with pipe_timer(ag) as st:
+        sharded = ag.all2all_gpu(codes, pairs, keep_alignments=True,
+                                 mesh=mesh2)
+    sharded_launches = align_launches(ag)
+    check_align_launches('mesh: the sharded align', sharded_launches,
+                         {p: st[p]['dispatches'] for p in st})
     if not (np.array_equal(single[0], sharded[0])
             and np.array_equal(single[1][0], sharded[1][0])
             and np.array_equal(single[1][1], sharded[1][1])):
         fail('mesh: the sharded align != the single device')
+    with plain_kernels(ag):
+        plain = ag.all2all_gpu(codes, pairs, keep_alignments=True,
+                               mesh=mesh2)
+    same_records('mesh: the sharded align', sharded, plain)
     walls = {'single': [], 'sharded_2': []}
     for _ in range(2):
         for key, kw in (('single', dict(device=dev)),
@@ -1766,12 +1999,13 @@ def phase_mesh(torch, dev, k1_inputs, k2_row, k3_row) -> dict:
             walls[key].append(time.perf_counter() - t0)
     res['align'] = dict(corpus='genomes48', pairs=len(pairs),
                         records=int(len(single[1][0])),
-                        launches=align_launches, warm_s=walls,
+                        launches=sharded_launches, kernels_eq_plain=True,
+                        warm_s=walls,
                         pairs_per_s={k: len(pairs) / min(v)
                                      for k, v in walls.items()})
-    for row in (k2_row, k3_row):
+    for row in align_rows:
         row['launches_by_path']['mesh: all2all_gpu 2 shards (genomes48)'] = \
-            align_launches[row['name']]
+            sharded_launches[row['name']]
 
     # Two processes on this card, and the dry run.
     t0 = time.perf_counter()
@@ -1860,14 +2094,18 @@ def main():
             'device_ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms',
             'limb_products', 'limb_products_without_classes', 'split')})
     kx_row['at'] = 'the kx phase jobs'
-    k2_row, k3_row = phase_align_v3(torch, dev, args.seed, engine)
-    phase_align_v2(torch, dev, args.seed)
-    window, unweighted = phase_mesh(torch, dev, k1_inputs, k2_row, k3_row)
+    align_rows = phase_align_v3(torch, dev, args.seed, engine)
+    v2 = phase_align_v2(torch, dev, args.seed)
+    for row in align_rows:
+        row['launches_by_path']['align_v2 (8 genomes, 28 pairs)'] = \
+            v2['path_launches'][row['name']]
+    window, unweighted = phase_mesh(torch, dev, k1_inputs, align_rows)
     k1_row['window_mode'] = window
     k1_row['unweighted'] = unweighted
     k1_row['max_abs_err'] = max(k1_row['max_abs_err'], window['max_abs_err'],
                                 unweighted['max_abs_err'])
-    emit({'kernels': [kx_row, k1_row, k2_row, k3_row],
+    k2_row, k3_row, k5_row, k4_row = align_rows
+    emit({'kernels': [kx_row, k1_row, k2_row, k3_row, k4_row, k5_row],
           'seconds': time.perf_counter() - t0})
     smi = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',

@@ -17,6 +17,8 @@ import torch
 
 sys.path.insert(0, '.')
 
+from back_half_cases import (CASES, PARAMS, back_half_case,  # noqa: E402
+                             propagate_case)
 from vclust_tpu_torch.ops import align_gpu as tav  # noqa: E402
 from vclust_tpu_torch.ops import extend as tx      # noqa: E402
 from vclust_tpu_torch.ops import prefilter as tpf  # noqa: E402
@@ -443,6 +445,70 @@ def test_k3_kernel_matches_plain(cuda_device, n, win, ties):
         assert ((bb & 3072) == 3072).all()
 
 
+def _k4_both(device, case, Lq, params, with_alns):
+    """K4 and its plain version on the same tensors on `device`."""
+    x = [torch.from_numpy(a).to(device)
+         for a in back_half_case(case, Lq, Lq + len(case))]
+    mqd, mrd, reg = PARAMS[params]
+    kw = dict(Lq=Lq, mqd=mqd, mrd=mrd, reg=reg, with_alns=with_alns)
+    before = tav._blocks_to_measures.launches
+    got = tav._blocks_to_measures(*x, **kw)
+    launched = tav._blocks_to_measures.launches - before
+    return got, tav.blocks_to_measures_plain(*x, **kw), launched
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('Lq,case,params', [
+    (Lq, case, 'cap' if case == 'cap' else 'default')
+    for Lq in (4096, 65536, 262144) for case in CASES + ('cap',)]
+    + [(4096, case, 'tight') for case in CASES]
+    + [(1 << 20, 'random', 'default')])
+def test_k4_kernel_matches_plain(cuda_device, Lq, case, params):
+    """The back half's kernel == its plain version, aggregates without
+    records, and aggregates, records and counts before the cap with them;
+    Lq up to MAX_TPU_LEN (32 chunks of 1,024 words)."""
+    got, want, launched = _k4_both(cuda_device, case, Lq, params, False)
+    torch.cuda.synchronize()
+    assert launched == 1 and torch.equal(got, want)
+    got, want, launched = _k4_both(cuda_device, case, Lq, params, True)
+    torch.cuda.synchronize()
+    assert launched == 1
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.equal(g, w)
+    if case == 'cap':
+        assert (got[2] > got[1].shape[1]).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('R,K,NBF,band,ties,knobs', [
+    (3, 8, 2048, 224, False, None), (2, 4, 2048, 224, True, None),
+    (1, 2, 8192, 224, False, None), (5, 3, 128, 160, True, None),
+    # a ragged block count, the widest band, and other EXT_* / V3_CONT
+    (2, 1, 33, 512, False, None), (2, 3, 300, 224, True, (0, 17, 4, 6)),
+    (2, 3, 300, 224, False, (5, 12, 0, 0)), (2, 3, 300, 224, True,
+                                              (2, 20, 8, 32))])
+def test_k5_kernel_matches_plain(cuda_device, monkeypatch, R, K, NBF, band,
+                                 ties, knobs):
+    """Stages 5-6's kernel == its plain version on crafted band counts and
+    windows (with ties across the bands), every output."""
+    if knobs:
+        for name, v in zip(('EXT_ITERS', 'EXT_MIN', 'EXT_MARGIN',
+                            'V3_CONT'), knobs):
+            monkeypatch.setattr(tav, name, v)
+    el = {k: torch.from_numpy(v).to(cuda_device)
+          for k, v in propagate_case(NBF + R, R, K, NBF, band, ties).items()}
+    g3 = dict(BAND=band, WIN=band + 32)
+    before = tav._propagate_v3.launches
+    got = tav._propagate_v3(el, g3)
+    want = tav.propagate_v3_plain(el, g3)
+    torch.cuda.synchronize()
+    assert tav._propagate_v3.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    if not knobs or knobs[0]:
+        assert not torch.equal(got[5], el['D'])     # something was adopted
+
+
 @pytest.mark.gpu
 def test_kernel_launches_counted(cuda_device):
     q, ref = _seqs()
@@ -484,6 +550,25 @@ def test_cpu_tensors_take_the_plain_k2_and_k3():
     assert (tav.stage1_pack.launches, tav.band_counts.launches) == before
 
 
+def test_cpu_tensors_take_the_plain_k4_and_k5():
+    """K4 and K5 wrappers answer CPU tensors with their plain versions,
+    without a launch."""
+    before = (tav._blocks_to_measures.launches, tav._propagate_v3.launches)
+    x = [torch.from_numpy(a) for a in back_half_case('random', 4096, 5)]
+    kw = dict(Lq=4096, mqd=40, mrd=40, reg=35, with_alns=True)
+    for g, w in zip(tav._blocks_to_measures(*x, **kw),
+                    tav.blocks_to_measures_plain(*x, **kw)):
+        assert torch.equal(g, w)
+    el = {k: torch.from_numpy(v)
+          for k, v in propagate_case(6, 2, 2, 64, 224).items()}
+    g3 = dict(BAND=224, WIN=256)
+    for g, w in zip(tav._propagate_v3(el, g3),
+                    tav.propagate_v3_plain(el, g3)):
+        assert torch.equal(g, w)
+    assert (tav._blocks_to_measures.launches,
+            tav._propagate_v3.launches) == before
+
+
 def _hybrid_codes(seed=4):
     """Six genomes of 3-3.4 kb: a base with an internal repeat, its 5%
     mutant, the reverse complement of a 4% mutant, a 3% mutant of its
@@ -510,22 +595,26 @@ def _hybrid_codes(seed=4):
 @pytest.mark.gpu
 @pytest.mark.parametrize('pipe', ['v3', 'v2'])
 def test_all2all_gpu_card_matches_cpu(cuda_device, monkeypatch, pipe):
-    """The device align engine on the card (K2 and K3 launched on v3; the
-    hybrid's v2 re-run, or v2 alone) == the same engine on the CPU,
-    aggregates and records."""
+    """The device align engine on the card (K2, K3, K5 and K4 launched on
+    v3; K4 on the hybrid's v2 re-run, or on v2 alone) == the same engine on
+    the CPU, aggregates and records."""
     monkeypatch.setenv('VCLUST_ALIGN_PIPE', pipe)
     codes = _hybrid_codes()
     n = len(codes)
     pairs = np.array([(i, j) for i in range(n) for j in range(i + 1, n)],
                      np.int32)
-    before = tav.stage1_pack.launches, tav.band_counts.launches
+    counters = (tav.stage1_pack, tav.band_counts, tav._propagate_v3,
+                tav._blocks_to_measures)
+    before = [c.launches for c in counters]
     got = tav.all2all_gpu(codes, pairs, keep_alignments=True,
                           device=cuda_device)
-    launched = (tav.stage1_pack.launches - before[0],
-                tav.band_counts.launches - before[1])
+    launched = tuple(c.launches - b for c, b in zip(counters, before))
     want = tav.all2all_gpu(codes, pairs, keep_alignments=True, device='cpu')
     assert np.array_equal(got[0], want[0])
     assert np.array_equal(got[1][1], want[1][1])
     assert np.array_equal(got[1][0], want[1][0])
     assert (got[0][:, 1] > 0).sum() >= 4
-    assert (min(launched) >= 1) if pipe == 'v3' else launched == (0, 0)
+    if pipe == 'v3':        # K2, K3, K5 and K4 a v3 dispatch; K4 on v2
+        assert min(launched) >= 1 and launched[3] >= launched[2]
+    else:
+        assert launched[:3] == (0, 0, 0) and launched[3] >= 1

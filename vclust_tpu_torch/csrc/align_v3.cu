@@ -1,11 +1,13 @@
-// K2 and K3: stage 1 and the banded eval of the v3 align pipe.
+// K2, K3 and K5: stage 1, the banded eval and the propagation of the v3
+// align pipe.
 //
 // Replace the XLA device programs of the JAX package's `_row_core_v3` (its
 // ops/align_tpu.py): stage 1, the occupancy product with its packed maxes
-// (:1108-1157), and stages 3-4, the band counts and their election
-// (:1175-1212). Both are bit-exact with the plain torch versions beside
-// their wrappers in ops/align_gpu.py (`stage1_pack_plain`,
-// `band_counts_plain`).
+// (:1108-1157), stages 3-4, the band counts and their election
+// (:1175-1212), and stages 5-6, the neighbour propagation and the final
+// flags (:1235-1290). All are bit-exact with the plain torch versions
+// beside their wrappers in ops/align_gpu.py (`stage1_pack_plain`,
+// `band_counts_plain`, `propagate_v3_plain`).
 //
 // K2 (k2_stage1). For every task (dispatch row x query) it forms
 // M = qocc . rocc^T, (2*NQB) query half-blocks x NRB reference blocks over
@@ -76,6 +78,28 @@
 //     a shift. The loop is uniform across the CTA (a warp past the last
 //     block recounts it and stores the same bytes), so the votes compile
 //     without reconvergence code.
+//
+// K5 (k5_propagate). Per fine block of a directed pair, EXT_ITERS rounds of
+// neighbour adoption (from the block before, then from the block after),
+// each reading the neighbour's (strand, diagonal) from before the step and
+// its count from the band counts K3 wrote (the largest over the bands that
+// hold that strand and diagonal), in the rescue and continuity tiers; then
+// the final flags m1 on the block's own (strand, diagonal) and m0 on the
+// previous block's where the block is switchable, each a query base equal
+// to the window base at the diagonal in any band that holds it.
+// What bounds it, and what the design does about it:
+//   * Bytes, in 32-byte sectors: the count a step gathers for a block whose
+//     neighbour differs (one sector each), the query bases and the window
+//     bytes of the bands that hold a flag's diagonal (one or two sectors),
+//     the per-block state read once and the flags written once. The band
+//     counts and windows are read only where a gather needs them (a few
+//     percent of the 436 and 382 MB of the B = 26 dispatch).
+//   * Design: one CTA a pair; the pair's (diagonal, strand, assigned,
+//     count) of all NBF blocks (at most 8,192 under R2's guard) live in
+//     shared memory, twice, so a step reads the state from before it and
+//     writes the other copy, with one __syncthreads a step. Then a warp a
+//     block writes the flags, a lane a position: 32 consecutive bytes of
+//     the window and of the output each.
 
 #include <cuda.h>  // CUtensorMap and its enums (types only)
 #include <cuda_runtime.h>
@@ -478,6 +502,152 @@ int launch_bands(const int8_t* wins, const int8_t* qb, int n, int win,
   return (int)cudaGetLastError();
 }
 
+// ---- K5 ----------------------------------------------------------------
+constexpr int K5_THREADS = 256;
+constexpr int K5_MAX_NBF = 8192;   // 2^13 reference blocks (R2's guard)
+
+struct PropArgs {
+  const int8_t *cnt, *win;
+  const int32_t* base;
+  const int8_t* qb;
+  const uint8_t *A0, *S0;
+  const int32_t *D0, *best;
+  int N, NBF, band, win_w, iters, ext_min, ext_margin, cont;
+  uint8_t *m1, *m0, *sw, *A, *S;
+  int32_t* D;
+  uint8_t *Ap, *Sp;
+  int32_t* Dp;
+};
+
+// The largest band count of block f at (strand s, diagonal d) over the
+// bands of that strand that hold d (band b is reverse when b is odd); -1
+// if none.
+__device__ __forceinline__ int count_at(const PropArgs& a, int n, int f,
+                                        int s, int d) {
+  int out = -1;
+#pragma unroll
+  for (int b = s; b < NBANDS; b += 2) {
+    const size_t o = ((size_t)b * a.N + n) * a.NBF + f;
+    const int tn = d - a.base[o];
+    if (tn >= 0 && tn < a.band) out = max(out, (int)a.cnt[o * a.band + tn]);
+  }
+  return out;
+}
+
+// Position `lane` of block f matches at (s, d) in some band that holds it.
+__device__ __forceinline__ bool flag_at(const PropArgs& a, int n, int f,
+                                        int s, int d, int lane, int8_t q) {
+  bool hit = false;
+#pragma unroll
+  for (int b = s; b < NBANDS; b += 2) {
+    const size_t o = ((size_t)b * a.N + n) * a.NBF + f;
+    const int tn = d - a.base[o];
+    if (tn >= 0 && tn < a.band) hit |= a.win[o * a.win_w + tn + lane] == q;
+  }
+  return hit;
+}
+
+// State of a block in shared memory: the diagonal, and count + 1 (bits
+// 0-7), strand (bit 8), assigned (bit 9).
+__device__ __forceinline__ uint32_t k5_meta(int cc, int s, int asg) {
+  return (uint32_t)(cc + 1) | (uint32_t)s << 8 | (uint32_t)asg << 9;
+}
+
+__global__ void __launch_bounds__(K5_THREADS)
+propagate_kernel(PropArgs a) {
+  extern __shared__ int32_t k5_smem[];
+  const int n = blockIdx.x, NBF = a.NBF;
+  int32_t* dbuf = k5_smem;                                   // [2][NBF]
+  uint16_t* mbuf = reinterpret_cast<uint16_t*>(k5_smem + 2 * NBF);
+  const size_t row = (size_t)n * NBF;
+  for (int f = threadIdx.x; f < NBF; f += blockDim.x) {
+    const int asg = a.A0[row + f] != 0;
+    dbuf[f] = a.D0[row + f];
+    mbuf[f] = (uint16_t)k5_meta(asg ? a.best[row + f] : -1,
+                                a.S0[row + f] != 0, asg);
+  }
+  __syncthreads();
+  int cur = 0;
+  for (int step = 0; step < 2 * a.iters; ++step) {
+    const int dir = (step & 1) ? 1 : -1;   // the block before, then after
+    const int32_t* dc = dbuf + cur * NBF;
+    const uint16_t* mc = mbuf + cur * NBF;
+    int32_t* dn_out = dbuf + (cur ^ 1) * NBF;
+    uint16_t* mn_out = mbuf + (cur ^ 1) * NBF;
+    for (int f = threadIdx.x; f < NBF; f += blockDim.x) {
+      int d = dc[f];
+      const int mt = mc[f];
+      int s = (mt >> 8) & 1, asg = (mt >> 9) & 1, cc = (mt & 255) - 1;
+      const int g = f + dir;
+      int dn = 0, sn = 0, an = 0;
+      if (g >= 0 && g < NBF) {
+        dn = dc[g];
+        sn = (mc[g] >> 8) & 1;
+        an = (mc[g] >> 9) & 1;
+      }
+      const int cn = an && (dn != d || sn != s) ? count_at(a, n, f, sn, dn)
+                                                : -1;
+      const bool better = cn >= a.ext_min && cn > cc + a.ext_margin;
+      const bool cont = asg && cn >= a.ext_min && cn + a.cont >= cc &&
+                        cn <= cc;
+      if (better || cont) {
+        d = dn;
+        s = sn;
+        cc = cn;
+      }
+      asg |= better;
+      dn_out[f] = d;
+      mn_out[f] = (uint16_t)k5_meta(cc, s, asg);
+    }
+    __syncthreads();
+    cur ^= 1;
+  }
+  const int32_t* df = dbuf + cur * NBF;
+  const uint16_t* mf = mbuf + cur * NBF;
+  for (int f = threadIdx.x; f < NBF; f += blockDim.x) {
+    const int d = df[f], s = (mf[f] >> 8) & 1, asg = (mf[f] >> 9) & 1;
+    const int dp = f ? df[f - 1] : 0;
+    const int sp = f ? (mf[f - 1] >> 8) & 1 : 0;
+    const int ap = f ? (mf[f - 1] >> 9) & 1 : 0;
+    a.D[row + f] = d;
+    a.S[row + f] = (uint8_t)s;
+    a.A[row + f] = (uint8_t)asg;
+    a.Dp[row + f] = dp;
+    a.Sp[row + f] = (uint8_t)sp;
+    a.Ap[row + f] = (uint8_t)ap;
+    a.sw[row + f] = (uint8_t)(asg && ap && (d != dp || s != sp));
+  }
+  const int lane = threadIdx.x & 31;
+  for (int f = threadIdx.x >> 5; f < NBF; f += blockDim.x >> 5) {
+    const int d = df[f], s = (mf[f] >> 8) & 1, asg = (mf[f] >> 9) & 1;
+    const int dp = f ? df[f - 1] : 0;
+    const int sp = f ? (mf[f - 1] >> 8) & 1 : 0;
+    const int ap = f ? (mf[f - 1] >> 9) & 1 : 0;
+    const bool sw = asg && ap && (d != dp || s != sp);
+    const size_t o = (row + f) * FINE + lane;
+    const int8_t q = a.qb[o];
+    const bool qok = q < 4;
+    a.m1[o] = (uint8_t)(qok && asg && flag_at(a, n, f, s, d, lane, q));
+    a.m0[o] = (uint8_t)(qok && sw && flag_at(a, n, f, sp, dp, lane, q));
+  }
+}
+
+int launch_propagate(const PropArgs& a, cudaStream_t s) {
+  static bool configured[MAX_DEVICES] = {};  // the attribute is per device
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (!configured[dev]) {
+    cudaError_t err = cudaFuncSetAttribute(
+        propagate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        12 * K5_MAX_NBF);
+    if (err != cudaSuccess) return (int)err;
+    configured[dev] = true;
+  }
+  propagate_kernel<<<a.N, K5_THREADS, 12 * a.NBF, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
 // ---- host: tensor maps and launches -------------------------------------
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -628,6 +798,28 @@ int k3_bands(const int8_t* wins, const int8_t* qb, int n, int win,
 #undef K3_CASE
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// K5. cnt: (4, N, NBF, band) int8 and win: (4, N, NBF, win_w) int8, the
+// band counts and windows of K3 (win_w = band + 32); base: (4, N, NBF)
+// int32, each band's first diagonal; qb: (N, NBF, 32) int8; A0, S0: (N,
+// NBF) bool, D0, best: (N, NBF) int32, the election. Writes m1, m0: (N,
+// NBF * 32) bool and sw, A, S, Ap, Sp: (N, NBF) bool, D, Dp: (N, NBF)
+// int32. NBF <= 8192. Returns cudaGetLastError().
+int k5_propagate(const int8_t* cnt, const int8_t* win, const int32_t* base,
+                 const int8_t* qb, const uint8_t* A0, const uint8_t* S0,
+                 const int32_t* D0, const int32_t* best, int N, int NBF,
+                 int band, int win_w, int iters, int ext_min, int ext_margin,
+                 int cont, uint8_t* m1, uint8_t* m0, uint8_t* sw, uint8_t* A,
+                 uint8_t* S, int32_t* D, uint8_t* Ap, uint8_t* Sp,
+                 int32_t* Dp, void* stream) {
+  if (N < 1 || NBF < 1 || NBF > K5_MAX_NBF || band < 1 ||
+      win_w != band + FINE || iters < 0)
+    return (int)cudaErrorInvalidValue;
+  const PropArgs a{cnt, win, base, qb, A0, S0, D0, best, N, NBF, band, win_w,
+                   iters, ext_min, ext_margin, cont, m1, m0, sw, A, S, D, Ap,
+                   Sp, Dp};
+  return launch_propagate(a, static_cast<cudaStream_t>(stream));
 }
 
 const char* vk_error_string(int code) {

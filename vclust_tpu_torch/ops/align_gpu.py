@@ -17,11 +17,13 @@ bit for bit. The default front end, v3:
    strands, the match counts of every fine block of 32 query bases at
    BAND diagonal shifts, and the election of the best (count, candidate,
    strand, shift) per fine block.
-4. **Stages 5-6** (`_propagate_v3`, torch ops): neighbour propagation read
-   from the band counts, then the final match flags from the windows.
-5. **Back half** (`_blocks_to_measures`, torch ops; its kernel K4 is still
-   to come): single-switch refinement, breaks, anchored-match chaining,
-   segmentation, aggregates and, with_alns, the per-segment records.
+4. **Stages 5-6** (`_propagate_v3`, kernel K5 in csrc/align_v3.cu):
+   neighbour propagation read from the band counts, then the final match
+   flags from the windows.
+5. **Back half** (`_blocks_to_measures`, kernel K4 in csrc/back_half.cu,
+   shared by both front ends): single-switch refinement, breaks,
+   anchored-match chaining, segmentation, aggregates and, with_alns, the
+   per-segment records.
 
 The v2 front end (sort join, torch ops), for buckets above V3_MAX_BUCKET,
 for the pairs v3 leaves hard, and with VCLUST_ALIGN_PIPE=v2:
@@ -44,10 +46,12 @@ mechanisms are kept in semantics only: the hierarchical cummax is
 sort is an inverse permutation, and the dispatch size comes from a bound
 on live device bytes (`_dispatch_rows`, `_dispatch_rows_v2`).
 
-`stage1_pack` (K2) and `band_counts` (K3) are the kernel wrappers: CPU
-tensors take `stage1_pack_plain` / `band_counts_plain`, CUDA tensors
-launch the kernel or raise. Each wrapper's `launches` counts its kernel
-launches. Entry points: `all2all_gpu` and `_all2all_single`, on `cuda`
+`stage1_pack` (K2), `band_counts` (K3), `_propagate_v3` (K5) and
+`_blocks_to_measures` (K4) are the kernel wrappers: CPU tensors take
+`stage1_pack_plain`, `band_counts_plain`, `propagate_v3_plain` and
+`blocks_to_measures_plain`, CUDA tensors launch the kernel or raise. Each
+wrapper's `launches` counts its kernel launches. The v2 front end's own
+stages run as torch ops. Entry points: `all2all_gpu` and `_all2all_single`, on `cuda`
 unless the caller asks for the CPU (utils/device.py), or over a mesh
 (parallel/mesh.py): the dispatches are dealt to the shards in turn, each
 runs on its shard's device against a copy of the arena there, and the
@@ -167,7 +171,9 @@ _LIVE_BYTES = 2 << 30
 # Bytes a query position of a row holds live in stages 5-6 and the back
 # half, without and with records (the int64 sort of the keys): the peak
 # of one dispatch at bucket 65,536 less the bands' windows and counts is
-# 91.6 and 143.8 bytes a position on an H100 (tools/v3_dispatch_probe.py).
+# 91.6 and 143.8 bytes a position on an H100 (tools/v3_dispatch_probe.py),
+# measured while both stages ran as torch ops; kernels K5 and K4 hold
+# less, so these bounds now leave room.
 _BYTES_PER_POS = 92
 _BYTES_PER_POS_RECORDS = 144
 # The v2 pipe's peak live bytes a query position of a row, without and
@@ -572,13 +578,13 @@ def _maxseg(Lq: int, reg: int) -> int:
     return min(Lq // max(reg, 16) + 8, 2048)
 
 
-def _blocks_to_measures(m1, m0, switchable, A, S, D, Ap, Sp, Dp, rlen,
-                        *, Lq, mqd, mrd, reg, with_alns=False,
-                        debug=False, debug_extra=None):
-    """Shared back half of the per-row core, over N directed pairs:
-    single-switch refinement of the per-position flags, region breaks,
-    anchored-match chaining, segmentation and aggregates (and
-    per-segment records with with_alns).
+def blocks_to_measures_plain(m1, m0, switchable, A, S, D, Ap, Sp, Dp, rlen,
+                             *, Lq, mqd, mrd, reg, with_alns=False,
+                             debug=False, debug_extra=None):
+    """Plain torch version of K4 on any device: the shared back half of the
+    per-row core, over N directed pairs: single-switch refinement of the
+    per-position flags, region breaks, anchored-match chaining,
+    segmentation and aggregates (and per-segment records with with_alns).
 
     m1, m0: (N, Lq) bool; switchable, A, S, Ap, Sp: (N, NBF) bool; D, Dp:
     (N, NBF) int32; rlen: (N,) int32. Returns agg (N, 3) int32 =
@@ -692,6 +698,78 @@ def _blocks_to_measures(m1, m0, switchable, A, S, D, Ap, Sp, Dp, rlen,
                        dim=-1)
     recs = torch.where((r_start >= 0)[..., None], recs, -1)
     return agg, recs, rec.sum(dim=-1, dtype=i32)
+
+
+def _blocks_to_measures(m1, m0, switchable, A, S, D, Ap, Sp, Dp, rlen,
+                        *, Lq, mqd, mrd, reg, with_alns=False,
+                        debug=False, debug_extra=None):
+    """K4 wrapper (see blocks_to_measures_plain for the arguments and
+    results): the plain version for CPU tensors, the CUDA kernel for CUDA
+    tensors (or raise). debug asks for intermediates that only the plain
+    version forms, so it runs the plain version on any device. On the card
+    the flag arrays must be 16-byte aligned (the kernel reads them 16 bytes
+    at a time)."""
+    dev = m1.device
+    if debug or dev.type == 'cpu':
+        return blocks_to_measures_plain(
+            m1, m0, switchable, A, S, D, Ap, Sp, Dp, rlen, Lq=Lq, mqd=mqd,
+            mrd=mrd, reg=reg, with_alns=with_alns, debug=debug,
+            debug_extra=debug_extra)
+    if dev.type != 'cuda':
+        raise ValueError(f'unsupported device {dev}')
+    N = m1.shape[0]
+    NBF = Lq // FINE
+    if Lq % FINE or not NBF:
+        raise ValueError(f'back half: Lq={Lq} is not a positive multiple of '
+                         f'{FINE}')
+    for name, t in (('m1', m1), ('m0', m0)):
+        cuda.require(t, name, torch.bool, 2, dev)
+        if t.shape != (N, Lq):
+            raise ValueError(f'back half: {name} must be ({N}, {Lq})')
+        if t.data_ptr() % 16:
+            raise ValueError(f'K4 reads {name} 16 bytes at a time: its data '
+                             f'must be 16-byte aligned')
+    for name, t, dt in (('switchable', switchable, torch.bool),
+                        ('A', A, torch.bool), ('S', S, torch.bool),
+                        ('D', D, torch.int32), ('Ap', Ap, torch.bool),
+                        ('Sp', Sp, torch.bool), ('Dp', Dp, torch.int32)):
+        cuda.require(t, name, dt, 2, dev)
+        if t.shape != (N, NBF):
+            raise ValueError(f'back half: {name} must be ({N}, {NBF})')
+    # The row cores broadcast rlen with expand, which leaves one row's
+    # reference length at stride 0.
+    rlen = rlen.contiguous()
+    cuda.require(rlen, 'rlen', torch.int32, 1, dev)
+    if rlen.shape != (N,):
+        raise ValueError(f'back half: rlen must be ({N},)')
+    agg = torch.empty((N, 3), dtype=torch.int32, device=dev)
+    nrec = torch.empty(N, dtype=torch.int32, device=dev)
+    # Records past the cap are dropped, as the plain version's sorted
+    # prefix keeps at most Lq.
+    width = min(_maxseg(Lq, reg), Lq)
+    recs = (torch.full((N, width, 6), -1, dtype=torch.int32, device=dev)
+            if with_alns else None)
+    if N:
+        lib = cuda.library('back_half', cuda.BACK_HALF_SIGNATURES)
+        # Values past these limits act as the limits do: mqd >= Lq reaches
+        # back past position 0 (and a negative one acts as 0, the plain
+        # dilation's), no |D - Dp| reaches 2^30 and no segment Lq + 1.
+        with torch.cuda.device(dev):
+            rc = lib.k4_back_half(
+                *(cuda.ptr(t) for t in (m1, m0, switchable, A, S, D, Ap, Sp,
+                                        Dp, rlen)),
+                N, Lq, min(max(mqd, 0), Lq), min(mrd, 1 << 30),
+                max(min(reg, Lq + 1), 0), width, cuda.ptr(agg),
+                cuda.ptr(recs) if with_alns else None, cuda.ptr(nrec),
+                cuda.stream(m1))
+        cuda.check(lib, rc, 'k4_back_half')
+        _blocks_to_measures.launches += 1
+    if not with_alns:
+        return agg
+    return agg, recs, nrec
+
+
+_blocks_to_measures.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -920,12 +998,13 @@ def _bands_v3(b, r_rows, rlens, q_rows, cnt1, g1, cnt2, g2, tband, smin,
                 cnt_best=cnt_best, A=A, S=S, D=D)
 
 
-def _propagate_v3(el, g3):
-    """Stages 5-6: neighbour propagation read from the band counts, then
-    the final flags from the windows (bands holding the same (strand,
-    diagonal) show the same reference bases, so OR-ing across containing
-    bands is exact). Returns m1, m0 (R, K, Lq) bool and switchable, A, S,
-    D, Ap, Sp, Dp (R, K, NBF)."""
+def propagate_v3_plain(el, g3):
+    """Plain torch version of K5 on any device, stages 5-6: neighbour
+    propagation read from the band counts, then the final flags from the
+    windows (bands holding the same (strand, diagonal) show the same
+    reference bases, so OR-ing across containing bands is exact). el: the
+    dict of `_bands_v3`. Returns m1, m0 (R, K, Lq) bool and switchable, A,
+    S, D, Ap, Sp, Dp (R, K, NBF)."""
     BAND = g3['BAND']
     cnt, win, base = el['cnt'], el['win'], el['base']
     qb, qok = el['qb'], el['qok']
@@ -977,6 +1056,61 @@ def _propagate_v3(el, g3):
     switchable = A & Ap & ((D != Dp) | (S != Sp))
     m0 = flags_at(Sp, Dp, switchable)
     return m1, m0, switchable, A, S, D, Ap, Sp, Dp
+
+
+def _propagate_v3(el, g3):
+    """K5 wrapper (see propagate_v3_plain): the plain version for CPU
+    tensors, the CUDA kernel for CUDA tensors (or raise). The kernel takes
+    EXT_ITERS, EXT_MIN, EXT_MARGIN and V3_CONT as arguments and holds a
+    pair's blocks in shared memory, at most 2^13 of them (the stage-1
+    pack's bound, `_v3_geom`)."""
+    A = el['A']
+    dev = A.device
+    if dev.type == 'cpu':
+        return propagate_v3_plain(el, g3)
+    if dev.type != 'cuda':
+        raise ValueError(f'unsupported device {dev}')
+    BAND, WIN = g3['BAND'], g3['WIN']
+    if A.dim() != 3:
+        raise ValueError('stages 5-6: A must be (R, K, NBF)')
+    R, K, NBF = A.shape
+    nb = len(BAND_TAGS)
+    for name, dt, shape in (
+            ('cnt', torch.int8, (nb, R, K, NBF, BAND)),
+            ('win', torch.int8, (nb, R, K, NBF, WIN)),
+            ('base', torch.int32, (nb, R, K, NBF)),
+            ('qb', torch.int8, (R, K, NBF, FINE)),
+            ('A', torch.bool, (R, K, NBF)), ('S', torch.bool, (R, K, NBF)),
+            ('D', torch.int32, (R, K, NBF)),
+            ('cnt_best', torch.int32, (R, K, NBF))):
+        cuda.require(el[name], name, dt, len(shape), dev)
+        if el[name].shape != shape:
+            raise ValueError(f'stages 5-6: {name} must be {shape}')
+    if NBF > 1 << _RB_BITS:
+        raise ValueError(f'K5 holds at most {1 << _RB_BITS} blocks a pair; '
+                         f'got {NBF}')
+    N = R * K
+    m1, m0 = (torch.empty((R, K, NBF * FINE), dtype=torch.bool, device=dev)
+              for _ in range(2))
+    sw, A1, S1, Ap, Sp = (torch.empty((R, K, NBF), dtype=torch.bool,
+                                      device=dev) for _ in range(5))
+    D1, Dp = (torch.empty((R, K, NBF), dtype=torch.int32, device=dev)
+              for _ in range(2))
+    if N and NBF:
+        lib = cuda.library('align_v3', cuda.ALIGN_V3_SIGNATURES)
+        with torch.cuda.device(dev):
+            rc = lib.k5_propagate(
+                *(cuda.ptr(el[k]) for k in ('cnt', 'win', 'base', 'qb', 'A',
+                                            'S', 'D', 'cnt_best')),
+                N, NBF, BAND, WIN, EXT_ITERS, EXT_MIN, EXT_MARGIN, V3_CONT,
+                *(cuda.ptr(t) for t in (m1, m0, sw, A1, S1, D1, Ap, Sp, Dp)),
+                cuda.stream(A))
+        cuda.check(lib, rc, 'k5_propagate')
+        _propagate_v3.launches += 1
+    return m1, m0, sw, A1, S1, D1, Ap, Sp, Dp
+
+
+_propagate_v3.launches = 0
 
 
 def _row_core_v3(b, r_rows, rlens, q_rows, tband, smin,

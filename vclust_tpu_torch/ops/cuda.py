@@ -18,19 +18,28 @@ import torch
 from ..utils.build import (BUILD_DIR, CSRC_DIR, finish_compile, is_stale,
                            start_compile)
 
-SOURCES = ('occupancy', 'extend', 'align_v3')
+SOURCES = ('occupancy', 'extend', 'align_v3', 'back_half')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# The C entry points of csrc/align_v3.cu, kernels K2 and K3 of the v3 align
-# pipe (launched by ops/align_gpu.py): {function: argtypes}.
+# The C entry points of csrc/align_v3.cu, kernels K2, K3 and K5 of the v3
+# align pipe (launched by ops/align_gpu.py): {function: argtypes}.
 ALIGN_V3_SIGNATURES = {
     # qocc, rocc, r_rows, q_rows, tasks, K, Gq, Gr, M2, NRB, H, p_sum, p_a,
     # p_b, stream
     'k2_stage1': [_P] * 4 + [_I] * 7 + [_P] * 4,
     # wins, qb, n, win, cnt, bb, stream
     'k3_bands': [_P, _P, _I, _I, _P, _P, _P],
+    # cnt, win, base, qb, A0, S0, D0, best, N, NBF, band, win_w, iters,
+    # ext_min, ext_margin, cont, m1, m0, sw, A, S, D, Ap, Sp, Dp, stream
+    'k5_propagate': [_P] * 8 + [_I] * 8 + [_P] * 10,
+}
+# csrc/back_half.cu, kernel K4, the back half both align pipes share.
+BACK_HALF_SIGNATURES = {
+    # m1, m0, sw, A, S, D, Ap, Sp, Dp, rlen, N, Lq, mqd, mrd, reg, maxseg,
+    # agg, recs, nrec, stream
+    'k4_back_half': [_P] * 10 + [_I] * 6 + [_P] * 4,
 }
 
 _libs = {}
