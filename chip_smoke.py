@@ -177,6 +177,15 @@ def device_ms(fn, reps: int):
     return us / 1e3 / reps if us else None
 
 
+def with_shares(d: dict) -> dict:
+    """d (with ms, device_ms and bound_ms) with the share of the bound the
+    device time reaches and the wrapper's host time, ms - device_ms."""
+    if d.get('device_ms'):
+        d['share_of_bound'] = d['bound_ms'] / d['device_ms']
+        d['host_ms'] = d['ms'] - d['device_ms']
+    return d
+
+
 # --------------------------------------------------------------------------
 # Phase 2: KX
 # --------------------------------------------------------------------------
@@ -992,18 +1001,26 @@ K3_DESIGN = ('bit planes (low, high, is-a-base) built with __ballot_sync, '
              'bands without N skip the is-a-base planes; the election in a '
              'register and one __reduce_max_sync; no shared memory')
 K4_DESIGN = ('positions as bits, 32 a word (a word a fine block); a CTA a '
-             'pair over chunks of 1,024 words, 4 consecutive words a thread '
-             'with 3 words of halo each side for the runs, the +-39 '
-             'dilations and the 15-windows; three block-wide scans a chunk '
-             '(count of m, last anchored match, break and MAL run; last '
-             'segment start; accepted segments before a thread) and a walk '
-             'over the anchored matches that closes each segment at the '
-             'next start: no cummax, no sort')
-K5_DESIGN = ("a CTA a pair; its blocks' (diagonal, strand, assigned, count) "
-             'in shared memory twice (a step reads one copy and writes the '
-             'other), one __syncthreads a step, a thread a block gathering '
-             "its neighbour's count from the bands; then a warp a block "
-             'writes the flags, a lane a position')
+             'chunk of 512 words of one pair (fewer threads on shorter pairs; '
+             'N * ceil(NBF / 512) CTAs, taken in order from an atomic '
+             'ticket), 2 consecutive words a thread with 3 words of halo '
+             'each side for the runs, the +-39 dilations and the 15-windows '
+             '(a carry-save count); a summary of each chunk from its own '
+             'words by three block-wide scans (forward aggregate; segment '
+             'starts found a word at a time with masks, all but the first '
+             'anchored match; the segments they close); one decoupled '
+             'look-back applies the predecessors\' summaries to the nearest '
+             'published state; the last chunk closes the last segment, '
+             'writes the aggregates and the -1 rows')
+K5_DESIGN = ('tiles of 128 blocks of one pair, a warp each (4 a CTA), the '
+             'first from block 0, the others with EXT_ITERS + 1 blocks of '
+             'halo left, EXT_ITERS right; blocks lane + 32 j; a candidate '
+             'table of each block\'s counts at the initial states of the '
+             'assigned blocks of its cone, gathered up front (a block\'s '
+             'candidates on neighbouring lanes, runs of one state loaded '
+             'once); the steps by shuffles, carrying source blocks; then the '
+             'flags 4 blocks at a time, 8 lanes a block and a word a lane, '
+             '16 blocks\' loads in flight')
 NO_LIBRARY = {
     '_blocks_to_measures': 'none: no PyTorch call computes the segmentation '
                            '(its plain version is some 80 torch ops)',
@@ -1063,12 +1080,12 @@ def k4_alone(torch, ag, flat, rl, Lq: int, kw: dict, at: str) -> dict:
                   for g, w in zip(got, want))
         if err:
             fail(f'K4 != plain at {at} (records {alns}; max abs err {err})')
-        out['records' if alns else 'aggregates'] = dict(
+        out['records' if alns else 'aggregates'] = with_shares(dict(
             max_abs_err=err, ms=time_ms(lambda: run(ag._blocks_to_measures),
                                         5),
             device_ms=device_ms(lambda: run(ag._blocks_to_measures), 5),
             plain_ms=time_ms(lambda: run(ag.blocks_to_measures_plain), 3),
-            **k4_bound(rl.shape[0], Lq, got[1].shape[1] if alns else 0))
+            **k4_bound(rl.shape[0], Lq, got[1].shape[1] if alns else 0)))
     return out
 
 
@@ -1138,7 +1155,7 @@ def k5_alone(torch, ag, el, g3, at: str) -> dict:
     nbytes = k5_bytes(torch, ag, el, g3)
     # All the band counts and windows, as the old bound read them.
     whole = (el['cnt'].numel() + el['win'].numel()) / HBM_BYTES_PER_S * 1e3
-    return dict(
+    return with_shares(dict(
         name='_propagate_v3', route='cuda',
         source='vclust_tpu_torch/csrc/align_v3.cu',
         replaces='vclust_tpu/ops/align_tpu.py:1235', design=K5_DESIGN,
@@ -1147,7 +1164,7 @@ def k5_alone(torch, ag, el, g3, at: str) -> dict:
         plain_ms=time_ms(lambda: ag.propagate_v3_plain(el, g3), 3),
         bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by='bytes',
         library_ms=None, library=NO_LIBRARY['_propagate_v3'], at=at,
-        bytes=nbytes, bound_all_counts_and_windows_ms=whole)
+        bytes=nbytes, bound_all_counts_and_windows_ms=whole))
 
 
 def k2_k3_alone(torch, dev, ag, b, codes, seed: int, kb: int):
@@ -1243,28 +1260,41 @@ def k2_k3_alone(torch, dev, ag, b, codes, seed: int, kb: int):
     return k2, k3, (s1, rlens, (cnt1, g1, cnt2, g2), B, K, g3)
 
 
-def align_v3_dispatch(torch, dev, ag, idx, codes, seed: int, kb=65536):
-    """K2 and K3 alone on one full dispatch at bucket `kb` (k2_k3_alone);
-    K5 alone on its stage-4 results and K4 alone on its stage-5-6 results
-    (without and with records), each against its plain version; then the
-    time of each stage of that dispatch."""
-    b = idx.bucket[(kb, 'v3')]
-    k2, k3, (s1, rlens, (cnt1, g1, cnt2, g2), B, K, g3) = k2_k3_alone(
-        torch, dev, ag, b, codes, seed, kb)
+def k5_k4_alone(torch, ag, b, inputs, kb: int):
+    """K5 alone on the stage-4 results of one dispatch at bucket `kb` (the
+    inputs k2_k3_alone returns) and K4 alone on K5's outputs, without and
+    with records, each against its plain version (k5_alone, k4_alone)."""
+    s1, rlens, (cnt1, g1, cnt2, g2), B, K, g3 = inputs
     r_rows, q_rows = s1[2:]
     N = B * K
     at = f'bucket {kb}: B={B} rows x K={K}, NBF={kb // ag.FINE}'
-
     p = ag.AlignParams()
-    kw = dict(mqd=p.mqd, mrd=p.mrd, reg=p.reg)
-    tb, sm = ag.V3_TBAND, ag.V3_SMIN
-    el = ag._bands_v3(b, r_rows, rlens, q_rows, cnt1, g1, cnt2, g2, tb, sm,
-                      g3)
+    el = ag._bands_v3(b, r_rows, rlens, q_rows, cnt1, g1, cnt2, g2,
+                      ag.V3_TBAND, ag.V3_SMIN, g3)
     k5 = k5_alone(torch, ag, el, g3, at)
     flat = [x.reshape((N,) + x.shape[2:])
             for x in ag._propagate_v3(el, g3)]
+    del el
     rl = rlens[:, None].expand(B, K).reshape(N)
-    k4 = k4_alone(torch, ag, flat, rl, kb, kw, at)
+    k4 = k4_alone(torch, ag, flat, rl, kb,
+                  dict(mqd=p.mqd, mrd=p.mrd, reg=p.reg), at)
+    return k5, k4
+
+
+def align_v3_dispatch(torch, dev, ag, idx, codes, seed: int, kb=65536):
+    """K2 and K3 alone on one full dispatch at bucket `kb` (k2_k3_alone);
+    K5 alone on its stage-4 results and K4 alone on its stage-5-6 results
+    (without and with records), each against its plain version
+    (k5_k4_alone); then the time of each stage of that dispatch."""
+    b = idx.bucket[(kb, 'v3')]
+    k2, k3, inputs = k2_k3_alone(torch, dev, ag, b, codes, seed, kb)
+    s1, rlens, (cnt1, g1, cnt2, g2), B, K, g3 = inputs
+    r_rows, q_rows = s1[2:]
+    at = f'bucket {kb}: B={B} rows x K={K}, NBF={kb // ag.FINE}'
+    k5, k4 = k5_k4_alone(torch, ag, b, inputs, kb)
+    p = ag.AlignParams()
+    kw = dict(mqd=p.mqd, mrd=p.mrd, reg=p.reg)
+    tb, sm = ag.V3_TBAND, ag.V3_SMIN
     stages = dict(
         stage1_ms=time_ms(lambda: ag._stage1_v3(*s1), 3),
         bands_ms=time_ms(lambda: ag._bands_v3(
@@ -1288,9 +1318,10 @@ def align_v3_dispatch(torch, dev, ag, idx, codes, seed: int, kb=65536):
         name='_blocks_to_measures', route='cuda',
         source='vclust_tpu_torch/csrc/back_half.cu',
         replaces='vclust_tpu/ops/align_tpu.py:454', design=K4_DESIGN,
-        **{k: k4['aggregates'][k] for k in (
+        **{k: k4['aggregates'].get(k) for k in (
             'max_abs_err', 'ms', 'device_ms', 'plain_ms', 'bound_ms',
-            'bound_by', 'bound_bytes_ms', 'bound_ops_ms')},
+            'bound_by', 'bound_bytes_ms', 'bound_ops_ms', 'share_of_bound',
+            'host_ms')},
         library_ms=None, library=NO_LIBRARY['_blocks_to_measures'], at=at,
         with_records=k4['records'])
     k4_row['max_abs_err'] = max(k4_row['max_abs_err'],
@@ -1351,17 +1382,23 @@ def phase_align_v3(torch, dev, seed: int, engine: dict):
     res_c, c_codes, _, c_idx, _ = align_v3_corpus(
         torch, dev, 'contigs128', contig_corpus(), ag)
     emit(res_c)
-    # K2 and K3 alone at bucket 4,096 (K2's 64 x 128 tile).
-    small = k2_k3_alone(torch, dev, ag, c_idx.bucket[(4096, 'v3')], c_codes,
-                        seed, 4096)[:2]
-    emit(dict(phase='align_v3_dispatch', bucket=4096, k2=small[0],
-              k3=small[1]))
-    del c_idx
-    for row, at in zip((k2, k3), small):
+    # K2 and K3 alone at bucket 4,096 (K2's 64 x 128 tile); K5 and K4
+    # alone on that dispatch's stage-4 results (many short pairs).
+    b4 = c_idx.bucket[(4096, 'v3')]
+    k2s, k3s, inputs = k2_k3_alone(torch, dev, ag, b4, c_codes, seed, 4096)
+    k5s, k4s = k5_k4_alone(torch, ag, b4, inputs, 4096)
+    del inputs
+    emit(dict(phase='align_v3_dispatch', bucket=4096, k2=k2s, k3=k3s,
+              k4=k4s, k5=k5s))
+    del c_idx, b4
+    keys = ('at', 'max_abs_err', 'ms', 'device_ms', 'plain_ms', 'bound_ms',
+            'bound_by', 'library_ms', 'share_of_bound', 'host_ms')
+    for row, at in ((k2, k2s), (k3, k3s), (k5, k5s)):
         row['max_abs_err'] = max(row['max_abs_err'], at['max_abs_err'])
-        row['at_4096'] = {key: at[key] for key in (
-            'at', 'max_abs_err', 'ms', 'device_ms', 'plain_ms', 'bound_ms',
-            'bound_by', 'library_ms')}
+        row['at_4096'] = {key: at.get(key) for key in keys}
+    k4['at_4096'] = k4s
+    k4['max_abs_err'] = max(k4['max_abs_err'], *(
+        k4s[v]['max_abs_err'] for v in ('aggregates', 'records')))
     rows = (k2, k3, k5, k4)
     for row in rows:
         key = row['name']

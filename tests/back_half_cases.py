@@ -113,3 +113,68 @@ def propagate_case(seed, R, K, NBF, band, ties=False):
     qb[sub] = rng.integers(0, 5, sub.sum())
     return dict(cnt=cnt, win=win, base=base, qb=np.ascontiguousarray(qb),
                 qok=qb < 4, cnt_best=cnt_best, A=A, S=S, D=D)
+
+
+def chain_case(seed, R, K, NBF, band, c0, iters):
+    """A `propagate_case` dict in which block c0 alone is assigned and every
+    other block reads a high count (25) at c0's (strand, diagonal) and sits
+    off it by 7: each step hands c0's state one block on, so after the
+    EXT_ITERS rounds blocks c0 - iters .. c0 + iters hold it (a chain that
+    crosses any tile edge within iters of c0)."""
+    el = propagate_case(seed, R, K, NBF, band)
+    S0 = bool(el['S'][..., c0].flat[0])
+    d0 = int(el['D'][..., c0].flat[0])
+    el['S'][:] = S0
+    el['D'][:] = d0 + 7
+    el['D'][..., c0] = d0
+    el['A'][:] = False
+    el['A'][..., c0] = True
+    el['cnt_best'][..., c0] = 30
+    el['base'][:] = d0 - 5
+    for b in (1, 3) if S0 else (0, 2):
+        el['cnt'][b, ..., 5] = 25
+    lo, hi = max(c0 - iters, 0), min(c0 + iters + 1, NBF)
+    el['chain'] = (lo, hi)
+    return el
+
+
+def long_segment_case(Lq, pairs, at=(100, 20000, 40000)):
+    """Back-half inputs of one long segment: runs of 8 matches parted by one
+    mismatch from at[0] to at[2] (every match anchored, no MAL run of 11)
+    with one run of 12 matches at at[1] (its MAL run): with the default
+    `at`, the start, the MAL run and the end lie in chunks 0, 1 and 2 of
+    16,384 positions. Blocks assigned on one diagonal, nothing
+    switchable."""
+    NBF = Lq // FINE
+    m1 = np.zeros((pairs, Lq), bool)
+    pos = np.arange(at[0], at[2])
+    m1[:, pos[(pos - at[0]) % 9 != 8]] = True
+    m1[:, at[1]:at[1] + 12] = True
+    A = np.ones((pairs, NBF), bool)
+    S = np.zeros((pairs, NBF), bool)
+    D = np.full((pairs, NBF), 3, np.int32)
+    Ap, Sp, Dp = A.copy(), S.copy(), D.copy()
+    Ap[:, 0] = False
+    Dp[:, 0] = 0
+    sw = np.zeros((pairs, NBF), bool)
+    rlen = np.full(pairs, Lq, np.int32)
+    return [np.ascontiguousarray(x) for x in
+            (m1, m1.copy(), sw, A, S, D, Ap, Sp, Dp, rlen)]
+
+
+def last_chunk_case(Lq, pairs):
+    """Back-half inputs whose only matches lie in the last 60 positions:
+    the pair's only anchored matches, its only segment and its record
+    all sit in its last chunk."""
+    return long_segment_case(Lq, pairs, at=(Lq - 60, Lq - 40, Lq))
+
+
+def sparse_cap_case(Lq, pairs, period=48):
+    """Back-half inputs with a run of 11 matches every `period` positions
+    and nothing else: one accepted segment a run at mqd 0 and reg 11 (the
+    'cap' parameters), so at Lq = 262,144 the record cap (2,048) is
+    reached near position 98,000."""
+    x = long_segment_case(Lq, pairs, at=(0, 0, 0))
+    x[0][:] = (np.arange(Lq) % period < 11)[None]
+    x[1][:] = x[0]
+    return x

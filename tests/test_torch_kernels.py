@@ -18,7 +18,8 @@ import torch
 sys.path.insert(0, '.')
 
 from back_half_cases import (CASES, PARAMS, back_half_case,  # noqa: E402
-                             propagate_case)
+                             chain_case, last_chunk_case, long_segment_case,
+                             propagate_case, sparse_cap_case)
 from vclust_tpu_torch.ops import align_gpu as tav  # noqa: E402
 from vclust_tpu_torch.ops import extend as tx      # noqa: E402
 from vclust_tpu_torch.ops import prefilter as tpf  # noqa: E402
@@ -507,6 +508,124 @@ def test_k5_kernel_matches_plain(cuda_device, monkeypatch, R, K, NBF, band,
         assert g.dtype == w.dtype and torch.equal(g, w)
     if not knobs or knobs[0]:
         assert not torch.equal(got[5], el['D'])     # something was adopted
+
+
+def _k4_arrays_match(device, x, Lq, params):
+    """K4 == its plain version on the numpy inputs x, without and with
+    records (every output), one launch each."""
+    mqd, mrd, reg = PARAMS[params]
+    t = [torch.from_numpy(a).to(device) for a in x]
+    for alns in (False, True):
+        kw = dict(Lq=Lq, mqd=mqd, mrd=mrd, reg=reg, with_alns=alns)
+        before = tav._blocks_to_measures.launches
+        got = tav._blocks_to_measures(*t, **kw)
+        want = tav.blocks_to_measures_plain(*t, **kw)
+        torch.cuda.synchronize()
+        assert tav._blocks_to_measures.launches == before + 1
+        got, want = (got, want) if alns else ((got,), (want,))
+        for g, w in zip(got, want):
+            assert g.shape == w.shape and torch.equal(g, w)
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('case,Lq', [
+    ('long', 1 << 20), ('long', 65536), ('last', 65536), ('last', 4096),
+    ('last', 1 << 20)])
+def test_k4_segments_across_ctas(cuda_device, case, Lq):
+    """K4's chunks (512 words = 16,384 positions from bucket 16,384 up) on
+    separate CTAs: a segment whose start, MAL run and end lie in three
+    chunks (0, 1, 2 at 65,536; 3, 6, 8 at 2^20); a pair whose only
+    anchored matches lie in its last chunk."""
+    x = (long_segment_case(Lq, 3, (60000, 100000, 140000)) if case == 'long'
+         and Lq > 65536 else long_segment_case(Lq, 3) if case == 'long'
+         else last_chunk_case(Lq, 3))
+    got = _k4_arrays_match(cuda_device, x, Lq, 'default')
+    assert (got[0][:, 0] == 1).all()
+
+
+@pytest.mark.gpu
+def test_k4_cap_in_a_later_cta(cuda_device):
+    """The record cap (2,048 at Lq = 262,144) is reached in chunk 5 of 16:
+    the rows stop there, and the counts go on to the pair's end."""
+    Lq = 262144
+    got = _k4_arrays_match(cuda_device, sparse_cap_case(Lq, 2), Lq, 'cap')
+    assert got[1].shape[1] == 2048 and (got[2] == Lq // 48 + 1).all()
+    assert (got[1][:, -1, 0] > 5 * 16384).all()   # the last row's start
+
+
+@pytest.mark.gpu
+def test_k4_nothing_anchored(cuda_device):
+    """Pairs without a match at all, in every chunk: zero aggregates and
+    all record rows -1."""
+    Lq = 65536
+    x = back_half_case('random', Lq, 2)
+    x[0][:] = x[1][:] = False
+    got = _k4_arrays_match(cuda_device, x, Lq, 'default')
+    assert (got[0] == 0).all() and (got[1] == -1).all()
+
+
+@pytest.mark.gpu
+def test_k4_one_row_stride0_rlen(cuda_device):
+    """A one-row dispatch broadcasts its reference length at stride 0."""
+    Lq = 65536
+    x = [torch.from_numpy(a).to(cuda_device)
+         for a in back_half_case('random', Lq, 3)]
+    x[-1] = x[-1][:1].expand(x[0].shape[0])
+    assert x[-1].stride() == (0,)
+    mqd, mrd, reg = PARAMS['default']
+    kw = dict(Lq=Lq, mqd=mqd, mrd=mrd, reg=reg, with_alns=True)
+    before = tav._blocks_to_measures.launches
+    got = tav._blocks_to_measures(*x, **kw)
+    want = tav.blocks_to_measures_plain(*x, **kw)
+    torch.cuda.synchronize()
+    assert tav._blocks_to_measures.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def _k5_matches(device, el, g3):
+    el = {k: torch.from_numpy(v).to(device) for k, v in el.items()
+          if k != 'chain'}
+    before = tav._propagate_v3.launches
+    got = tav._propagate_v3(el, g3)
+    want = tav.propagate_v3_plain(el, g3)
+    torch.cuda.synchronize()
+    assert tav._propagate_v3.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('R,K,NBF,iters,ties', [
+    (2, 3, 1, 3, False),        # one block
+    (2, 2, 128, 3, False),      # one tile holds the pair
+    (2, 2, 129, 3, False),      # one block more: two tiles
+    (1, 3, 250, 3, True),       # one past two tiles (they hold 249)
+    (1, 2, 8192, 16, False),    # the largest pair at the widest halo
+    (3, 2, 224, 16, True),      # one past two tiles at 16 (223)
+    (2, 2, 300, 0, False)])
+def test_k5_tile_edges(cuda_device, monkeypatch, R, K, NBF, iters, ties):
+    """K5's tiles (128 blocks; the first writes 128 - EXT_ITERS, the others
+    128 - 2 EXT_ITERS - 1: 121 at EXT_ITERS = 3, 95 at 16) at ragged block
+    counts, one block and EXT_ITERS 0 and 16."""
+    monkeypatch.setattr(tav, 'EXT_ITERS', iters)
+    el = propagate_case(NBF + iters, R, K, NBF, 224, ties)
+    _k5_matches(cuda_device, el, dict(BAND=224, WIN=256))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('c0,iters', [(124, 3), (125, 3), (246, 3),
+                                      (112, 16), (207, 16)])
+def test_k5_chain_across_tile_edge(cuda_device, monkeypatch, c0, iters):
+    """A state handed on block by block across the edge between two tiles
+    (at 125 and 246 at EXT_ITERS = 3, at 112 and 207 at 16)."""
+    monkeypatch.setattr(tav, 'EXT_ITERS', iters)
+    el = chain_case(c0, 1, 2, 400, 224, c0, iters)
+    got = _k5_matches(cuda_device, el, dict(BAND=224, WIN=256))
+    lo, hi = el['chain']
+    assert got[3][..., lo:hi].all() and int(got[3].sum()) == 2 * (hi - lo)
 
 
 @pytest.mark.gpu

@@ -94,12 +94,33 @@
 //     the per-block state read once and the flags written once. The band
 //     counts and windows are read only where a gather needs them (a few
 //     percent of the 436 and 382 MB of the B = 26 dispatch).
-//   * Design: one CTA a pair; the pair's (diagonal, strand, assigned,
-//     count) of all NBF blocks (at most 8,192 under R2's guard) live in
-//     shared memory, twice, so a step reads the state from before it and
-//     writes the other copy, with one __syncthreads a step. Then a warp a
-//     block writes the flags, a lane a position: 32 consecutive bytes of
-//     the window and of the output each.
+//   * Latency and the L1's wavefronts: a gather that first waits on the
+//     load of its band's first diagonal, a warp that walks its blocks one
+//     load at a time, or a load instruction whose 32 lanes read 32
+//     different rows leaves the memory system idle or the L1 busy.
+//   * Design: the work is cut into tiles of K5_TILE = 128 blocks of one
+//     pair, one warp each (N * ceil(NBF / (128 - 2 * EXT_ITERS - 1))
+//     warps, 4 a CTA), blocks lane + 32 j (j < 4) in a lane, so that every
+//     per-block load and store is coalesced. A block's state after the
+//     2 * EXT_ITERS steps is the initial state of a block at most
+//     EXT_ITERS away (each step reads one neighbour, and the sides
+//     alternate), so a tile computes EXT_ITERS + 1 blocks of halo on its
+//     left (one more for the previous block's state) and EXT_ITERS on its
+//     right, and writes the blocks between; tiles never wait on each
+//     other. Before the first step the warp gathers, for each block, the
+//     count at the initial (strand, diagonal) of each of the
+//     2 * EXT_ITERS + 1 blocks of its cone (the candidate table, in
+//     shared memory), a block's candidates on neighbouring lanes, so that
+//     a load instruction reads a few count rows, not 32, and every load is
+//     independent. The steps exchange the neighbours' states by shuffles
+//     and carry each block's source block, whose count is one
+//     shared-memory read; the adoption still compares (strand, diagonal),
+//     not sources. The flags then go 4 blocks at a time over the warp, 8
+//     lanes a block and a word (4 positions) a lane: the query bases, each
+//     band's window (two aligned words funnel-shifted) and the two flag
+//     rows are 32 consecutive bytes a block, compared 4 bytes at a time
+//     (__vcmpeq4), with the windows' bands and shifts taken from shared
+//     memory and 16 blocks' loads in flight.
 
 #include <cuda.h>  // CUtensorMap and its enums (types only)
 #include <cuda_runtime.h>
@@ -503,8 +524,13 @@ int launch_bands(const int8_t* wins, const int8_t* qb, int n, int win,
 }
 
 // ---- K5 ----------------------------------------------------------------
-constexpr int K5_THREADS = 256;
-constexpr int K5_MAX_NBF = 8192;   // 2^13 reference blocks (R2's guard)
+constexpr int K5_WARPS = 4;               // warps a CTA, a tile each
+constexpr int K5_BPT = 4;                 // blocks a lane: lane + 32 j
+constexpr int K5_TILE = 32 * K5_BPT;      // blocks a tile holds, halo included
+constexpr int K5_MAX_ITERS = 16;          // VCLUST_ALIGN_EXTI's range
+constexpr int K5_MAX_NBF = 8192;          // 2^13 reference blocks (R2's guard)
+constexpr int K5_UNROLL = 4;              // 4-block groups whose flags load at once
+constexpr int K5_GATHER = 8;              // candidate tasks a lane loads at once
 
 struct PropArgs {
   const int8_t *cnt, *win;
@@ -512,139 +538,308 @@ struct PropArgs {
   const int8_t* qb;
   const uint8_t *A0, *S0;
   const int32_t *D0, *best;
-  int N, NBF, band, win_w, iters, ext_min, ext_margin, cont;
+  int N, NBF, band, win_w, iters, ext_min, ext_margin, cont, out, tiles;
   uint8_t *m1, *m0, *sw, *A, *S;
   int32_t* D;
   uint8_t *Ap, *Sp;
   int32_t* Dp;
 };
 
-// The largest band count of block f at (strand s, diagonal d) over the
-// bands of that strand that hold d (band b is reverse when b is odd); -1
-// if none.
-__device__ __forceinline__ int count_at(const PropArgs& a, int n, int f,
-                                        int s, int d) {
-  int out = -1;
-#pragma unroll
-  for (int b = s; b < NBANDS; b += 2) {
-    const size_t o = ((size_t)b * a.N + n) * a.NBF + f;
-    const int tn = d - a.base[o];
-    if (tn >= 0 && tn < a.band) out = max(out, (int)a.cnt[o * a.band + tn]);
-  }
-  return out;
+// Shared memory of a warp, by tile index: the four bands' first diagonals,
+// the initial diagonals, the windows the flags read (4 x int16: band << 10
+// | shift, or -1; m1's two bands, then m0's), the initial strands (bit 0;
+// bit 1 marks a block outside the pair, bit 2 an assigned one) and the
+// candidate table.
+constexpr int K5_AT_D0 = 16 * K5_TILE, K5_AT_FP = 20 * K5_TILE,
+              K5_AT_S0 = 28 * K5_TILE, K5_AT_CAND = 29 * K5_TILE;
+__host__ __device__ constexpr int k5_warp_bytes(int iters) {
+  return (K5_AT_CAND + K5_TILE * (2 * iters + 1) + 15) / 16 * 16;
 }
 
-// Position `lane` of block f matches at (s, d) in some band that holds it.
-__device__ __forceinline__ bool flag_at(const PropArgs& a, int n, int f,
-                                        int s, int d, int lane, int8_t q) {
-  bool hit = false;
-#pragma unroll
-  for (int b = s; b < NBANDS; b += 2) {
-    const size_t o = ((size_t)b * a.N + n) * a.NBF + f;
-    const int tn = d - a.base[o];
-    if (tn >= 0 && tn < a.band) hit |= a.win[o * a.win_w + tn + lane] == q;
-  }
-  return hit;
+// A block's state in a register: its source block in the tile (bits
+// 0-7), strand (bit 8), assigned (bit 9); the diagonal beside it.
+constexpr uint32_t K5_SRC = 255u, K5_STRAND = 256u, K5_ASG = 512u;
+
+// The window of one flag array of a block in band b (strand s: bands s
+// and s + 2) holding diagonal d, as band << 10 | shift, or -1.
+__device__ __forceinline__ int16_t k5_window(const int32_t* bs, int i, int b,
+                                             int d, int band) {
+  const int tn = d - bs[b * K5_TILE + i];
+  return (unsigned)tn < (unsigned)band ? (int16_t)(b << 10 | tn)
+                                       : (int16_t)-1;
 }
 
-// State of a block in shared memory: the diagonal, and count + 1 (bits
-// 0-7), strand (bit 8), assigned (bit 9).
-__device__ __forceinline__ uint32_t k5_meta(int cc, int s, int asg) {
-  return (uint32_t)(cc + 1) | (uint32_t)s << 8 | (uint32_t)asg << 9;
-}
-
-__global__ void __launch_bounds__(K5_THREADS)
+__global__ void __launch_bounds__(K5_WARPS * 32)
 propagate_kernel(PropArgs a) {
-  extern __shared__ int32_t k5_smem[];
-  const int n = blockIdx.x, NBF = a.NBF;
-  int32_t* dbuf = k5_smem;                                   // [2][NBF]
-  uint16_t* mbuf = reinterpret_cast<uint16_t*>(k5_smem + 2 * NBF);
-  const size_t row = (size_t)n * NBF;
-  for (int f = threadIdx.x; f < NBF; f += blockDim.x) {
-    const int asg = a.A0[row + f] != 0;
-    dbuf[f] = a.D0[row + f];
-    mbuf[f] = (uint16_t)k5_meta(asg ? a.best[row + f] : -1,
-                                a.S0[row + f] != 0, asg);
+  extern __shared__ __align__(16) uint8_t k5_smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long unit = (long long)blockIdx.x * K5_WARPS + warp;
+  if (unit >= (long long)a.N * a.tiles) return;   // the whole warp leaves
+  const int E = a.iters, C = 2 * E + 1;
+  uint8_t* mine = k5_smem + warp * k5_warp_bytes(E);
+  int32_t* bs = reinterpret_cast<int32_t*>(mine);   // [4][K5_TILE]
+  int32_t* d0s = reinterpret_cast<int32_t*>(mine + K5_AT_D0);
+  short4* fp = reinterpret_cast<short4*>(mine + K5_AT_FP);
+  uint8_t* s0s = mine + K5_AT_S0;
+  int8_t* cand = reinterpret_cast<int8_t*>(mine + K5_AT_CAND);
+  const int n = (int)(unit / a.tiles), t = (int)(unit % a.tiles);
+  // Tile t writes blocks o_t .. and holds blocks f_lo .. f_lo + K5_TILE - 1:
+  // the first tile from block 0 (nothing lies left of it), the others with
+  // EXT_ITERS + 1 blocks of halo on their left; each writes up to
+  // EXT_ITERS blocks before the end of what it holds, or to the pair's end
+  // where it holds it.
+  const int o_t = t ? K5_TILE - E + (t - 1) * a.out : 0;
+  const int f_lo = t ? o_t - (E + 1) : 0;   // the block at tile index 0
+  const int f_end = f_lo + K5_TILE >= a.NBF ? a.NBF : f_lo + K5_TILE - E;
+  const size_t row = (size_t)n * a.NBF;
+  const size_t plane = (size_t)a.N * a.NBF;   // a band's blocks
+
+  // 1. The tile's blocks, lane + 32 j in lane j: state, count, the four
+  //    bands' first diagonals (every load coalesced, all issued before the
+  //    first use). Blocks outside the pair are unassigned at (forward, 0),
+  //    as the plain version's shifts fill them, and adopt nothing.
+  int d[K5_BPT], cc[K5_BPT], bsj[K5_BPT][4];
+  uint32_t mt[K5_BPT];
+  uint8_t s0[K5_BPT], a0[K5_BPT];
+  unsigned real = 0;
+#pragma unroll
+  for (int j = 0; j < K5_BPT; ++j) {
+    const int f = f_lo + lane + 32 * j;
+    const bool in = f >= 0 && f < a.NBF;
+    const size_t o = row + (in ? f : 0);
+    real |= (unsigned)in << j;
+    d[j] = in ? __ldg(a.D0 + o) : 0;
+    s0[j] = in ? __ldg(a.S0 + o) : 0;
+    a0[j] = in ? __ldg(a.A0 + o) : 0;
+    cc[j] = in ? __ldg(a.best + o) : -1;
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      bsj[j][b] = in ? __ldg(a.base + b * plane + o) : 0;
   }
-  __syncthreads();
-  int cur = 0;
-  for (int step = 0; step < 2 * a.iters; ++step) {
-    const int dir = (step & 1) ? 1 : -1;   // the block before, then after
-    const int32_t* dc = dbuf + cur * NBF;
-    const uint16_t* mc = mbuf + cur * NBF;
-    int32_t* dn_out = dbuf + (cur ^ 1) * NBF;
-    uint16_t* mn_out = mbuf + (cur ^ 1) * NBF;
-    for (int f = threadIdx.x; f < NBF; f += blockDim.x) {
-      int d = dc[f];
-      const int mt = mc[f];
-      int s = (mt >> 8) & 1, asg = (mt >> 9) & 1, cc = (mt & 255) - 1;
-      const int g = f + dir;
-      int dn = 0, sn = 0, an = 0;
-      if (g >= 0 && g < NBF) {
-        dn = dc[g];
-        sn = (mc[g] >> 8) & 1;
-        an = (mc[g] >> 9) & 1;
+#pragma unroll
+  for (int j = 0; j < K5_BPT; ++j) {
+    const int i = lane + 32 * j;
+    mt[j] = (uint32_t)i | (s0[j] ? K5_STRAND : 0u) | (a0[j] ? K5_ASG : 0u);
+    if (!a0[j]) cc[j] = -1;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) bs[b * K5_TILE + i] = bsj[j][b];
+    d0s[i] = d[j];
+    s0s[i] = (uint8_t)((s0[j] ? 1u : 0u) | ((real >> j) & 1u ? 0u : 2u) |
+                       (a0[j] ? 4u : 0u));
+  }
+  __syncwarp();
+
+  // 2. The candidate table: cand[i * C + c] is block i's count at the
+  //    initial (strand, diagonal) of block g = i - E + c, the largest over
+  //    the two bands of that strand that hold the diagonal, or -1. Only an
+  //    initially assigned g's state ever reaches a neighbour as an assigned
+  //    state (adopting replaces the source), so the others are never read
+  //    and load nothing; nor does a candidate whose state equals the one
+  //    before it (a diagonal holds over runs of blocks): it takes the first
+  //    of its run's count, in a second pass. cp lanes a block (cp >= C, a
+  //    power of two), so a load instruction reads 32 / cp rows; a lane
+  //    issues K5_GATHER tasks' loads before it uses any.
+  {
+    int cp = 1;
+    while (cp < C) cp <<= 1;
+    const int lg = __ffs(cp) - 1;
+    const int r_lo = max(0, -f_lo), r_hi = min(K5_TILE, a.NBF - f_lo);
+    for (int t0 = r_lo * cp; t0 < r_hi * cp; t0 += 32 * K5_GATHER) {
+      int x0[K5_GATHER], x2[K5_GATHER], head[K5_GATHER];
+#pragma unroll
+      for (int u = 0; u < K5_GATHER; ++u) {
+        const int task = t0 + 32 * u + lane;
+        const int i = task >> lg, c = task & (cp - 1), g = i - E + c;
+        head[u] = -1;   // -1: nothing to store; c: a load; < c: a copy
+        x0[u] = x2[u] = -1;
+        if (task >= r_hi * cp || c >= C) continue;
+        head[u] = c;
+        if (g < 0 || g >= K5_TILE || !(s0s[g] & 4)) continue;
+        const int s = s0s[g] & 1, dg = d0s[g];
+        int h = c;   // the first candidate of this state's run
+        while (h > 0 && g - (c - h) - 1 >= 0 &&
+               (s0s[g - (c - h) - 1] & 5) == (4 | s) &&
+               d0s[g - (c - h) - 1] == dg)
+          --h;
+        head[u] = h;
+        if (h < c) continue;
+        const size_t o = row + f_lo + i;
+        const int t_a = dg - bs[s * K5_TILE + i];
+        const int t_b = dg - bs[(s + 2) * K5_TILE + i];
+        if ((unsigned)t_a < (unsigned)a.band)
+          x0[u] = __ldg(a.cnt + (s * plane + o) * a.band + t_a);
+        if ((unsigned)t_b < (unsigned)a.band)
+          x2[u] = __ldg(a.cnt + ((s + 2) * plane + o) * a.band + t_b);
       }
-      const int cn = an && (dn != d || sn != s) ? count_at(a, n, f, sn, dn)
-                                                : -1;
-      const bool better = cn >= a.ext_min && cn > cc + a.ext_margin;
-      const bool cont = asg && cn >= a.ext_min && cn + a.cont >= cc &&
-                        cn <= cc;
-      if (better || cont) {
-        d = dn;
-        s = sn;
-        cc = cn;
+#pragma unroll
+      for (int u = 0; u < K5_GATHER; ++u) {
+        const int task = t0 + 32 * u + lane;
+        const int i = task >> lg, c = task & (cp - 1);
+        if (head[u] < 0) continue;
+        cand[i * C + c] =
+            (int8_t)(head[u] < c ? -2 - head[u] : max(x0[u], x2[u]));
       }
-      asg |= better;
-      dn_out[f] = d;
-      mn_out[f] = (uint16_t)k5_meta(cc, s, asg);
     }
-    __syncthreads();
-    cur ^= 1;
+    __syncwarp();
+    for (int task = r_lo * cp + lane; task < r_hi * cp; task += 32) {
+      const int i = task >> lg, c = task & (cp - 1);
+      if (c >= C) continue;
+      const int v = cand[i * C + c];
+      if (v <= -2) cand[i * C + c] = cand[i * C + (-2 - v)];
+    }
   }
-  const int32_t* df = dbuf + cur * NBF;
-  const uint16_t* mf = mbuf + cur * NBF;
-  for (int f = threadIdx.x; f < NBF; f += blockDim.x) {
-    const int d = df[f], s = (mf[f] >> 8) & 1, asg = (mf[f] >> 9) & 1;
-    const int dp = f ? df[f - 1] : 0;
-    const int sp = f ? (mf[f - 1] >> 8) & 1 : 0;
-    const int ap = f ? (mf[f - 1] >> 9) & 1 : 0;
-    a.D[row + f] = d;
-    a.S[row + f] = (uint8_t)s;
-    a.A[row + f] = (uint8_t)asg;
-    a.Dp[row + f] = dp;
-    a.Sp[row + f] = (uint8_t)sp;
-    a.Ap[row + f] = (uint8_t)ap;
-    a.sw[row + f] = (uint8_t)(asg && ap && (d != dp || s != sp));
+  __syncwarp();
+
+  // 3. The steps, from the block before, then from the block after. A
+  //    neighbour's state is read from before the step; past the tile's
+  //    ends the neighbour counts as unassigned (only the halo is wrong).
+  for (int step = 0; step < 2 * E; ++step) {
+    int nd[K5_BPT];
+    uint32_t nm[K5_BPT];
+    if (step & 1) {            // block i + 1: lane + 1, or lane 0 of j + 1
+#pragma unroll
+      for (int j = 0; j < K5_BPT; ++j) {
+        nd[j] = __shfl_down_sync(FULL, d[j], 1);
+        nm[j] = __shfl_down_sync(FULL, mt[j], 1);
+        const int wd = __shfl_sync(FULL, d[(j + 1) % K5_BPT], 0);
+        const uint32_t wm = __shfl_sync(FULL, mt[(j + 1) % K5_BPT], 0);
+        if (lane == 31) {
+          nd[j] = wd;
+          nm[j] = j + 1 < K5_BPT ? wm : 0u;
+        }
+      }
+    } else {                   // block i - 1: lane - 1, or lane 31 of j - 1
+#pragma unroll
+      for (int j = 0; j < K5_BPT; ++j) {
+        nd[j] = __shfl_up_sync(FULL, d[j], 1);
+        nm[j] = __shfl_up_sync(FULL, mt[j], 1);
+        const int wd = __shfl_sync(FULL, d[(j + K5_BPT - 1) % K5_BPT], 31);
+        const uint32_t wm =
+            __shfl_sync(FULL, mt[(j + K5_BPT - 1) % K5_BPT], 31);
+        if (lane == 0) {
+          nd[j] = wd;
+          nm[j] = j ? wm : 0u;
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < K5_BPT; ++j) {
+      const int i = lane + 32 * j;
+      int cn = -1;
+      if (((real >> j) & 1u) && (nm[j] & K5_ASG) &&
+          (nd[j] != d[j] || ((nm[j] ^ mt[j]) & K5_STRAND)))
+        cn = cand[i * C + (int)(nm[j] & K5_SRC) - i + E];
+      const bool asg = (mt[j] & K5_ASG) != 0;
+      const bool better = cn >= a.ext_min && cn > cc[j] + a.ext_margin;
+      const bool cont = asg && cn >= a.ext_min && cn + a.cont >= cc[j] &&
+                        cn <= cc[j];
+      if (better || cont) {
+        d[j] = nd[j];
+        mt[j] = (nm[j] & (K5_SRC | K5_STRAND)) | (mt[j] & K5_ASG);
+        cc[j] = cn;
+      }
+      if (better) mt[j] |= K5_ASG;
+    }
   }
-  const int lane = threadIdx.x & 31;
-  for (int f = threadIdx.x >> 5; f < NBF; f += blockDim.x >> 5) {
-    const int d = df[f], s = (mf[f] >> 8) & 1, asg = (mf[f] >> 9) & 1;
-    const int dp = f ? df[f - 1] : 0;
-    const int sp = f ? (mf[f - 1] >> 8) & 1 : 0;
-    const int ap = f ? (mf[f - 1] >> 9) & 1 : 0;
-    const bool sw = asg && ap && (d != dp || s != sp);
-    const size_t o = (row + f) * FINE + lane;
-    const int8_t q = a.qb[o];
-    const bool qok = q < 4;
-    a.m1[o] = (uint8_t)(qok && asg && flag_at(a, n, f, s, d, lane, q));
-    a.m0[o] = (uint8_t)(qok && sw && flag_at(a, n, f, sp, dp, lane, q));
+
+  // 4. The tile's own blocks, o_t .. f_end - 1: the state and the previous
+  //    block's (none before block 0), coalesced; the windows their flags
+  //    read, into shared memory.
+  const int i_lo = o_t - f_lo, i_hi = f_end - f_lo;
+#pragma unroll
+  for (int j = 0; j < K5_BPT; ++j) {
+    int dp = __shfl_up_sync(FULL, d[j], 1);
+    uint32_t mp = __shfl_up_sync(FULL, mt[j], 1);
+    const int wd = __shfl_sync(FULL, d[(j + K5_BPT - 1) % K5_BPT], 31);
+    const uint32_t wm = __shfl_sync(FULL, mt[(j + K5_BPT - 1) % K5_BPT], 31);
+    if (lane == 0) {
+      dp = j ? wd : 0;
+      mp = j ? wm : 0u;
+    }
+    const int i = lane + 32 * j;
+    if (i < i_lo || i >= i_hi) continue;
+    const int s = (mt[j] & K5_STRAND) != 0, sp = (mp & K5_STRAND) != 0;
+    const bool asg = (mt[j] & K5_ASG) != 0, ap = (mp & K5_ASG) != 0;
+    const bool sw = asg && ap && (d[j] != dp || s != sp);
+    const size_t o = row + f_lo + i;
+    a.D[o] = d[j];
+    a.S[o] = (uint8_t)s;
+    a.A[o] = (uint8_t)asg;
+    a.Dp[o] = dp;
+    a.Sp[o] = (uint8_t)sp;
+    a.Ap[o] = (uint8_t)ap;
+    a.sw[o] = (uint8_t)sw;
+    short4 w = make_short4(-1, -1, -1, -1);
+    if (asg) {
+      w.x = k5_window(bs, i, s, d[j], a.band);
+      w.y = k5_window(bs, i, s + 2, d[j], a.band);
+    }
+    if (sw) {
+      w.z = k5_window(bs, i, sp, dp, a.band);
+      w.w = k5_window(bs, i, sp + 2, dp, a.band);
+    }
+    fp[i] = w;
+  }
+  __syncwarp();
+
+  // 5. The flags, 4 blocks at a time over the warp, 8 lanes a block and
+  //    4 positions a lane: the query bases and each band's window are read
+  //    as words (a window's two aligned words funnel-shifted to its shift)
+  //    and compared 4 bytes at a time; each lane writes a word of each flag
+  //    row. K5_UNROLL such groups' loads are in flight at once.
+  const int gi = lane >> 3, gk = lane & 7;
+  for (int i0 = i_lo; i0 < i_hi; i0 += 4 * K5_UNROLL) {
+    uint32_t q[K5_UNROLL], lo[K5_UNROLL][4], hi[K5_UNROLL][4];
+#pragma unroll
+    for (int u = 0; u < K5_UNROLL; ++u) {
+      const int i = i0 + 4 * u + gi;
+      q[u] = 0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) lo[u][k] = hi[u][k] = 0xffffffffu;
+      if (i >= i_hi) continue;
+      const short4 wp = fp[i];
+      const size_t o = row + f_lo + i;
+      const int16_t ws[4] = {wp.x, wp.y, wp.z, wp.w};
+      if ((ws[0] & ws[1] & ws[2] & ws[3]) >= 0)   // a window is used
+        q[u] = __ldg(reinterpret_cast<const uint32_t*>(a.qb + o * FINE) + gk);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (ws[k] < 0) continue;
+        const int tn = ws[k] & 1023;
+        const uint32_t* p = reinterpret_cast<const uint32_t*>(
+            a.win + ((ws[k] >> 10) * plane + o) * a.win_w + (tn & ~3)) + gk;
+        lo[u][k] = __ldg(p);
+        if (tn & 3) hi[u][k] = __ldg(p + 1);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < K5_UNROLL; ++u) {
+      const int i = i0 + 4 * u + gi;
+      if (i >= i_hi) continue;
+      const size_t o = (row + f_lo + i) * FINE;
+      const short4 wp = fp[i];
+      const int16_t ws[4] = {wp.x, wp.y, wp.z, wp.w};
+      uint32_t w[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)   // an unused window stays 0xffffffff
+        w[k] = __funnelshift_r(lo[u][k], hi[u][k], 8 * (ws[k] & 3));
+      // Bytes 1 where the query base is a base (< 4) and equals a window's;
+      // an unused window (0xff bytes) equals no code.
+      const uint32_t qok = __vcmpltu4(q[u], 0x04040404u) & 0x01010101u;
+      const uint32_t h1 = __vcmpeq4(w[0], q[u]) | __vcmpeq4(w[1], q[u]);
+      const uint32_t h0 = __vcmpeq4(w[2], q[u]) | __vcmpeq4(w[3], q[u]);
+      reinterpret_cast<uint32_t*>(a.m1 + o)[gk] = h1 & qok;
+      reinterpret_cast<uint32_t*>(a.m0 + o)[gk] = h0 & qok;
+    }
   }
 }
 
 int launch_propagate(const PropArgs& a, cudaStream_t s) {
-  static bool configured[MAX_DEVICES] = {};  // the attribute is per device
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-  if (!configured[dev]) {
-    cudaError_t err = cudaFuncSetAttribute(
-        propagate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        12 * K5_MAX_NBF);
-    if (err != cudaSuccess) return (int)err;
-    configured[dev] = true;
-  }
-  propagate_kernel<<<a.N, K5_THREADS, 12 * a.NBF, s>>>(a);
+  const long long warps = (long long)a.N * a.tiles;
+  const long long ctas = (warps + K5_WARPS - 1) / K5_WARPS;
+  if (ctas > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  propagate_kernel<<<(int)ctas, K5_WARPS * 32,
+                     K5_WARPS * k5_warp_bytes(a.iters), s>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -801,11 +996,13 @@ int k3_bands(const int8_t* wins, const int8_t* qb, int n, int win,
 }
 
 // K5. cnt: (4, N, NBF, band) int8 and win: (4, N, NBF, win_w) int8, the
-// band counts and windows of K3 (win_w = band + 32); base: (4, N, NBF)
-// int32, each band's first diagonal; qb: (N, NBF, 32) int8; A0, S0: (N,
-// NBF) bool, D0, best: (N, NBF) int32, the election. Writes m1, m0: (N,
-// NBF * 32) bool and sw, A, S, Ap, Sp: (N, NBF) bool, D, Dp: (N, NBF)
-// int32. NBF <= 8192. Returns cudaGetLastError().
+// band counts and windows of K3 (win_w = band + 32, band a multiple of 4,
+// win 4-byte aligned); base: (4, N, NBF) int32, each band's first
+// diagonal; qb: (N, NBF, 32) int8, 4-byte aligned; A0, S0: (N, NBF) bool,
+// D0, best: (N, NBF) int32, the election. Writes m1, m0: (N, NBF * 32)
+// bool (4-byte aligned) and sw, A, S, Ap, Sp: (N, NBF) bool, D, Dp: (N,
+// NBF) int32. NBF <= 8192, 0 <= iters <= 16, ext_min >= 1, ext_margin >= 0 (a
+// block that reads no count adopts nothing). Returns cudaGetLastError().
 int k5_propagate(const int8_t* cnt, const int8_t* win, const int32_t* base,
                  const int8_t* qb, const uint8_t* A0, const uint8_t* S0,
                  const int32_t* D0, const int32_t* best, int N, int NBF,
@@ -813,12 +1010,17 @@ int k5_propagate(const int8_t* cnt, const int8_t* win, const int32_t* base,
                  int cont, uint8_t* m1, uint8_t* m0, uint8_t* sw, uint8_t* A,
                  uint8_t* S, int32_t* D, uint8_t* Ap, uint8_t* Sp,
                  int32_t* Dp, void* stream) {
-  if (N < 1 || NBF < 1 || NBF > K5_MAX_NBF || band < 1 ||
-      win_w != band + FINE || iters < 0)
+  if (N < 1 || NBF < 1 || NBF > K5_MAX_NBF || band < 4 || band > 1024 ||
+      band % 4 || win_w != band + FINE || iters < 0 ||
+      iters > K5_MAX_ITERS || ext_min < 1 || ext_margin < 0)
     return (int)cudaErrorInvalidValue;
+  // Blocks a tile after the first writes; the first writes K5_TILE -
+  // iters, or the whole pair if it holds it.
+  const int out = K5_TILE - 2 * iters - 1;
+  const int tiles = 1 + (max(NBF - K5_TILE, 0) + out - 1) / out;
   const PropArgs a{cnt, win, base, qb, A0, S0, D0, best, N, NBF, band, win_w,
-                   iters, ext_min, ext_margin, cont, m1, m0, sw, A, S, D, Ap,
-                   Sp, Dp};
+                   iters, ext_min, ext_margin, cont, out, tiles, m1, m0, sw,
+                   A, S, D, Ap, Sp, Dp};
   return launch_propagate(a, static_cast<cudaStream_t>(stream));
 }
 

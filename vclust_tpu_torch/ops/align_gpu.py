@@ -708,7 +708,8 @@ def _blocks_to_measures(m1, m0, switchable, A, S, D, Ap, Sp, Dp, rlen,
     tensors (or raise). debug asks for intermediates that only the plain
     version forms, so it runs the plain version on any device. On the card
     the flag arrays must be 16-byte aligned (the kernel reads them 16 bytes
-    at a time)."""
+    at a time); the kernel's chunks pass their carries through a scratch
+    buffer kept per device and stream (`_k4_scratch`)."""
     dev = m1.device
     if debug or dev.type == 'cpu':
         return blocks_to_measures_plain(
@@ -722,6 +723,9 @@ def _blocks_to_measures(m1, m0, switchable, A, S, D, Ap, Sp, Dp, rlen,
     if Lq % FINE or not NBF:
         raise ValueError(f'back half: Lq={Lq} is not a positive multiple of '
                          f'{FINE}')
+    if Lq > MAX_TPU_LEN:
+        raise ValueError(f'K4 takes at most {MAX_TPU_LEN} positions a pair; '
+                         f'got {Lq}')
     for name, t in (('m1', m1), ('m0', m0)):
         cuda.require(t, name, torch.bool, 2, dev)
         if t.shape != (N, Lq):
@@ -745,12 +749,14 @@ def _blocks_to_measures(m1, m0, switchable, A, S, D, Ap, Sp, Dp, rlen,
     agg = torch.empty((N, 3), dtype=torch.int32, device=dev)
     nrec = torch.empty(N, dtype=torch.int32, device=dev)
     # Records past the cap are dropped, as the plain version's sorted
-    # prefix keeps at most Lq.
+    # prefix keeps at most Lq; the kernel sets the rows past a pair's last
+    # record to -1.
     width = min(_maxseg(Lq, reg), Lq)
-    recs = (torch.full((N, width, 6), -1, dtype=torch.int32, device=dev)
+    recs = (torch.empty((N, width, 6), dtype=torch.int32, device=dev)
             if with_alns else None)
     if N:
         lib = cuda.library('back_half', cuda.BACK_HALF_SIGNATURES)
+        scratch = _k4_scratch(lib, dev, N, Lq)
         # Values past these limits act as the limits do: mqd >= Lq reaches
         # back past position 0 (and a negative one acts as 0, the plain
         # dilation's), no |D - Dp| reaches 2^30 and no segment Lq + 1.
@@ -761,7 +767,7 @@ def _blocks_to_measures(m1, m0, switchable, A, S, D, Ap, Sp, Dp, rlen,
                 N, Lq, min(max(mqd, 0), Lq), min(mrd, 1 << 30),
                 max(min(reg, Lq + 1), 0), width, cuda.ptr(agg),
                 cuda.ptr(recs) if with_alns else None, cuda.ptr(nrec),
-                cuda.stream(m1))
+                cuda.ptr(scratch), scratch.numel(), cuda.stream(m1))
         cuda.check(lib, rc, 'k4_back_half')
         _blocks_to_measures.launches += 1
     if not with_alns:
@@ -770,6 +776,26 @@ def _blocks_to_measures(m1, m0, switchable, A, S, D, Ap, Sp, Dp, rlen,
 
 
 _blocks_to_measures.launches = 0
+# K4's look-back state, one int32 buffer a (device, stream): its launches
+# on one stream run in order, so they can share it.
+_K4_SCRATCH = {}
+
+
+def _k4_scratch(lib, dev, N, Lq):
+    """K4's scratch buffer for N pairs of Lq positions on the current
+    stream of `dev`: zeroed when made, grown (to twice the need) when too
+    small; the kernel leaves it ready for its next launch."""
+    need = lib.k4_scratch_ints(N, Lq)
+    if need < 0:
+        raise ValueError(f'back half: {N} pairs of {Lq} positions are more '
+                         f'chunks than one launch takes')
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    buf = _K4_SCRATCH.get(key)
+    if buf is None or buf.numel() < need:
+        buf = torch.zeros(min(2 * need, 2 ** 31 - 1), dtype=torch.int32,
+                          device=dev)
+        _K4_SCRATCH[key] = buf
+    return buf
 
 
 # --------------------------------------------------------------------------
@@ -1061,9 +1087,10 @@ def propagate_v3_plain(el, g3):
 def _propagate_v3(el, g3):
     """K5 wrapper (see propagate_v3_plain): the plain version for CPU
     tensors, the CUDA kernel for CUDA tensors (or raise). The kernel takes
-    EXT_ITERS, EXT_MIN, EXT_MARGIN and V3_CONT as arguments and holds a
-    pair's blocks in shared memory, at most 2^13 of them (the stage-1
-    pack's bound, `_v3_geom`)."""
+    EXT_ITERS (0-16), EXT_MIN (>= 1), EXT_MARGIN (>= 0) and V3_CONT as
+    arguments and at most 2^13 blocks a pair (the stage-1 pack's bound,
+    `_v3_geom`); it reads the windows and query bases as words (BAND a
+    multiple of 4, as `_v3_geom` makes it)."""
     A = el['A']
     dev = A.device
     if dev.type == 'cpu':
@@ -1089,6 +1116,13 @@ def _propagate_v3(el, g3):
     if NBF > 1 << _RB_BITS:
         raise ValueError(f'K5 holds at most {1 << _RB_BITS} blocks a pair; '
                          f'got {NBF}')
+    if not (0 <= EXT_ITERS <= 16 and EXT_MIN >= 1 and EXT_MARGIN >= 0):
+        raise ValueError('K5 takes EXT_ITERS 0-16, EXT_MIN >= 1 and '
+                         'EXT_MARGIN >= 0')
+    if BAND % 4 or el['win'].data_ptr() % 4 or el['qb'].data_ptr() % 4:
+        raise ValueError('K5 reads the windows and query bases as words: '
+                         'BAND must be a multiple of 4 and win and qb 4-byte '
+                         'aligned')
     N = R * K
     m1, m0 = (torch.empty((R, K, NBF * FINE), dtype=torch.bool, device=dev)
               for _ in range(2))

@@ -37,9 +37,11 @@ ALIGN_V3_SIGNATURES = {
 }
 # csrc/back_half.cu, kernel K4, the back half both align pipes share.
 BACK_HALF_SIGNATURES = {
+    # N, Lq
+    'k4_scratch_ints': [_I, _I],
     # m1, m0, sw, A, S, D, Ap, Sp, Dp, rlen, N, Lq, mqd, mrd, reg, maxseg,
-    # agg, recs, nrec, stream
-    'k4_back_half': [_P] * 10 + [_I] * 6 + [_P] * 4,
+    # agg, recs, nrec, scratch, scratch_ints, stream
+    'k4_back_half': [_P] * 10 + [_I] * 6 + [_P] * 4 + [_I, _P],
 }
 
 _libs = {}
