@@ -28,7 +28,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
               must launch; fltr.txt == a host-backend run byte for byte;
               K1 on the same index == plain and == the full host count
               matrix), align --filter, cluster; then the example corpus, whose
-              fltr.txt and clusters.tsv must equal example/output/;
+              fltr.txt and clusters.tsv must equal example/output/; then
+              the batched prefilter (`prefilter --batch-size`, the path of
+              every CLI prefilter above 16,384 genomes): the CLI on the 48
+              genomes at 2 and 3 batches, fltr.txt == the unbatched one,
+              and run_prefilter on k1 a's 1,536 sets at 3 batches ==
+              unbatched == the exact host count's, K1's launches on each;
   6. align_engine - the device align engine from the CLI: `align --engine
               gpu --out-aln` over the 66 pairs of example/multifasta.fna:
               ani.tsv, ani.ids.tsv and ani.aln.tsv == tests/golden_torch/
@@ -55,14 +60,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
               each pipe, warm pairs/s with and without the hybrid, busy
               share and top device entries under the profiler, max |dtANI|
               against the native engine; with records == the all-plain
-              run; each v2 stage's time on one dispatch at 65,536, K4 alone
-              there against its plain version;
+              run; on one v2 dispatch at 65,536, K8, K6, K7 and K4 alone
+              against their plain versions (ms, device_ms, host_ms, bound,
+              share_of_bound; library_ms for K8, torch.searchsorted) and
+              each stage's time, the row core's with the plain kernels;
   9. align_v2 - the v2 pipe alone above V3_MAX_BUCKET: 4 genomes of
               158-249 kb concatenated from example genomes plus a 5% mutant
               each (buckets 196,608 and 262,144, 64-bit packs), all 28
               pairs with records: == the all-plain run, and == the port on
               the CPU for two pairs; pairs/s, peak bytes, B, each stage's
-              time on one dispatch (K4 alone against plain), and the live
+              time on one dispatch (K8, K6, K7 and K4 alone against
+              plain), and the live
               bytes a query position holds (peaks at 1 and 2 rows, C = 16
               and 8) against `_dispatch_rows_v2`'s constants;
  10. mesh   - the port's mesh paths (vclust_tpu_torch/parallel/) on the
@@ -84,12 +92,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
               vclust_tpu_torch.parallel.worker`) both print MULTIHOST_OK;
               `entry()` == the int product; and `dryrun_multichip` on every
               visible card, or on 2 shards of cuda:0 when one is visible;
- 11. the `kernels` line: every kernel (KX, K1, K2, K3, K4, K5) with its
-     launches on its path, error against its plain version, times and
-     bound.
-On every align path (phases 6-10) K2, K3, K5 and K4 are counted from 0
-around the run: each v3 dispatch launches K2, K3, K5 and K4 once, each v2
-dispatch K4 once, and any other count fails.
+ 11. the `kernels` line: every kernel (KX, K1, K2, K3, K4, K5, K8, K6,
+     K7) with its launches on its path, error against its plain version,
+     times and bound.
+On every align path (phases 6-10) K2, K3, K5, K4, K8, K6 and K7 are
+counted from 0 around the run: each v3 dispatch launches K2, K3, K5 and
+K4 once, each v2 dispatch K8, K6, K7 and K4 once, and any other count
+fails.
 The card's name and power limit (nvidia-smi) precede the last line, which
 is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -161,20 +170,26 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int):
+def device_ms(fn, reps: int, tries: int = 3):
     """Device time of `fn` by torch.profiler: its kernels' and memsets' own
-    time, the mean of `reps` calls after a warm-up; None when the profiler
-    saw no device time."""
+    time, the mean of `reps` calls after a warm-up. Every call launches
+    the same kernels, so a trace in which one of them shows fewer events
+    than calls has lost some (the profiler can drop them) and is taken
+    again, up to `tries` times; None when none held them all."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages())
-    return us / 1e3 / reps if us else None
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        seen = [e for e in prof.key_averages()
+                if e.self_device_time_total > 0]
+        if seen and all(e.count >= reps for e in seen):
+            return sum(e.self_device_time_total for e in seen) / 1e3 / reps
+    return None
 
 
 def with_shares(d: dict) -> dict:
@@ -700,7 +715,87 @@ def cli(*argv):
     main([str(a) for a in argv])
 
 
-def phase_main(torch, dev, work: pathlib.Path):
+@contextlib.contextmanager
+def prefilter_sets(sets, host_counts=False):
+    """Inside: run_prefilter takes `sets` (fresh lists, by genome) as the
+    genomes' k-mer sets; with host_counts its unbatched count is the exact
+    host count from the index (`_counts_from_index_host`, which phase k1
+    holds K1 to) in place of the device count."""
+    from vclust_tpu_torch.models import prefilter as mp
+    from vclust_tpu_torch.ops import prefilter as pf
+    saved = mp.build_kmer_sets, mp.shared_kmer_counts
+    mp.build_kmer_sets = lambda genomes, *a, **k: list(sets)
+    if host_counts:
+        mp.shared_kmer_counts = lambda kmer_sets, **k: \
+            pf._counts_from_index_host(pf.PrefilterIndex(kmer_sets))
+    try:
+        yield
+    finally:
+        mp.build_kmer_sets, mp.shared_kmer_counts = saved
+
+
+def batched_prefilter(torch, work: pathlib.Path, fasta, fltr, sets) -> dict:
+    """G2, the batched prefilter on the card (`_batched_entries`,
+    `BatchIndexStore.pair_block`: the path of `prefilter --batch-size` and
+    of every CLI prefilter above 16,384 genomes): the CLI on the 48 genomes
+    at 2 and 3 batches, fltr.txt == the unbatched run's (itself == the host
+    backend's); run_prefilter on k1 a's 1,536 sets at 3 batches ==
+    unbatched == the host count's. K1's launches on each batched run (a
+    block of at most 32 genomes counts on the host); any run that should
+    have launched K1 and did not fails."""
+    from vclust_tpu_torch.io.formats import write_fltr
+    from vclust_tpu_torch.models.input import Genome
+    from vclust_tpu_torch.models.prefilter import run_prefilter
+    from vclust_tpu_torch.ops import prefilter as pf
+    out = {}
+    for bs in (24, 20):
+        got = work / f'fltr_batch{bs}.txt'
+        pf.occupancy_count.launches = 0
+        t0 = time.perf_counter()
+        cli('prefilter', '-i', fasta, '-o', got, '--batch-size', bs, '-v',
+            '0')
+        seconds = time.perf_counter() - t0
+        launches = pf.occupancy_count.launches
+        if got.read_bytes() != fltr.read_bytes():
+            fail(f'prefilter --batch-size {bs}: fltr.txt != the unbatched '
+                 f'run')
+        if not launches:      # the block of batches 0 and 1 holds > 32
+            fail(f'prefilter --batch-size {bs} launched no K1')
+        out[f'cli_48_batch_size_{bs}'] = dict(
+            batches=-(-48 // bs), k1_launches=launches, seconds=seconds,
+            fltr_eq_unbatched=True)
+    n = len(sets)
+    bs = -(-n // 3)
+    if n != 1536 or -(-n // bs) != 3:
+        fail(f'batched prefilter: {n} sets, not k1 a\'s 1,536 in 3 batches')
+    genomes = [Genome(name=f'g{i}', seqs=[b'']) for i in range(n)]
+    files = {}
+    for name, kw, host in (('unbatched', {}, False), ('batched', dict(
+            batch_size=bs), False), ('host_count', {}, True)):
+        pf.occupancy_count.launches = 0
+        t0 = time.perf_counter()
+        with prefilter_sets(sets, host):
+            fm = run_prefilter(genomes, **kw)
+        seconds = time.perf_counter() - t0
+        files[name] = work / f'fltr_1536_{name}.txt'
+        write_fltr(files[name], fm)
+        if len(fm.names) != n:
+            fail(f'run_prefilter ({name}): {len(fm.names)} rows for {n} sets')
+        out[f'run_prefilter_1536_{name}'] = dict(
+            k1_launches=pf.occupancy_count.launches, seconds=seconds,
+            pairs=len(fm.entries), **({'batch_size': bs} if kw else {}))
+    # 3 batches: 6 blocks of 512-1,024 genomes, each at least one pass.
+    if out['run_prefilter_1536_batched']['k1_launches'] < 6:
+        fail('run_prefilter on 1,536 sets in 3 batches launched K1 fewer '
+             'times than its 6 blocks')
+    want = files['host_count'].read_bytes()
+    for name in ('unbatched', 'batched'):
+        if files[name].read_bytes() != want:
+            fail(f'run_prefilter on 1,536 sets ({name}) != the host count')
+    return out
+
+
+def phase_main(torch, dev, work: pathlib.Path, k1a_sets):
     import numpy as np
     from vclust_tpu_torch.io.fasta import FastaRecord, write_fasta
     from vclust_tpu_torch.io.formats import write_fltr
@@ -764,10 +859,12 @@ def phase_main(torch, dev, work: pathlib.Path):
         fail('example fltr.txt != example/output/fltr.txt')
     if eclu.read_bytes() != (gold / 'clusters.tsv').read_bytes():
         fail('example clusters.tsv != example/output/clusters.tsv')
+    batched = batched_prefilter(torch, work, fasta, fltr, k1a_sets)
     emit(dict(phase='main', genomes=len(corpus), path_launches=launches,
               fltr_eq_host=True, ani_rows=n_pairs, clusters=n_clusters,
               prefilter_s=t_prefilter, align_cluster_s=t_align_cluster,
-              example_fltr_eq_golden=True, example_clusters_eq_golden=True))
+              example_fltr_eq_golden=True, example_clusters_eq_golden=True,
+              batched_prefilter=batched))
     return launches, k1_main
 
 
@@ -804,18 +901,22 @@ def align_inputs(corpus):
     return codes, pairs
 
 
-# The align kernels' wrappers in ops/align_gpu.py (K2, K3, K5, K4; also
-# the names of their rows in the kernels line) and their plain versions.
+# The align kernels' wrappers in ops/align_gpu.py (K2, K3, K5, K4, K8, K6,
+# K7; also the names of their rows in the kernels line) and their plain
+# versions.
 ALIGN_KERNELS = (('stage1_pack', 'stage1_pack_plain'),
                  ('band_counts', 'band_counts_plain'),
                  ('_propagate_v3', 'propagate_v3_plain'),
-                 ('_blocks_to_measures', 'blocks_to_measures_plain'))
+                 ('_blocks_to_measures', 'blocks_to_measures_plain'),
+                 ('_votes_v2', 'votes_v2_plain'),
+                 ('_elect_v2', 'elect_v2_plain'),
+                 ('_propagate_v2', 'propagate_v2_plain'))
 
 
 @contextlib.contextmanager
 def plain_kernels(ag):
-    """Inside: the align pipes call the plain versions of K2, K3, K5 and
-    K4 (same tensors, same device) instead of the kernels."""
+    """Inside: the align pipes call the plain versions of K2, K3, K5, K4,
+    K8, K6 and K7 (same tensors, same device) instead of the kernels."""
     saved = {k: getattr(ag, k) for k, _ in ALIGN_KERNELS}
     for k, plain in ALIGN_KERNELS:
         setattr(ag, k, getattr(ag, plain))
@@ -837,10 +938,12 @@ def align_launches(ag) -> dict:
 
 def check_align_launches(path: str, launches: dict, dispatches: dict):
     """Each v3 dispatch launches K2, K3, K5 and K4 once, each v2 dispatch
-    K4 once; a path that launched none of its kernels fails."""
+    K8, K6, K7 and K4 once; a path that launched none of its kernels
+    fails."""
     v3, v2 = dispatches['v3'], dispatches['v2']
     want = {'stage1_pack': v3, 'band_counts': v3, '_propagate_v3': v3,
-            '_blocks_to_measures': v3 + v2}
+            '_blocks_to_measures': v3 + v2, '_votes_v2': v2,
+            '_elect_v2': v2, '_propagate_v2': v2}
     if launches != want or not v3 + v2:
         fail(f'{path}: launches {launches} for {v3} v3 and {v2} v2 '
              f'dispatches (want {want})')
@@ -1329,6 +1432,16 @@ def align_v3_dispatch(torch, dev, ag, idx, codes, seed: int, kb=65536):
     return k2, k3, k4_row, k5
 
 
+def v2_row(alone: dict, replaces_design) -> dict:
+    """A kernels-line row of K8, K6 or K7 from its v2_alone result."""
+    replaces, design = replaces_design
+    row = dict(alone, route='cuda',
+               source='vclust_tpu_torch/csrc/align_v2.cu',
+               replaces=replaces, design=design)
+    row.pop('bytes', None)
+    return row
+
+
 def k2_library_ms(torch, qocc, rocc, r_rows, q_rows) -> float:
     """Yardstick only, never called by the port: bf16 torch.matmul over
     the same chunks of 512 reference blocks plus torch packed maxes, with
@@ -1363,9 +1476,10 @@ def k2_library_ms(torch, qocc, rocc, r_rows, q_rows) -> float:
 
 
 def phase_align_v3(torch, dev, seed: int, engine: dict):
-    """Phases align_v3 and align_hybrid. The `launches` of K2, K3, K5 and
-    K4 are those of the CLI engine path (phase align_engine); the other
-    paths' are beside them. Returns their four rows."""
+    """Phases align_v3 and align_hybrid. The `launches` of K2, K3, K5, K4,
+    K8, K6 and K7 are those of the CLI engine path (phase align_engine);
+    the other paths' are beside them. Returns their seven rows (K8, K6 and
+    K7 timed on the hybrid's v2 dispatch at 65,536)."""
     from vclust_tpu_torch.ops import align_gpu as ag
     res48, codes, pairs, idx, out = align_v3_corpus(
         torch, dev, 'genomes48', mutant_corpus(), ag)
@@ -1399,7 +1513,12 @@ def phase_align_v3(torch, dev, seed: int, engine: dict):
     k4['at_4096'] = k4s
     k4['max_abs_err'] = max(k4['max_abs_err'], *(
         k4s[v]['max_abs_err'] for v in ('aggregates', 'records')))
-    rows = (k2, k3, k5, k4)
+    v2d = hybrid['v2_dispatch']
+    v2_rows = tuple(v2_row(v2d[k], src) for k, src in (
+        ('k8', ('vclust_tpu/ops/align_tpu.py:296', K8_DESIGN)),
+        ('k6', ('vclust_tpu/ops/align_tpu.py:355', K6_DESIGN)),
+        ('k7', ('vclust_tpu/ops/align_tpu.py:653', K7_DESIGN))))
+    rows = (k2, k3, k5, k4) + v2_rows
     for row in rows:
         key = row['name']
         row['launches'] = engine['path_launches'][key]
@@ -1557,11 +1676,134 @@ def phase_align_engine(torch, work: pathlib.Path):
 # Phase 8: the hybrid on the 48 genomes; v2 dispatch stages
 # --------------------------------------------------------------------------
 
-def v2_dispatch(torch, dev, ag, b, codes, kb, seed, C=None):
+K8_DESIGN = ('a CTA a (reference row, strand) and a run of query '
+             'slots, the row\'s sorted seed values staged in shared memory '
+             '(every stride-th past 32,768 entries, refined through L2), '
+             'a branch-free power-of-two descent a seed, the packs read '
+             'only at the run of equal values')
+K6_DESIGN = ('a warp a coarse block: its 4 fine blocks\' votes padded '
+             'with BIG to a power of two in shared memory, a bitonic '
+             'network (mirrored first steps, every run ascending) sorts '
+             'each run, the fine elections, the runs merged, the coarse '
+             'election on every fourth vote; window counts from shared '
+             'memory, packed maxes and counts by shuffles')
+K7_DESIGN = ('K5\'s tiles: a warp a tile of 128 blocks with a halo of '
+             'EXT_ITERS, blocks lane + 32 j; up front a table of 32-bit '
+             'match masks at the initial states of the assigned blocks of '
+             '[i - EXT_ITERS - 1, i + EXT_ITERS] (query bases staged, '
+             'window words funnel-shifted, __vcmpeq4; runs of one state '
+             'once); steps by shuffles with population counts; m1 and m0 '
+             'the masks of the final sources, 16 bytes a lane')
+
+
+# Int32 issue slots of the least work of K6 on a fine block of 4C votes
+# (fine) and a coarse block of 16C (coarse), given sorted lists can be
+# merged: the sort, n log2 n compare-selects (fine), the merge of 4 runs
+# (2 a vote); the window and equal counts by two moving pointers (4 a vote
+# of the list elected on), the exact votes and the support (2 a vote
+# counted).
+def k6_slots(C: int) -> tuple:
+    import math
+    c4 = 4 * C
+    fine = c4 * math.ceil(math.log2(c4)) + 4 * c4 + 2 * c4 + 2 * c4
+    coarse = 2 * 4 * c4 + 4 * c4 + 2 * 4 * c4
+    return fine, coarse
+
+
+def v2_alone(torch, name, run, plain, nbytes, slots, at, **extra):
+    """Kernel `name` alone (run) against its plain version on the same
+    tensors, every output: error, ms, device_ms, host_ms, plain_ms and the
+    bound (least bytes over the memory rate, or `slots` int32 issue slots
+    over the int32 rate, the larger)."""
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    if any(g.shape != w.shape or g.dtype != w.dtype
+           for g, w in zip(got, want)):
+        fail(f'{name} at {at}: shapes or types differ from plain')
+    err = max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
+              for g, w in zip(got, want))
+    if err:
+        fail(f'{name} != plain at {at} (max abs err {err})')
+    del got, want
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = slots / INT32_SLOTS_PER_S * 1e3
+    return with_shares(dict(
+        name=name, max_abs_err=err, ms=time_ms(run, 5),
+        device_ms=device_ms(run, 5), plain_ms=time_ms(plain, 2),
+        bound_ms=max(t_bytes, t_ops),
+        bound_by='bytes' if t_bytes >= t_ops else 'operations',
+        bound_bytes_ms=t_bytes, bound_ops_ms=t_ops, bytes=nbytes,
+        int32_slots=slots, at=at, **extra))
+
+
+def v2_front_end_alone(torch, ag, b, r_rows, rlens, q_rows, qlens, kb, C,
+                       at):
+    """K8, K6 and K7 alone on one v2 dispatch, each against its plain
+    version on the same inputs (v2_alone); K8's library_ms is one
+    torch.searchsorted over the same rows and values (both strands)."""
+    import math
+    R, K = q_rows.shape
+    N, NBF = R * K, kb // ag.FINE
+    NQ = NBF * C
+    kw = dict(Lq=kb, Lr=kb)
+    n_ref = len(torch.unique(r_rows))
+    n_q = len(torch.unique(q_rows))
+    NR = b['sv_f'].shape[1]
+    packs = 1 if b['pack_bits'] == 64 else 2
+    # K8: each distinct query's seeds and offsets, each distinct
+    # reference's values and packs (both strands) read once, the votes
+    # written; a search a seed and strand, a compare-select a level.
+    k8 = v2_alone(
+        torch, '_votes_v2',
+        lambda: ag._votes_v2(b, r_rows, q_rows, C=C, **kw),
+        lambda: ag.votes_v2_plain(b, r_rows, q_rows, C=C, **kw),
+        n_q * NQ * 8 + n_ref * 2 * NR * (4 + 8 * packs) + N * NQ * 16,
+        2 * 2 * N * NQ * math.ceil(math.log2(NR + 1)), at)
+    rr = r_rows.long()
+    sv2 = torch.cat([b['sv_f'][rr], b['sv_r'][rr]]).contiguous()
+    vals = b['qsv'][q_rows.long()].reshape(R, K * NQ)
+    vals2 = torch.cat([vals, vals]).contiguous()
+    k8['library_ms'] = time_ms(
+        lambda: torch.searchsorted(sv2, vals2, right=True), 5)
+    k8['library'] = ('torch.searchsorted of the seeds\' values in the '
+                     'references\' sorted values, both strands, one call '
+                     '(the search alone, without the packs)')
+    del sv2, vals, vals2
+    votes = ag._votes_v2(b, r_rows, q_rows, C=C, **kw)
+    fine, coarse = k6_slots(C)
+    k6 = v2_alone(
+        torch, '_elect_v2', lambda: ag._elect_v2(votes, **kw),
+        lambda: ag.elect_v2_plain(votes, **kw),
+        N * NQ * 16 + N * NBF * 10, N * NBF * fine + N * NBF // 4 * coarse,
+        at, library_ms=None,
+        library='none: no PyTorch call computes the two-scale election '
+                '(its plain version is two torch.sort and ~70 torch ops)')
+    A, S, D, _ = ag._elect_v2(votes, **kw)
+    del votes
+    NRT = b['r2dov'].shape[1] // 2
+    # K7: the election read, each distinct query's codes and reference's
+    # window rows read once, the flags and the states written; the final
+    # masks 6 slots a word of 4 positions.
+    args = (b, r_rows, rlens, q_rows, qlens, A, S, D)
+    k7 = v2_alone(
+        torch, '_propagate_v2', lambda: ag._propagate_v2(*args, Lr=kb),
+        lambda: ag.propagate_v2_plain(*args, Lr=kb),
+        N * NBF * 6 + n_q * kb + n_ref * 2 * NRT * 64 + 2 * N * kb
+        + N * NBF * 13, N * NBF * 8 * 6, at, library_ms=None,
+        library='none: no PyTorch call computes the neighbour adoption '
+                '(its plain version is ~20 torch ops a step)')
+    return k8, k6, k7
+
+
+def v2_dispatch(torch, dev, ag, b, codes, kb, seed, C=None, kernels=True):
     """One v2 dispatch at bucket `kb` (B rows of K = 8 queries from the
-    arena `b`): each stage's event time (K4 alone against its plain
-    version, k4_alone), its bytes bound and the live bytes of the dispatch
-    at 1 and 2 rows (their difference a row), without and with records."""
+    arena `b`): K8, K6 and K7 alone against their plain versions
+    (v2_front_end_alone, with `kernels`), each stage's event time (K4
+    alone against its plain version, k4_alone), its bytes bound and the
+    live bytes of the dispatch at 1 and 2 rows (their difference a row),
+    without and with records."""
     import numpy as np
     C = C or ag.SEEDS_PER_BLOCK
     K = ag.K_QUERIES
@@ -1580,6 +1822,7 @@ def v2_dispatch(torch, dev, ag, b, codes, kb, seed, C=None):
     qlens = put([[len(codes[g]) for g in row] for row in qg])
     p = ag.AlignParams()
     kw = dict(Lq=kb, Lr=kb, K=K, mqd=p.mqd, mrd=p.mrd, reg=p.reg, C=C)
+    at = f'v2 bucket {kb}: B={B} rows x K={K}, C={C}'
 
     def peak(R, alns=False):
         torch.cuda.synchronize()
@@ -1590,6 +1833,8 @@ def v2_dispatch(torch, dev, ag, b, codes, kb, seed, C=None):
         torch.cuda.synchronize()
         return torch.cuda.max_memory_allocated() - base
 
+    front = (v2_front_end_alone(torch, ag, b, r_rows, rlens, q_rows, qlens,
+                                kb, C, at) if kernels else None)
     votes = ag._votes_v2(b, r_rows, q_rows, Lq=kb, Lr=kb, C=C)
     A, S, D, vb = ag._elect_v2(votes, Lq=kb, Lr=kb)
     flags = ag._propagate_v2(b, r_rows, rlens, q_rows, qlens, A, S, D, Lr=kb)
@@ -1597,8 +1842,7 @@ def v2_dispatch(torch, dev, ag, b, codes, kb, seed, C=None):
     flat = [x.reshape((N,) + x.shape[2:]) for x in flags]
     rl = rlens[:, None].expand(B, K).reshape(N)
     k4 = k4_alone(torch, ag, flat, rl, kb, dict(mqd=p.mqd, mrd=p.mrd,
-                                                reg=p.reg),
-                  f'v2 bucket {kb}: B={B} rows x K={K}, C={C}')
+                                                reg=p.reg), at)
     stages = dict(
         votes_ms=time_ms(lambda: ag._votes_v2(b, r_rows, q_rows, Lq=kb,
                                               Lr=kb, C=C), 3),
@@ -1610,6 +1854,9 @@ def v2_dispatch(torch, dev, ag, b, codes, kb, seed, C=None):
         row_core_ms=time_ms(lambda: ag._row_core(
             b, r_rows, rlens, q_rows, qlens, **kw), 3))
     del votes, flags, flat
+    with plain_kernels(ag):
+        stages['row_core_plain_ms'] = time_ms(lambda: ag._row_core(
+            b, r_rows, rlens, q_rows, qlens, **kw), 2)
     # Least bytes of the row core: each distinct reference's sampled
     # values and packs (both strands) and window rows, each distinct
     # query's sampled seeds and codes read once; the aggregates written.
@@ -1620,18 +1867,21 @@ def v2_dispatch(torch, dev, ag, b, codes, kb, seed, C=None):
               + n_q * (NQ * 8 + kb) + N * 12)
     one, two = peak(1), peak(2)
     one_r, two_r = peak(1, True), peak(2, True)
-    return dict(bucket=kb, rows=B, K=K, C=C, pack_bits=b['pack_bits'],
-                stages=stages, k4=k4,
-                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by='bytes',
-                peak_bytes_1_row=one, peak_bytes_2_rows=two,
-                bytes_per_row=two - one,
-                bytes_per_query_pos=(two - one) / (K * kb),
-                model_bytes_per_row=K * kb * ag._V2_BYTES_PER_POS,
-                records_peak_bytes_1_row=one_r,
-                records_peak_bytes_2_rows=two_r,
-                records_bytes_per_query_pos=(two_r - one_r) / (K * kb),
-                records_model_bytes_per_row=K * kb
-                * ag._V2_BYTES_PER_POS_RECORDS)
+    res = dict(bucket=kb, rows=B, K=K, C=C, pack_bits=b['pack_bits'],
+               stages=stages, k4=k4,
+               bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by='bytes',
+               peak_bytes_1_row=one, peak_bytes_2_rows=two,
+               bytes_per_row=two - one,
+               bytes_per_query_pos=(two - one) / (K * kb),
+               model_bytes_per_row=K * kb * ag._V2_BYTES_PER_POS,
+               records_peak_bytes_1_row=one_r,
+               records_peak_bytes_2_rows=two_r,
+               records_bytes_per_query_pos=(two_r - one_r) / (K * kb),
+               records_model_bytes_per_row=K * kb
+               * ag._V2_BYTES_PER_POS_RECORDS)
+    if front:
+        res['k8'], res['k6'], res['k7'] = front
+    return res
 
 
 def phase_align_hybrid(torch, dev, ag, idx, codes, pairs, v3_out, seed):
@@ -1807,7 +2057,7 @@ def phase_align_v2(torch, dev, seed):
                            codes, kb, seed)
     c8 = v2_dispatch(torch, dev, ag, idx.ensure(kb, sorted(
         idx.bucket[(kb, ag.SEEDS_PER_BLOCK)]['rows']), C=8), codes, kb, seed,
-        C=8)
+        C=8, kernels=False)
     wide = wide_pack_check(dev, ag)
     den = np.array([lens[i] + lens[j] for i, j in pairs.tolist()])
     res = dict(phase='align_v2', genomes=len(codes), lengths=lens,
@@ -2111,7 +2361,8 @@ def main():
     c, k1_err, k1_inputs = phase_k1(torch, dev, args.seed)
     phase_cc(torch, dev, args.seed)
     with tempfile.TemporaryDirectory(prefix='vclust_smoke_') as tmp:
-        launches, k1_main = phase_main(torch, dev, pathlib.Path(tmp))
+        launches, k1_main = phase_main(torch, dev, pathlib.Path(tmp),
+                                       k1_inputs[0])
         engine = phase_align_engine(torch, pathlib.Path(tmp))
     k1_row = dict(
         name='occupancy_count', route='cuda',
@@ -2141,8 +2392,16 @@ def main():
     k1_row['unweighted'] = unweighted
     k1_row['max_abs_err'] = max(k1_row['max_abs_err'], window['max_abs_err'],
                                 unweighted['max_abs_err'])
-    k2_row, k3_row, k5_row, k4_row = align_rows
-    emit({'kernels': [kx_row, k1_row, k2_row, k3_row, k4_row, k5_row],
+    keys = ('at', 'max_abs_err', 'ms', 'device_ms', 'plain_ms', 'bound_ms',
+            'bound_by', 'library_ms', 'share_of_bound', 'host_ms')
+    for row in align_rows[4:]:
+        at = v2['dispatch'][{'_votes_v2': 'k8', '_elect_v2': 'k6',
+                             '_propagate_v2': 'k7'}[row['name']]]
+        row['max_abs_err'] = max(row['max_abs_err'], at['max_abs_err'])
+        row['at_262144'] = {key: at.get(key) for key in keys}
+    k2_row, k3_row, k5_row, k4_row, k8_row, k6_row, k7_row = align_rows
+    emit({'kernels': [kx_row, k1_row, k2_row, k3_row, k4_row, k5_row,
+                      k8_row, k6_row, k7_row],
           'seconds': time.perf_counter() - t0})
     smi = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',

@@ -20,6 +20,9 @@ sys.path.insert(0, '.')
 from back_half_cases import (CASES, PARAMS, back_half_case,  # noqa: E402
                              chain_case, last_chunk_case, long_segment_case,
                              propagate_case, sparse_cap_case)
+from v2_cases import (chain_election, election_case,  # noqa: E402
+                      random_election, v2_arena, v2_genomes, v2_rows,
+                      votes_case)
 from vclust_tpu_torch.ops import align_gpu as tav  # noqa: E402
 from vclust_tpu_torch.ops import extend as tx      # noqa: E402
 from vclust_tpu_torch.ops import prefilter as tpf  # noqa: E402
@@ -686,6 +689,169 @@ def test_cpu_tensors_take_the_plain_k4_and_k5():
         assert torch.equal(g, w)
     assert (tav._blocks_to_measures.launches,
             tav._propagate_v3.launches) == before
+
+
+def test_cpu_tensors_take_the_plain_v2_front_end():
+    """K8, K6 and K7 wrappers answer CPU tensors with their plain versions,
+    without a launch."""
+    counters = (tav._votes_v2, tav._elect_v2, tav._propagate_v2)
+    before = [c.launches for c in counters]
+    codes = v2_genomes(3, 3300)
+    b = v2_arena(codes, 4096, 32, 8)
+    r_rows, rlens, q_rows, qlens = v2_rows(codes, 4, 2, 4)
+    kw = dict(Lq=4096, Lr=4096)
+    votes = tav._votes_v2(b, r_rows, q_rows, C=8, **kw)
+    assert torch.equal(votes, tav.votes_v2_plain(b, r_rows, q_rows, C=8,
+                                                 **kw))
+    el = tav._elect_v2(votes, **kw)
+    for g, w in zip(el, tav.elect_v2_plain(votes, **kw)):
+        assert torch.equal(g, w)
+    args = (b, r_rows, rlens, q_rows, qlens, *el[:3])
+    for g, w in zip(tav._propagate_v2(*args, Lr=4096),
+                    tav.propagate_v2_plain(*args, Lr=4096)):
+        assert torch.equal(g, w)
+    assert [c.launches for c in counters] == before
+
+
+# The v2 front end: K8, K6 and K7 (csrc/align_v2.cu) on the card against
+# their plain versions; genomes of `v2_genomes` a bucket long, less 700.
+
+def _v2_inputs(device, Lp, pack, C, R=3, K=8, seed=5):
+    codes = v2_genomes(seed, Lp - 700)
+    b = v2_arena(codes, Lp, pack, C, device)
+    rows = tuple(x.to(device) for x in v2_rows(codes, seed + 1, R, K,
+                                               refs=(0, 5)))
+    return b, rows
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('Lp,C,pack', [
+    (4096, 8, 32), (4096, 16, 64), (65536, 8, 32), (65536, 16, 32),
+    (65536, 16, 64), (262144, 8, 64), (262144, 16, 64)])
+def test_k8_kernel_matches_plain(cuda_device, Lp, C, pack):
+    """The seed votes' kernel == votes_v2_plain, both strands, both pack
+    widths; at 262,144 the reference rows outgrow the staged sample
+    (stride 2 at C = 8, 4 at C = 16) and the search refines through L2."""
+    b, (r_rows, rlens, q_rows, qlens) = _v2_inputs(cuda_device, Lp, pack, C)
+    before = tav._votes_v2.launches
+    got = tav._votes_v2(b, r_rows, q_rows, Lq=Lp, Lr=Lp, C=C)
+    want = tav.votes_v2_plain(b, r_rows, q_rows, Lq=Lp, Lr=Lp, C=C)
+    torch.cuda.synchronize()
+    assert tav._votes_v2.launches == before + 1
+    assert torch.equal(got, want)
+    assert (want[0, ..., 0] < tav.BIG).any() and (want[1] == tav.BIG).all()
+
+
+def _k6_matches(device, votes, Lq, Lr):
+    votes = votes.to(device)
+    before = tav._elect_v2.launches
+    got = tav._elect_v2(votes, Lq=Lq, Lr=Lr)
+    want = tav.elect_v2_plain(votes, Lq=Lq, Lr=Lr)
+    torch.cuda.synchronize()
+    assert tav._elect_v2.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('Lq,C', [
+    (4096, 1), (4096, 8), (4096, 16), (4096, 32), (65536, 8), (65536, 16),
+    (262144, 8), (262144, 16)])
+def test_k6_kernel_matches_plain(cuda_device, Lq, C):
+    """The two-scale election's kernel == elect_v2_plain on crafted votes
+    (equal counts, empty blocks, a fine election that ties its support for
+    the coarse mode) and on the seed votes of the index genomes."""
+    R, K = (1, 3) if Lq > 65536 else (2, 4)
+    votes = votes_case(Lq + C, R, K, Lq // 32, C, Lq, Lq)
+    A = _k6_matches(cuda_device, votes, Lq, Lq)[0]
+    assert A.any() and not A.all()
+    b, (r_rows, rlens, q_rows, qlens) = _v2_inputs(cuda_device, Lq,
+                                                   tav._pack_bits(Lq), C)
+    votes = tav.votes_v2_plain(b, r_rows, q_rows, Lq=Lq, Lr=Lq, C=C)
+    _k6_matches(cuda_device, votes, Lq, Lq)
+
+
+@pytest.mark.gpu
+def test_k6_kernel_wide_pack(cuda_device):
+    """Bucket 1,048,576 (MAX_TPU_LEN): the election's pack needs 32 bits
+    of vote code (2 DSPAN + 64 >= 2^22), held in int64 and clamped in its
+    own type; held against the port's plain version (ROADMAP R9)."""
+    Lq = 1 << 20
+    votes = votes_case(11, 1, 2, Lq // 32, 16, Lq, Lq)
+    A = _k6_matches(cuda_device, votes, Lq, Lq)[0]
+    assert A.any()
+
+
+def _on_cpu(b):
+    return {k: v.cpu() if isinstance(v, torch.Tensor) else v
+            for k, v in b.items()}
+
+
+def _k7_matches(device, b, rows, A, S, D, Lr):
+    A, S, D = (x.to(device) for x in (A, S, D))
+    before = tav._propagate_v2.launches
+    got = tav._propagate_v2(b, *rows, A, S, D, Lr=Lr)
+    want = tav.propagate_v2_plain(b, *rows, A, S, D, Lr=Lr)
+    torch.cuda.synchronize()
+    assert tav._propagate_v2.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('Lp,iters', [(4096, 3), (65536, 3), (65536, 16),
+                                      (65536, 0), (262144, 3)])
+def test_k7_kernel_matches_plain(cuda_device, monkeypatch, Lp, iters):
+    """The propagation's kernel == propagate_v2_plain, every output, on
+    elections of the index genomes with blocks unassigned, diagonals moved
+    and windows clipped (adoption, strand switches, tile edges)."""
+    monkeypatch.setattr(tav, 'EXT_ITERS', iters)
+    b, rows = _v2_inputs(cuda_device, Lp, tav._pack_bits(Lp), 16, R=2, K=4)
+    A, S, D = election_case(_on_cpu(b), tuple(x.cpu() for x in rows), Lp,
+                            Lp, 16, 9)
+    got = _k7_matches(cuda_device, b, rows, A, S, D, Lp)
+    if iters:
+        assert (got[3].cpu() & ~A).any()             # something adopted
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('NBF,iters', [(1, 3), (128, 3), (129, 3), (250, 3),
+                                       (224, 16), (129, 0), (300, 16)])
+def test_k7_tile_edges(cuda_device, monkeypatch, NBF, iters):
+    """K7's tiles (128 blocks; the first writes 128 - EXT_ITERS, the others
+    128 - 2 EXT_ITERS - 1) at ragged block counts, one block and EXT_ITERS
+    0 and 16, on crafted elections."""
+    monkeypatch.setattr(tav, 'EXT_ITERS', iters)
+    Lp = NBF * 32
+    codes = [c[:Lp] for c in v2_genomes(NBF, max(Lp, 3000))]
+    b = v2_arena(codes, Lp, 32, 8, cuda_device)
+    rows = tuple(x.to(cuda_device) for x in v2_rows(codes, 2, 2, 4))
+    A, S, D = random_election(NBF, 2, 4, NBF, Lp)
+    _k7_matches(cuda_device, b, rows, A, S, D, Lp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('c0,iters', [(124, 3), (125, 3), (246, 3),
+                                      (112, 16), (207, 16)])
+def test_k7_chain_across_tile_edge(cuda_device, monkeypatch, c0, iters):
+    """A state handed on block by block across the edge between two tiles
+    (at 125 and 246 at EXT_ITERS = 3, at 112 and 207 at 16): the reference
+    against itself and its mutant from one assigned block."""
+    monkeypatch.setattr(tav, 'EXT_ITERS', iters)
+    Lp = 16384
+    codes = v2_genomes(7, Lp - 700)
+    b = v2_arena(codes, Lp, 32, 16, cuda_device)
+    lens = torch.tensor([len(c) for c in codes], dtype=torch.int32)
+    r_rows = torch.tensor([0], dtype=torch.int32)
+    q_rows = torch.tensor([[0, 1]], dtype=torch.int32)
+    rows = tuple(x.to(cuda_device) for x in (
+        r_rows, lens[r_rows.long()], q_rows, lens[q_rows.long()]))
+    A, S, D = chain_election(q_rows, Lp // 32, c0)
+    got = _k7_matches(cuda_device, b, rows, A, S, D, Lp)
+    assert got[3][0, :, c0 - iters:c0 + iters + 1].all()
+    assert int(got[3].sum()) == 2 * (2 * iters + 1)
 
 
 def _hybrid_codes(seed=4):

@@ -25,19 +25,22 @@ bit for bit. The default front end, v3:
    anchored-match chaining, segmentation, aggregates and, with_alns, the
    per-segment records.
 
-The v2 front end (sort join, torch ops), for buckets above V3_MAX_BUCKET,
-for the pairs v3 leaves hard, and with VCLUST_ALIGN_PIPE=v2:
+The v2 front end, for buckets above V3_MAX_BUCKET, for the pairs v3
+leaves hard, and with VCLUST_ALIGN_PIPE=v2:
 
 1. **Index** (`GenomeIndex.ensure`, `_index_block`): per genome, the C
    seeds of each fine block with the smallest value hash, and per strand
    their value-sorted packs (value, position) / (value, previous
    position), plus 64-wide overlapped window rows.
-2. **Votes** (`_strand_votes`): one stable sort joins the K queries'
-   seeds with the reference's; a running max carries the last two
-   reference occurrences of each value to the query seeds.
-3. **Election** (`_elect`) of the densest diagonal cluster per fine and
-   per coarse block, the fine override, then neighbour propagation over
-   re-evaluated windows (`_eval_on`), and the same back half.
+2. **Votes** (`_votes_v2`, kernel K8 in csrc/align_v2.cu): the plain
+   version's stable sort joins the K queries' seeds with the reference's
+   and a running max carries the last two reference occurrences of each
+   value to the query seeds; the kernel finds the same by a search of
+   each seed's value in the reference's sorted values.
+3. **Election** (`_elect_v2`, kernel K6) of the densest diagonal cluster
+   per fine and per coarse block, and the fine override.
+4. **Propagation** (`_propagate_v2`, kernel K7) over re-evaluated windows
+   (`_eval_on`) and the final flags, then the same back half.
 
 A dispatch is R rows of one reference and K queries each (the JAX
 package's vmap over rows is the leading dimension here). Its TPU-only
@@ -46,12 +49,14 @@ mechanisms are kept in semantics only: the hierarchical cummax is
 sort is an inverse permutation, and the dispatch size comes from a bound
 on live device bytes (`_dispatch_rows`, `_dispatch_rows_v2`).
 
-`stage1_pack` (K2), `band_counts` (K3), `_propagate_v3` (K5) and
-`_blocks_to_measures` (K4) are the kernel wrappers: CPU tensors take
-`stage1_pack_plain`, `band_counts_plain`, `propagate_v3_plain` and
-`blocks_to_measures_plain`, CUDA tensors launch the kernel or raise. Each
-wrapper's `launches` counts its kernel launches. The v2 front end's own
-stages run as torch ops. Entry points: `all2all_gpu` and `_all2all_single`, on `cuda`
+`stage1_pack` (K2), `band_counts` (K3), `_propagate_v3` (K5),
+`_blocks_to_measures` (K4), `_votes_v2` (K8), `_elect_v2` (K6) and
+`_propagate_v2` (K7) are the kernel wrappers: CPU tensors take
+`stage1_pack_plain`, `band_counts_plain`, `propagate_v3_plain`,
+`blocks_to_measures_plain`, `votes_v2_plain`, `elect_v2_plain` and
+`propagate_v2_plain`, CUDA tensors launch the kernel or raise. Each
+wrapper's `launches` counts its kernel launches. Entry points:
+`all2all_gpu` and `_all2all_single`, on `cuda`
 unless the caller asks for the CPU (utils/device.py), or over a mesh
 (parallel/mesh.py): the dispatches are dealt to the shards in turn, each
 runs on its shard's device against a copy of the arena there, and the
@@ -1309,10 +1314,11 @@ def _eval_on(q_fwd, r2dov, r_rows, D, S, okb, rlen, qlens, *, Lr):
     return ok & (q_fwd == rb) & (q_fwd < 4)
 
 
-def _votes_v2(b, r_rows, q_rows, *, Lq, Lr, C):
-    """Stage 1: the seed votes of R rows (one reference, K queries each)
-    on both strands, (R, K, NQ, 4) int32: the two candidates forward, then
-    the two reverse (offset DSPAN)."""
+def votes_v2_plain(b, r_rows, q_rows, *, Lq, Lr, C):
+    """Plain torch version of K8 on any device, stage 1: the seed votes of
+    R rows (one reference, K queries each) on both strands, (R, K, NQ, 4)
+    int32: the two candidates forward, then the two reverse (offset
+    DSPAN)."""
     R, K = q_rows.shape
     NQ = (Lq // FINE) * C
     rr = r_rows.to(torch.int64)
@@ -1328,12 +1334,13 @@ def _votes_v2(b, r_rows, q_rows, *, Lq, Lr, C):
                        offset=Lq + Lr + 64, **sv_args)], dim=-1)
 
 
-def _elect_v2(votes, *, Lq, Lr):
-    """Stage 2: the two-scale block election on the votes (R, K, NQ, 4):
-    per fine block the fine election, overridden by the coarse block's
-    unless the fine one strictly beats the fine block's support for the
-    coarse diagonal (repeats support two clusters equally). Returns A, S
-    (True = reverse strand), D and the winner's votes vb, (R, K, NBF)."""
+def elect_v2_plain(votes, *, Lq, Lr):
+    """Plain torch version of K6 on any device, stage 2: the two-scale
+    block election on the votes (R, K, NQ, 4): per fine block the fine
+    election, overridden by the coarse block's unless the fine one
+    strictly beats the fine block's support for the coarse diagonal
+    (repeats support two clusters equally). Returns A, S (True = reverse
+    strand), D and the winner's votes vb, (R, K, NBF)."""
     R, K, NQ, _ = votes.shape
     N = R * K
     NBF = Lq // FINE
@@ -1361,12 +1368,13 @@ def _elect_v2(votes, *, Lq, Lr):
             torch.where(use_f, vb_f, fine(vb_c)).view(shape))
 
 
-def _propagate_v2(b, r_rows, rlens, q_rows, qlens, A, S, D, *, Lr):
-    """Stage 3: neighbour-diagonal propagation: a block adopts an adjacent
-    block's diagonal when evaluating it (`_eval_on`) beats its own
-    election by a clear margin (EXT_MIN, EXT_MARGIN), EXT_ITERS times each
-    way; then the final flags. F holds the current winner's flags, so m1
-    needs no re-evaluation. Returns what `_propagate_v3` returns."""
+def propagate_v2_plain(b, r_rows, rlens, q_rows, qlens, A, S, D, *, Lr):
+    """Plain torch version of K7 on any device, stage 3: neighbour-
+    diagonal propagation: a block adopts an adjacent block's diagonal when
+    evaluating it (`_eval_on`) beats its own election by a clear margin
+    (EXT_MIN, EXT_MARGIN), EXT_ITERS times each way; then the final flags.
+    F holds the current winner's flags, so m1 needs no re-evaluation.
+    Returns what `_propagate_v3` returns."""
     R, K, NBF = A.shape
     q_fwd = b['fwd'][q_rows.to(torch.int64)]
     rlen = rlens.view(R)
@@ -1398,6 +1406,169 @@ def _propagate_v2(b, r_rows, rlens, q_rows, qlens, A, S, D, *, Lr):
     m0 = _eval_on(q_fwd, b['r2dov'], r_rows, Dp, Sp, switchable, rlen, qlens,
                   Lr=Lr)
     return F, m0, switchable, A, S, D, Ap, Sp, Dp
+
+
+def _check(t, name, dtype, shape, dev):
+    """A wrapper's argument check: cuda.require and the exact shape."""
+    cuda.require(t, name, dtype, len(shape), dev)
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f'{name} must be {tuple(shape)}, got '
+                         f'{tuple(t.shape)}')
+
+
+def _votes_v2(b, r_rows, q_rows, *, Lq, Lr, C):
+    """K8 wrapper (see votes_v2_plain): the plain version for CPU tensors,
+    the CUDA kernel for CUDA tensors (or raise). The kernel reads the
+    arena's rows in place: a row's sorted sv (ascending, BIG last, as
+    `_index_block` builds it), searched for each query seed, and its packs
+    at the run of equal values; C 1-32."""
+    dev = r_rows.device
+    if dev.type == 'cpu':
+        return votes_v2_plain(b, r_rows, q_rows, Lq=Lq, Lr=Lr, C=C)
+    if dev.type != 'cuda':
+        raise ValueError(f'unsupported device {dev}')
+    if not 1 <= C <= 32:
+        raise ValueError(f'K8 takes 1-32 seeds a block; got C={C}')
+    if Lq % FINE or Lq < FINE:
+        raise ValueError(f'K8: Lq={Lq} is not a positive multiple of '
+                         f'{FINE}')
+    pack_bits = b['pack_bits']
+    if pack_bits not in (32, 64):
+        raise ValueError(f'K8 takes packs of 32 or 64 bits; got '
+                         f'{pack_bits}')
+    R, K = q_rows.shape
+    NQ = (Lq // FINE) * C
+    if K * NQ >= 1 << 31:
+        raise ValueError(f'K8 takes fewer than 2^31 query slots a row; got '
+                         f'{K} x {NQ}')
+    r_rows, q_rows = r_rows.contiguous(), q_rows.contiguous()
+    _check(r_rows, 'r_rows', torch.int32, (R,), dev)
+    _check(q_rows, 'q_rows', torch.int32, (R, K), dev)
+    Gq = b['qsv'].shape[0]
+    for name in ('qsv', 'qoff'):
+        _check(b[name], name, torch.int32, (Gq, NQ), dev)
+    Gr, NR = b['sv_f'].shape
+    for name, dt in (('sv_f', torch.int32), ('pk1_f', torch.int64),
+                     ('pk2_f', torch.int64), ('sv_r', torch.int32),
+                     ('pk1_r', torch.int64), ('pk2_r', torch.int64)):
+        _check(b[name], name, dt, (Gr, NR), dev)
+    votes = torch.empty((R, K, NQ, 4), dtype=torch.int32, device=dev)
+    if R and K:
+        lib = cuda.library('align_v2', cuda.ALIGN_V2_SIGNATURES)
+        with torch.cuda.device(dev):
+            rc = lib.k8_votes(
+                *(cuda.ptr(b[k]) for k in ('qsv', 'qoff', 'sv_f', 'pk1_f',
+                                           'pk2_f', 'sv_r', 'pk1_r',
+                                           'pk2_r')),
+                cuda.ptr(r_rows), cuda.ptr(q_rows), R, K, NQ, NR, C, Lq, Lr,
+                pack_bits, cuda.ptr(votes), cuda.stream(votes))
+        cuda.check(lib, rc, 'k8_votes')
+        _votes_v2.launches += 1
+    return votes
+
+
+_votes_v2.launches = 0
+
+
+def _elect_v2(votes, *, Lq, Lr):
+    """K6 wrapper (see elect_v2_plain): the plain version for CPU tensors,
+    the CUDA kernel for CUDA tensors (or raise). The kernel takes 1-32
+    seeds a fine block (C = NQ / NBF, 4C votes) and Lq a multiple of
+    BLOCK."""
+    dev = votes.device
+    if dev.type == 'cpu':
+        return elect_v2_plain(votes, Lq=Lq, Lr=Lr)
+    if dev.type != 'cuda':
+        raise ValueError(f'unsupported device {dev}')
+    if Lq % BLOCK or Lq < BLOCK:
+        raise ValueError(f'K6: Lq={Lq} is not a positive multiple of '
+                         f'{BLOCK}')
+    NBF = Lq // FINE
+    R, K, NQ = votes.shape[:3]
+    C = NQ // NBF
+    if NQ != NBF * C or not 1 <= C <= 32:
+        raise ValueError(f'K6 takes 1-32 seeds a block: NQ={NQ} at '
+                         f'{NBF} blocks')
+    _check(votes, 'votes', torch.int32, (R, K, NQ, 4), dev)
+    if not (MIN_VOTES_F >= 1 and MIN_VOTES_C >= 1):
+        raise ValueError('K6 takes MIN_VOTES_F and MIN_VOTES_C >= 1')
+    A, S = (torch.empty((R, K, NBF), dtype=torch.bool, device=dev)
+            for _ in range(2))
+    D, vb = (torch.empty((R, K, NBF), dtype=torch.int32, device=dev)
+             for _ in range(2))
+    if R and K:
+        lib = cuda.library('align_v2', cuda.ALIGN_V2_SIGNATURES)
+        with torch.cuda.device(dev):
+            rc = lib.k6_elect(cuda.ptr(votes), R * K, NBF, C, Lq, Lr,
+                              MIN_VOTES_F, MIN_VOTES_C,
+                              *(cuda.ptr(t) for t in (A, S, D, vb)),
+                              cuda.stream(votes))
+        cuda.check(lib, rc, 'k6_elect')
+        _elect_v2.launches += 1
+    return A, S, D, vb
+
+
+_elect_v2.launches = 0
+
+
+def _propagate_v2(b, r_rows, rlens, q_rows, qlens, A, S, D, *, Lr):
+    """K7 wrapper (see propagate_v2_plain): the plain version for CPU
+    tensors, the CUDA kernel for CUDA tensors (or raise). The kernel takes
+    EXT_ITERS (0-16), EXT_MIN and EXT_MARGIN (>= 0) as arguments; it reads
+    the query codes 16 bytes at a time (the arena 16-byte aligned) and the
+    window rows as words."""
+    dev = A.device
+    if dev.type == 'cpu':
+        return propagate_v2_plain(b, r_rows, rlens, q_rows, qlens, A, S, D,
+                                  Lr=Lr)
+    if dev.type != 'cuda':
+        raise ValueError(f'unsupported device {dev}')
+    if A.dim() != 3:
+        raise ValueError('stage 3: A must be (R, K, NBF)')
+    R, K, NBF = A.shape
+    Lq = NBF * FINE
+    r_rows, rlens = r_rows.contiguous(), rlens.contiguous().view(-1)
+    q_rows, qlens = q_rows.contiguous(), qlens.contiguous()
+    _check(r_rows, 'r_rows', torch.int32, (R,), dev)
+    _check(rlens, 'rlens', torch.int32, (R,), dev)
+    _check(q_rows, 'q_rows', torch.int32, (R, K), dev)
+    _check(qlens, 'qlens', torch.int32, (R, K), dev)
+    for name, t, dt in (('A', A, torch.bool), ('S', S, torch.bool),
+                        ('D', D, torch.int32)):
+        _check(t, name, dt, (R, K, NBF), dev)
+    _check(b['fwd'], 'fwd', torch.int8, (b['fwd'].shape[0], Lq), dev)
+    G2, rows2 = b['r2dov'].shape[:2]
+    _check(b['r2dov'], 'r2dov', torch.int8, (G2, rows2, 2 * FINE), dev)
+    NRT = rows2 // 2
+    if rows2 % 2 or NRT < Lr // FINE + 1:
+        raise ValueError(f'K7: r2dov holds {rows2} rows a genome, fewer '
+                         f'than two strands of Lr / 32 + 1 ({Lr})')
+    if b['fwd'].data_ptr() % 16 or b['r2dov'].data_ptr() % 4:
+        raise ValueError('K7 reads the query codes 16 bytes and the window '
+                         'rows 4 at a time: their arenas must be aligned')
+    if not (0 <= EXT_ITERS <= 16 and EXT_MARGIN >= 0):
+        raise ValueError('K7 takes EXT_ITERS 0-16 and EXT_MARGIN >= 0')
+    m1, m0 = (torch.empty((R, K, Lq), dtype=torch.bool, device=dev)
+              for _ in range(2))
+    sw, A1, S1, Ap, Sp = (torch.empty((R, K, NBF), dtype=torch.bool,
+                                      device=dev) for _ in range(5))
+    D1, Dp = (torch.empty((R, K, NBF), dtype=torch.int32, device=dev)
+              for _ in range(2))
+    if R and K and NBF:
+        lib = cuda.library('align_v2', cuda.ALIGN_V2_SIGNATURES)
+        with torch.cuda.device(dev):
+            rc = lib.k7_propagate(
+                *(cuda.ptr(t) for t in (b['fwd'], q_rows, qlens, b['r2dov'],
+                                        r_rows, rlens, A, S, D)),
+                R * K, K, NBF, Lr, NRT, EXT_ITERS, EXT_MIN, EXT_MARGIN,
+                *(cuda.ptr(t) for t in (m1, m0, sw, A1, S1, D1, Ap, Sp, Dp)),
+                cuda.stream(A))
+        cuda.check(lib, rc, 'k7_propagate')
+        _propagate_v2.launches += 1
+    return m1, m0, sw, A1, S1, D1, Ap, Sp, Dp
+
+
+_propagate_v2.launches = 0
 
 
 def _row_core(b, r_rows, rlens, q_rows, qlens, *, Lq, Lr, K, mqd, mrd, reg,

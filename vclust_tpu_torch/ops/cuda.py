@@ -18,7 +18,7 @@ import torch
 from ..utils.build import (BUILD_DIR, CSRC_DIR, finish_compile, is_stale,
                            start_compile)
 
-SOURCES = ('occupancy', 'extend', 'align_v3', 'back_half')
+SOURCES = ('occupancy', 'extend', 'align_v3', 'back_half', 'align_v2')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
@@ -42,6 +42,18 @@ BACK_HALF_SIGNATURES = {
     # m1, m0, sw, A, S, D, Ap, Sp, Dp, rlen, N, Lq, mqd, mrd, reg, maxseg,
     # agg, recs, nrec, scratch, scratch_ints, stream
     'k4_back_half': [_P] * 10 + [_I] * 6 + [_P] * 4 + [_I, _P],
+}
+# csrc/align_v2.cu, kernels K8, K6 and K7 of the v2 front end.
+ALIGN_V2_SIGNATURES = {
+    # qsv, qoff, sv_f, pk1_f, pk2_f, sv_r, pk1_r, pk2_r, r_rows, q_rows, R,
+    # K, NQ, NR, C, Lq, Lr, pack_bits, votes, stream
+    'k8_votes': [_P] * 10 + [_I] * 8 + [_P] * 2,
+    # votes, N, NBF, C, Lq, Lr, min_f, min_c, A, S, D, vb, stream
+    'k6_elect': [_P] + [_I] * 7 + [_P] * 5,
+    # q, q_rows, qlens, r2dov, r_rows, rlens, A0, S0, D0, N, K, NBF, Lr,
+    # NRT, iters, ext_min, ext_margin, m1, m0, sw, A, S, D, Ap, Sp, Dp,
+    # stream
+    'k7_propagate': [_P] * 9 + [_I] * 8 + [_P] * 10,
 }
 
 _libs = {}
