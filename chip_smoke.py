@@ -60,17 +60,21 @@ Phases, each printing one JSON line; any failure exits non-zero:
               each pipe, warm pairs/s with and without the hybrid, busy
               share and top device entries under the profiler, max |dtANI|
               against the native engine; with records == the all-plain
-              run; on one v2 dispatch at 65,536, K8, K6, K7 and K4 alone
-              against their plain versions (ms, device_ms, host_ms, bound,
-              share_of_bound; library_ms for K8, torch.searchsorted) and
-              each stage's time, the row core's with the plain kernels;
+              run; on one v2 dispatch at 65,536, K6 (K8 fused in: its
+              election against the plain pair, and with its votes output
+              against votes_v2_plain), K7 and K4 alone against their plain
+              versions (ms, device_ms, host_ms, bound, share_of_bound;
+              library_ms for K6 and K8, torch.searchsorted of the same
+              seeds in the same call), each stage's time, the row core's
+              with the plain kernels, and the v2 index build of the
+              bucket (`_index_block`) with its bytes bound;
   9. align_v2 - the v2 pipe alone above V3_MAX_BUCKET: 4 genomes of
               158-249 kb concatenated from example genomes plus a 5% mutant
               each (buckets 196,608 and 262,144, 64-bit packs), all 28
               pairs with records: == the all-plain run, and == the port on
               the CPU for two pairs; pairs/s, peak bytes, B, each stage's
-              time on one dispatch (K8, K6, K7 and K4 alone against
-              plain), and the live
+              time on one dispatch (K6, K7 and K4 alone against plain, the
+              index build), and the live
               bytes a query position holds (peaks at 1 and 2 rows, C = 16
               and 8) against `_dispatch_rows_v2`'s constants;
  10. mesh   - the port's mesh paths (vclust_tpu_torch/parallel/) on the
@@ -94,11 +98,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
               visible card, or on 2 shards of cuda:0 when one is visible;
  11. the `kernels` line: every kernel (KX, K1, K2, K3, K4, K5, K8, K6,
      K7) with its launches on its path, error against its plain version,
-     times and bound.
-On every align path (phases 6-10) K2, K3, K5, K4, K8, K6 and K7 are
-counted from 0 around the run: each v3 dispatch launches K2, K3, K5 and
-K4 once, each v2 dispatch K8, K6, K7 and K4 once, and any other count
-fails.
+     times and bound; K8 is fused into K6 (one launch: row k8 is its votes
+     output, row k6 its election).
+On every align path (phases 6-10) K2, K3, K5, K4, K6 and K7 are counted
+from 0 around the run: each v3 dispatch launches K2, K3, K5 and K4 once,
+each v2 dispatch K6, K7 and K4 once, and any other count fails.
 The card's name and power limit (nvidia-smi) precede the last line, which
 is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -901,22 +905,22 @@ def align_inputs(corpus):
     return codes, pairs
 
 
-# The align kernels' wrappers in ops/align_gpu.py (K2, K3, K5, K4, K8, K6,
-# K7; also the names of their rows in the kernels line) and their plain
-# versions.
+# The align kernels' wrappers in ops/align_gpu.py (K2, K3, K5, K4, K6 with
+# K8 fused in, K7; also the names of their rows in the kernels line) and
+# their plain versions.
 ALIGN_KERNELS = (('stage1_pack', 'stage1_pack_plain'),
                  ('band_counts', 'band_counts_plain'),
                  ('_propagate_v3', 'propagate_v3_plain'),
                  ('_blocks_to_measures', 'blocks_to_measures_plain'),
-                 ('_votes_v2', 'votes_v2_plain'),
-                 ('_elect_v2', 'elect_v2_plain'),
+                 ('_votes_elect_v2', 'votes_elect_v2_plain'),
                  ('_propagate_v2', 'propagate_v2_plain'))
 
 
 @contextlib.contextmanager
 def plain_kernels(ag):
     """Inside: the align pipes call the plain versions of K2, K3, K5, K4,
-    K8, K6 and K7 (same tensors, same device) instead of the kernels."""
+    K6 (the plain pair of K8 and K6) and K7 (same tensors, same device)
+    instead of the kernels."""
     saved = {k: getattr(ag, k) for k, _ in ALIGN_KERNELS}
     for k, plain in ALIGN_KERNELS:
         setattr(ag, k, getattr(ag, plain))
@@ -938,12 +942,12 @@ def align_launches(ag) -> dict:
 
 def check_align_launches(path: str, launches: dict, dispatches: dict):
     """Each v3 dispatch launches K2, K3, K5 and K4 once, each v2 dispatch
-    K8, K6, K7 and K4 once; a path that launched none of its kernels
-    fails."""
+    K6 (K8 fused in), K7 and K4 once; a path that launched none of its
+    kernels fails."""
     v3, v2 = dispatches['v3'], dispatches['v2']
     want = {'stage1_pack': v3, 'band_counts': v3, '_propagate_v3': v3,
-            '_blocks_to_measures': v3 + v2, '_votes_v2': v2,
-            '_elect_v2': v2, '_propagate_v2': v2}
+            '_blocks_to_measures': v3 + v2, '_votes_elect_v2': v2,
+            '_propagate_v2': v2}
     if launches != want or not v3 + v2:
         fail(f'{path}: launches {launches} for {v3} v3 and {v2} v2 '
              f'dispatches (want {want})')
@@ -1433,7 +1437,8 @@ def align_v3_dispatch(torch, dev, ag, idx, codes, seed: int, kb=65536):
 
 
 def v2_row(alone: dict, replaces_design) -> dict:
-    """A kernels-line row of K8, K6 or K7 from its v2_alone result."""
+    """A kernels-line row of K8, K6 or K7 from its v2_alone result; its
+    launches are those of its wrapper (K8's are K6's: one kernel)."""
     replaces, design = replaces_design
     row = dict(alone, route='cuda',
                source='vclust_tpu_torch/csrc/align_v2.cu',
@@ -1477,9 +1482,10 @@ def k2_library_ms(torch, qocc, rocc, r_rows, q_rows) -> float:
 
 def phase_align_v3(torch, dev, seed: int, engine: dict):
     """Phases align_v3 and align_hybrid. The `launches` of K2, K3, K5, K4,
-    K8, K6 and K7 are those of the CLI engine path (phase align_engine);
-    the other paths' are beside them. Returns their seven rows (K8, K6 and
-    K7 timed on the hybrid's v2 dispatch at 65,536)."""
+    K8 (fused into K6: K6's), K6 and K7 are those of the CLI engine path
+    (phase align_engine); the other paths' are beside them. Returns their
+    seven rows (K8, K6 and K7 timed on the hybrid's v2 dispatch at
+    65,536)."""
     from vclust_tpu_torch.ops import align_gpu as ag
     res48, codes, pairs, idx, out = align_v3_corpus(
         torch, dev, 'genomes48', mutant_corpus(), ag)
@@ -1520,7 +1526,7 @@ def phase_align_v3(torch, dev, seed: int, engine: dict):
         ('k7', ('vclust_tpu/ops/align_tpu.py:653', K7_DESIGN))))
     rows = (k2, k3, k5, k4) + v2_rows
     for row in rows:
-        key = row['name']
+        key = row.get('wrapper', row['name'])
         row['launches'] = engine['path_launches'][key]
         row['launches_by_path'] = {
             'align --engine gpu (example, 66 pairs)':
@@ -1676,17 +1682,22 @@ def phase_align_engine(torch, work: pathlib.Path):
 # Phase 8: the hybrid on the 48 genomes; v2 dispatch stages
 # --------------------------------------------------------------------------
 
-K8_DESIGN = ('a CTA a (reference row, strand) and a run of query '
-             'slots, the row\'s sorted seed values staged in shared memory '
-             '(every stride-th past 32,768 entries, refined through L2), '
-             'a branch-free power-of-two descent a seed, the packs read '
-             'only at the run of equal values')
-K6_DESIGN = ('a warp a coarse block: its 4 fine blocks\' votes padded '
-             'with BIG to a power of two in shared memory, a bitonic '
-             'network (mirrored first steps, every run ascending) sorts '
-             'each run, the fine elections, the runs merged, the coarse '
-             'election on every fourth vote; window counts from shared '
-             'memory, packed maxes and counts by shuffles')
+K8_DESIGN = ('fused into K6 (one launch; this row is its votes output, '
+             'the debug path\'s): a CTA a run of (query, coarse block) '
+             'items of one reference row, a directory of each strand\'s '
+             'sorted seed values staged in shared memory (every s-th, '
+             's >= 4, at most 16,384 in 16 bits, as a breadth-first search '
+             'tree), a branch-free descent a seed and strand, the segment '
+             'between two samples by 16-byte loads, pk1 read only at the '
+             'end of the run of equal values (pk2 never); a lane\'s '
+             'searches interleaved')
+K6_DESIGN = ('the seeds of a v2 dispatch in, the election out: a warp an '
+             'item, lanes 8q .. 8q + 7 fine block q\'s seeds and votes in '
+             'registers (4, 8 or 16 a lane), an in-lane network, shuffle '
+             'merges over lanes 1, 2, 4 (each fine block) and 8, 16 (the '
+             'coarse block), window counts from the next lanes by '
+             'shuffles, the coarse sample at registers 0, 4, ..., packed '
+             'maxes by shuffles; the votes never reach device memory')
 K7_DESIGN = ('K5\'s tiles: a warp a tile of 128 blocks with a halo of '
              'EXT_ITERS, blocks lane + 32 j; up front a table of 32-bit '
              'match masks at the initial states of the assigned blocks of '
@@ -1740,48 +1751,54 @@ def v2_alone(torch, name, run, plain, nbytes, slots, at, **extra):
 
 def v2_front_end_alone(torch, ag, b, r_rows, rlens, q_rows, qlens, kb, C,
                        at):
-    """K8, K6 and K7 alone on one v2 dispatch, each against its plain
-    version on the same inputs (v2_alone); K8's library_ms is one
-    torch.searchsorted over the same rows and values (both strands)."""
+    """K6 (K8 fused in) and K7 alone on one v2 dispatch, each against its
+    plain version on the same inputs (v2_alone): K6's election against the
+    plain pair (row k6), and the same launch with its votes output against
+    votes_v2_plain (row k8). The library_ms of both is one
+    torch.searchsorted over the same rows and values (both strands), timed
+    in the same call."""
     import math
     R, K = q_rows.shape
     N, NBF = R * K, kb // ag.FINE
     NQ = NBF * C
-    kw = dict(Lq=kb, Lr=kb)
+    kw = dict(Lq=kb, Lr=kb, C=C)
     n_ref = len(torch.unique(r_rows))
     n_q = len(torch.unique(q_rows))
     NR = b['sv_f'].shape[1]
     packs = 1 if b['pack_bits'] == 64 else 2
-    # K8: each distinct query's seeds and offsets, each distinct
-    # reference's values and packs (both strands) read once, the votes
-    # written; a search a seed and strand, a compare-select a level.
-    k8 = v2_alone(
-        torch, '_votes_v2',
-        lambda: ag._votes_v2(b, r_rows, q_rows, C=C, **kw),
-        lambda: ag.votes_v2_plain(b, r_rows, q_rows, C=C, **kw),
-        n_q * NQ * 8 + n_ref * 2 * NR * (4 + 8 * packs) + N * NQ * 16,
-        2 * 2 * N * NQ * math.ceil(math.log2(NR + 1)), at)
     rr = r_rows.long()
     sv2 = torch.cat([b['sv_f'][rr], b['sv_r'][rr]]).contiguous()
     vals = b['qsv'][q_rows.long()].reshape(R, K * NQ)
     vals2 = torch.cat([vals, vals]).contiguous()
-    k8['library_ms'] = time_ms(
-        lambda: torch.searchsorted(sv2, vals2, right=True), 5)
-    k8['library'] = ('torch.searchsorted of the seeds\' values in the '
-                     'references\' sorted values, both strands, one call '
-                     '(the search alone, without the packs)')
+    library = dict(
+        library_ms=time_ms(
+            lambda: torch.searchsorted(sv2, vals2, right=True), 5),
+        library='torch.searchsorted of the seeds\' values in the '
+                'references\' sorted values, both strands, one call (the '
+                'search alone: no packs, no election)')
     del sv2, vals, vals2
-    votes = ag._votes_v2(b, r_rows, q_rows, C=C, **kw)
+    # Each distinct query's seeds and offsets and each distinct reference's
+    # values and packs (both strands) read once, the election written (10
+    # bytes a fine block; the votes too, 16 bytes a query slot, with the
+    # votes output); a search a seed and strand (a compare-select a level)
+    # and K6's least election work (k6_slots).
+    nbytes = n_q * NQ * 8 + n_ref * 2 * NR * (4 + 8 * packs) + N * NBF * 10
     fine, coarse = k6_slots(C)
+    slots = (2 * 2 * N * NQ * math.ceil(math.log2(NR + 1))
+             + N * NBF * fine + N * NBF // 4 * coarse)
     k6 = v2_alone(
-        torch, '_elect_v2', lambda: ag._elect_v2(votes, **kw),
-        lambda: ag.elect_v2_plain(votes, **kw),
-        N * NQ * 16 + N * NBF * 10, N * NBF * fine + N * NBF // 4 * coarse,
-        at, library_ms=None,
-        library='none: no PyTorch call computes the two-scale election '
-                '(its plain version is two torch.sort and ~70 torch ops)')
-    A, S, D, _ = ag._elect_v2(votes, **kw)
-    del votes
+        torch, '_votes_elect_v2',
+        lambda: ag._votes_elect_v2(b, r_rows, q_rows, **kw)[:4],
+        lambda: ag.votes_elect_v2_plain(b, r_rows, q_rows, **kw)[:4],
+        nbytes, slots, at, **library)
+    k8 = v2_alone(
+        torch, '_votes_elect_v2 votes output',
+        lambda: ag._votes_elect_v2(b, r_rows, q_rows, want_votes=True,
+                                   **kw)[4],
+        lambda: ag.votes_v2_plain(b, r_rows, q_rows, **kw),
+        nbytes + N * NQ * 16, slots, at, wrapper='_votes_elect_v2',
+        **library)
+    A, S, D = ag._votes_elect_v2(b, r_rows, q_rows, **kw)[:3]
     NRT = b['r2dov'].shape[1] // 2
     # K7: the election read, each distinct query's codes and reference's
     # window rows read once, the flags and the states written; the final
@@ -1797,13 +1814,44 @@ def v2_front_end_alone(torch, ag, b, r_rows, rlens, q_rows, qlens, kb, C,
     return k8, k6, k7
 
 
+def v2_index_build(torch, ag, b, codes, kb, C) -> dict:
+    """The v2 index build of bucket kb (`_index_block`, torch ops) on the
+    arena's genomes, alone: == the arena, its event and device times, and
+    its bytes bound (both strands' codes read once, the index written)."""
+    import numpy as np
+    from vclust_tpu_torch.core.seq import revcomp_codes
+    fwd = b['fwd']
+    G = fwd.shape[0]
+    rc = np.full((G, kb), 4, np.int8)
+    for g, row in b['rows'].items():
+        rc[row, :len(codes[g])] = revcomp_codes(codes[g])
+    rc = torch.from_numpy(rc).to(fwd.device)
+    pb = b['pack_bits']
+
+    def run():
+        return ag._index_block(fwd, rc, ag.SEED_K, pb, C)
+
+    if not all(torch.equal(x, b[k]) for k, x in zip(ag._V2_KEYS, run())):
+        fail(f'v2 index at {kb}: _index_block != the arena')
+    NQ = kb // ag.FINE * C
+    # qsv, qoff, sv_f, sv_r (int32); the packs (int64: four arrays, or
+    # two where pk2 is pk1); the window rows (int8).
+    nbytes = (2 * G * kb + G * NQ * (16 + 8 * (4 if pb == 32 else 2))
+              + b['r2dov'].numel())
+    return with_shares(dict(
+        genomes=G, bucket=kb, C=C, ms=time_ms(run, 3),
+        device_ms=device_ms(run, 3), bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+        bound_by='bytes', bytes=nbytes))
+
+
 def v2_dispatch(torch, dev, ag, b, codes, kb, seed, C=None, kernels=True):
     """One v2 dispatch at bucket `kb` (B rows of K = 8 queries from the
-    arena `b`): K8, K6 and K7 alone against their plain versions
-    (v2_front_end_alone, with `kernels`), each stage's event time (K4
-    alone against its plain version, k4_alone), its bytes bound and the
-    live bytes of the dispatch at 1 and 2 rows (their difference a row),
-    without and with records."""
+    arena `b`): K6 (K8 fused in) and K7 alone against their plain versions
+    and the bucket's index build (v2_front_end_alone, v2_index_build, with
+    `kernels`), each stage's event time (K4 alone against its plain
+    version, k4_alone), its bytes bound and the live bytes of the dispatch
+    at 1 and 2 rows (their difference a row), without and with
+    records."""
     import numpy as np
     C = C or ag.SEEDS_PER_BLOCK
     K = ag.K_QUERIES
@@ -1835,8 +1883,7 @@ def v2_dispatch(torch, dev, ag, b, codes, kb, seed, C=None, kernels=True):
 
     front = (v2_front_end_alone(torch, ag, b, r_rows, rlens, q_rows, qlens,
                                 kb, C, at) if kernels else None)
-    votes = ag._votes_v2(b, r_rows, q_rows, Lq=kb, Lr=kb, C=C)
-    A, S, D, vb = ag._elect_v2(votes, Lq=kb, Lr=kb)
+    A, S, D = ag._votes_elect_v2(b, r_rows, q_rows, Lq=kb, Lr=kb, C=C)[:3]
     flags = ag._propagate_v2(b, r_rows, rlens, q_rows, qlens, A, S, D, Lr=kb)
     N = B * K
     flat = [x.reshape((N,) + x.shape[2:]) for x in flags]
@@ -1844,16 +1891,15 @@ def v2_dispatch(torch, dev, ag, b, codes, kb, seed, C=None, kernels=True):
     k4 = k4_alone(torch, ag, flat, rl, kb, dict(mqd=p.mqd, mrd=p.mrd,
                                                 reg=p.reg), at)
     stages = dict(
-        votes_ms=time_ms(lambda: ag._votes_v2(b, r_rows, q_rows, Lq=kb,
-                                              Lr=kb, C=C), 3),
-        election_ms=time_ms(lambda: ag._elect_v2(votes, Lq=kb, Lr=kb), 3),
+        votes_election_ms=time_ms(lambda: ag._votes_elect_v2(
+            b, r_rows, q_rows, Lq=kb, Lr=kb, C=C), 3),
         propagation_ms=time_ms(lambda: ag._propagate_v2(
             b, r_rows, rlens, q_rows, qlens, A, S, D, Lr=kb), 3),
         back_half_ms=k4['aggregates']['ms'],
         back_half_plain_ms=k4['aggregates']['plain_ms'],
         row_core_ms=time_ms(lambda: ag._row_core(
             b, r_rows, rlens, q_rows, qlens, **kw), 3))
-    del votes, flags, flat
+    del flags, flat
     with plain_kernels(ag):
         stages['row_core_plain_ms'] = time_ms(lambda: ag._row_core(
             b, r_rows, rlens, q_rows, qlens, **kw), 2)
@@ -1881,6 +1927,7 @@ def v2_dispatch(torch, dev, ag, b, codes, kb, seed, C=None, kernels=True):
                * ag._V2_BYTES_PER_POS_RECORDS)
     if front:
         res['k8'], res['k6'], res['k7'] = front
+        res['index'] = v2_index_build(torch, ag, b, codes, kb, C)
     return res
 
 
@@ -2292,7 +2339,7 @@ def phase_mesh(torch, dev, k1_inputs, align_rows) -> dict:
                                      for k, v in walls.items()})
     for row in align_rows:
         row['launches_by_path']['mesh: all2all_gpu 2 shards (genomes48)'] = \
-            sharded_launches[row['name']]
+            sharded_launches[row.get('wrapper', row['name'])]
 
     # Two processes on this card, and the dry run.
     t0 = time.perf_counter()
@@ -2386,7 +2433,7 @@ def main():
     v2 = phase_align_v2(torch, dev, args.seed)
     for row in align_rows:
         row['launches_by_path']['align_v2 (8 genomes, 28 pairs)'] = \
-            v2['path_launches'][row['name']]
+            v2['path_launches'][row.get('wrapper', row['name'])]
     window, unweighted = phase_mesh(torch, dev, k1_inputs, align_rows)
     k1_row['window_mode'] = window
     k1_row['unweighted'] = unweighted
@@ -2394,9 +2441,8 @@ def main():
                                 unweighted['max_abs_err'])
     keys = ('at', 'max_abs_err', 'ms', 'device_ms', 'plain_ms', 'bound_ms',
             'bound_by', 'library_ms', 'share_of_bound', 'host_ms')
-    for row in align_rows[4:]:
-        at = v2['dispatch'][{'_votes_v2': 'k8', '_elect_v2': 'k6',
-                             '_propagate_v2': 'k7'}[row['name']]]
+    for row, key in zip(align_rows[4:], ('k8', 'k6', 'k7')):
+        at = v2['dispatch'][key]
         row['max_abs_err'] = max(row['max_abs_err'], at['max_abs_err'])
         row['at_262144'] = {key: at.get(key) for key in keys}
     k2_row, k3_row, k5_row, k4_row, k8_row, k6_row, k7_row = align_rows

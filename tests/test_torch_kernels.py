@@ -21,8 +21,7 @@ from back_half_cases import (CASES, PARAMS, back_half_case,  # noqa: E402
                              chain_case, last_chunk_case, long_segment_case,
                              propagate_case, sparse_cap_case)
 from v2_cases import (chain_election, election_case,  # noqa: E402
-                      random_election, v2_arena, v2_genomes, v2_rows,
-                      votes_case)
+                      random_election, v2_arena, v2_genomes, v2_rows)
 from vclust_tpu_torch.ops import align_gpu as tav  # noqa: E402
 from vclust_tpu_torch.ops import extend as tx      # noqa: E402
 from vclust_tpu_torch.ops import prefilter as tpf  # noqa: E402
@@ -692,20 +691,24 @@ def test_cpu_tensors_take_the_plain_k4_and_k5():
 
 
 def test_cpu_tensors_take_the_plain_v2_front_end():
-    """K8, K6 and K7 wrappers answer CPU tensors with their plain versions,
-    without a launch."""
-    counters = (tav._votes_v2, tav._elect_v2, tav._propagate_v2)
+    """The K6 (K8 fused in) and K7 wrappers answer CPU tensors with their
+    plain versions, without a launch: the election of the seed votes ==
+    elect_v2_plain(votes_v2_plain(...)), the votes only when asked."""
+    counters = (tav._votes_elect_v2, tav._propagate_v2)
     before = [c.launches for c in counters]
     codes = v2_genomes(3, 3300)
     b = v2_arena(codes, 4096, 32, 8)
     r_rows, rlens, q_rows, qlens = v2_rows(codes, 4, 2, 4)
     kw = dict(Lq=4096, Lr=4096)
-    votes = tav._votes_v2(b, r_rows, q_rows, C=8, **kw)
-    assert torch.equal(votes, tav.votes_v2_plain(b, r_rows, q_rows, C=8,
-                                                 **kw))
-    el = tav._elect_v2(votes, **kw)
-    for g, w in zip(el, tav.elect_v2_plain(votes, **kw)):
-        assert torch.equal(g, w)
+    votes = tav.votes_v2_plain(b, r_rows, q_rows, C=8, **kw)
+    want = tav.elect_v2_plain(votes, **kw)
+    *el, none = tav._votes_elect_v2(b, r_rows, q_rows, C=8, **kw)
+    assert none is None
+    *el_v, got_votes = tav._votes_elect_v2(b, r_rows, q_rows, C=8,
+                                           want_votes=True, **kw)
+    assert torch.equal(got_votes, votes)
+    for g, g_v, w in zip(el, el_v, want):
+        assert torch.equal(g, w) and torch.equal(g_v, w)
     args = (b, r_rows, rlens, q_rows, qlens, *el[:3])
     for g, w in zip(tav._propagate_v2(*args, Lr=4096),
                     tav.propagate_v2_plain(*args, Lr=4096)):
@@ -713,15 +716,45 @@ def test_cpu_tensors_take_the_plain_v2_front_end():
     assert [c.launches for c in counters] == before
 
 
-# The v2 front end: K8, K6 and K7 (csrc/align_v2.cu) on the card against
-# their plain versions; genomes of `v2_genomes` a bucket long, less 700.
+# The v2 front end: K6 (K8 fused in) and K7 (csrc/align_v2.cu) on the card
+# against their plain versions; genomes of `v2_genomes` a bucket long, less
+# 700.
 
-def _v2_inputs(device, Lp, pack, C, R=3, K=8, seed=5):
+def _v2_inputs(device, Lp, pack, C, R=3, K=8, seed=5, poly_t=False):
+    """The index genomes' arena and rows; with poly_t genomes 0 and 1 hold
+    a run of T (seeds of the largest value) and row 1 queries them."""
     codes = v2_genomes(seed, Lp - 700)
+    if poly_t:
+        for g in (0, 1):
+            codes[g][2000:2100] = 3
     b = v2_arena(codes, Lp, pack, C, device)
-    rows = tuple(x.to(device) for x in v2_rows(codes, seed + 1, R, K,
-                                               refs=(0, 5)))
-    return b, rows
+    rows = v2_rows(codes, seed + 1, R, K, refs=(0, 5))
+    if poly_t:
+        rows[2][1, :2] = torch.tensor([0, 1])
+        rows[3][1, :2] = torch.tensor([len(codes[0]), len(codes[1])])
+    return b, tuple(x.to(device) for x in rows)
+
+
+def _k6_matches(device, Lp, pack, C, R=3, K=8, poly_t=False):
+    """The fused kernel on the index genomes == the plain pair: the
+    election without and with the votes output, and the votes; one launch
+    each."""
+    b, (r_rows, rlens, q_rows, qlens) = _v2_inputs(device, Lp, pack, C, R,
+                                                   K, poly_t=poly_t)
+    kw = dict(Lq=Lp, Lr=Lp, C=C)
+    before = tav._votes_elect_v2.launches
+    got = tav._votes_elect_v2(b, r_rows, q_rows, **kw)
+    got_v = tav._votes_elect_v2(b, r_rows, q_rows, want_votes=True, **kw)
+    want = tav.votes_elect_v2_plain(b, r_rows, q_rows, want_votes=True,
+                                    **kw)
+    torch.cuda.synchronize()
+    assert tav._votes_elect_v2.launches == before + 2
+    assert got[4] is None
+    for g, g_v, w in zip(got[:4], got_v[:4], want[:4]):
+        assert g.dtype == w.dtype and torch.equal(g, w) and torch.equal(
+            g_v, w)
+    assert torch.equal(got_v[4], want[4])
+    return want
 
 
 @pytest.mark.gpu
@@ -729,58 +762,75 @@ def _v2_inputs(device, Lp, pack, C, R=3, K=8, seed=5):
     (4096, 8, 32), (4096, 16, 64), (65536, 8, 32), (65536, 16, 32),
     (65536, 16, 64), (262144, 8, 64), (262144, 16, 64)])
 def test_k8_kernel_matches_plain(cuda_device, Lp, C, pack):
-    """The seed votes' kernel == votes_v2_plain, both strands, both pack
-    widths; at 262,144 the reference rows outgrow the staged sample
-    (stride 2 at C = 8, 4 at C = 16) and the search refines through L2."""
-    b, (r_rows, rlens, q_rows, qlens) = _v2_inputs(cuda_device, Lp, pack, C)
-    before = tav._votes_v2.launches
-    got = tav._votes_v2(b, r_rows, q_rows, Lq=Lp, Lr=Lp, C=C)
-    want = tav.votes_v2_plain(b, r_rows, q_rows, Lq=Lp, Lr=Lp, C=C)
-    torch.cuda.synchronize()
-    assert tav._votes_v2.launches == before + 1
-    assert torch.equal(got, want)
-    assert (want[0, ..., 0] < tav.BIG).any() and (want[1] == tav.BIG).all()
-
-
-def _k6_matches(device, votes, Lq, Lr):
-    votes = votes.to(device)
-    before = tav._elect_v2.launches
-    got = tav._elect_v2(votes, Lq=Lq, Lr=Lr)
-    want = tav.elect_v2_plain(votes, Lq=Lq, Lr=Lr)
-    torch.cuda.synchronize()
-    assert tav._elect_v2.launches == before + 1
-    for g, w in zip(got, want):
-        assert g.dtype == w.dtype and torch.equal(g, w)
-    return got
+    """The fused kernel's votes (its search, K8) and election ==
+    votes_v2_plain and elect_v2_plain, both strands, both pack widths; the
+    directory samples every 4th sorted value (every 8th at 262,144 and
+    C = 16) and the search reads the segment between two samples."""
+    votes = _k6_matches(cuda_device, Lp, pack, C)[4]
+    assert (votes[0, ..., 0] < tav.BIG).any() and (votes[1] == tav.BIG).all()
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize('Lq,C', [
-    (4096, 1), (4096, 8), (4096, 16), (4096, 32), (65536, 8), (65536, 16),
-    (262144, 8), (262144, 16)])
+    (4096, 1), (4096, 5), (4096, 8), (4096, 16), (4096, 24), (4096, 32),
+    (65536, 8), (65536, 16), (65536, 32), (262144, 8), (262144, 16)])
 def test_k6_kernel_matches_plain(cuda_device, Lq, C):
-    """The two-scale election's kernel == elect_v2_plain on crafted votes
-    (equal counts, empty blocks, a fine election that ties its support for
-    the coarse mode) and on the seed votes of the index genomes."""
-    R, K = (1, 3) if Lq > 65536 else (2, 4)
-    votes = votes_case(Lq + C, R, K, Lq // 32, C, Lq, Lq)
-    A = _k6_matches(cuda_device, votes, Lq, Lq)[0]
+    """The fused kernel's two-scale election (and votes) == the plain pair
+    at C = 1-32 (lanes without a seed below 8, 4, 8 and 16 votes a lane,
+    BIG padding at C = 5 and 24), on the index genomes at their bucket's
+    pack width."""
+    A = _k6_matches(cuda_device, Lq, tav._pack_bits(Lq), C, R=2, K=4)[0]
     assert A.any() and not A.all()
-    b, (r_rows, rlens, q_rows, qlens) = _v2_inputs(cuda_device, Lq,
-                                                   tav._pack_bits(Lq), C)
-    votes = tav.votes_v2_plain(b, r_rows, q_rows, Lq=Lq, Lr=Lq, C=C)
-    _k6_matches(cuda_device, votes, Lq, Lq)
 
 
 @pytest.mark.gpu
 def test_k6_kernel_wide_pack(cuda_device):
     """Bucket 1,048,576 (MAX_TPU_LEN): the election's pack needs 32 bits
     of vote code (2 DSPAN + 64 >= 2^22), held in int64 and clamped in its
-    own type; held against the port's plain version (ROADMAP R9)."""
-    Lq = 1 << 20
-    votes = votes_case(11, 1, 2, Lq // 32, 16, Lq, Lq)
-    A = _k6_matches(cuda_device, votes, Lq, Lq)[0]
+    own type (ROADMAP R9); the rows sampled every 32nd value."""
+    A = _k6_matches(cuda_device, 1 << 20, 64, 16, R=1, K=2)[0]
     assert A.any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('Lp,pack', [(4096, 32), (65536, 32), (262144, 64)])
+def test_k6_kernel_top_value(cuda_device, Lp, pack):
+    """Seeds of the largest value (TTTTTTTT), which the kernel's 16-bit
+    directory holds as it holds BIG: a run of them across segments in the
+    reference, then BIG; election and votes == the plain pair."""
+    votes = _k6_matches(cuda_device, Lp, pack, 16, poly_t=True)[4]
+    assert (votes[0, ..., 0] < tav.BIG).any()
+
+
+@pytest.mark.gpu
+def test_k6_wrapper_raises_on_bad_arguments(cuda_device):
+    """On the card the fused kernel's wrapper raises, and neither launches
+    nor falls back to the plain version, where the kernel cannot take its
+    arguments."""
+    b, (r_rows, _, q_rows, _) = _v2_inputs(cuda_device, 4096, 32, 8, R=2,
+                                           K=4)
+    kw = dict(Lq=4096, Lr=4096)
+    before = tav._votes_elect_v2.launches
+    with pytest.raises(ValueError, match='1-32 seeds'):
+        tav._votes_elect_v2(b, r_rows, q_rows, C=33, **kw)
+    with pytest.raises(ValueError, match='multiple of 128'):
+        tav._votes_elect_v2(b, r_rows, q_rows, C=8, Lq=4064, Lr=4096)
+    with pytest.raises(ValueError, match='packs of 32 or 64'):
+        tav._votes_elect_v2(dict(b, pack_bits=48), r_rows, q_rows, C=8,
+                            **kw)
+    with pytest.raises(ValueError, match='must be'):
+        tav._votes_elect_v2(b, r_rows, q_rows, C=16, **kw)  # qsv at C = 8
+    G, NR = b['sv_f'].shape
+    shifted = torch.empty(G * NR + 1, dtype=torch.int32,
+                          device=cuda_device)[1:].view(G, NR)
+    shifted.copy_(b['sv_f'])
+    with pytest.raises(ValueError, match='16-byte aligned'):
+        tav._votes_elect_v2(dict(b, sv_f=shifted), r_rows, q_rows, C=8,
+                            **kw)
+    with pytest.raises(ValueError, match='is on'):
+        tav._votes_elect_v2(dict(b, qsv=b['qsv'].cpu()), r_rows, q_rows,
+                            C=8, **kw)
+    assert tav._votes_elect_v2.launches == before
 
 
 def _on_cpu(b):

@@ -1,22 +1,24 @@
-"""Models, in numpy, of how kernels K8, K6 and K7 (csrc/align_v2.cu) do the
-v2 front end's work, held against the plain versions on the CPU.
+"""Models, in numpy, of how the kernels of csrc/align_v2.cu do the v2 front
+end's work, held against the plain versions on the CPU.
 
-K8 (`votes_kernel`): a CTA stages every stride-th entry of a reference
-row's sorted seed values (stride 1 up to K8_SAMPLES entries), finds for
-each query seed the entries <= its value by a branch-free power-of-two
-descent over the sample, refines between two samples through the row,
-and takes the max of the packs over the run of entries equal to the
-value (the plain version's stable sort join and running max give the
-same). The model runs the kernel's sample size and a small one (stride
-> 1).
-
-K6 (`elect_kernel`): a warp takes a coarse block; its 4 fine blocks' 4C
-votes each padded with BIG to a power of two P, a bitonic network whose
-first step of each merge compares mirrored elements sorts each run
-ascending, then merges the four; the fine elections run on the runs, the
-coarse one on every fourth vote of the merged list, the fine block's
-support for the coarse mode on its own votes. The model runs the same
-network on every coarse block at once.
+K6 (`front_kernel`, K8 fused in): a CTA takes one reference row and a run
+of (query, coarse block) items of it, and stages a directory of each
+strand's sorted seed values: every s-th value (s the least power of two
+with at most DIR_SAMPLES samples), as a complete search tree in
+breadth-first order. A warp takes an item; lanes 8q .. 8q + 7 take fine
+block q's seeds. A seed's search is a branch-free descent of the tree,
+then the segment between two samples read 16 bytes at a time, then pk1 at
+the end of the run of entries equal to the seed's value and at the entry
+before it (the plain version's stable sort join and running max give the
+same on `_index_block`'s packs, whose order the model checks). The votes stay
+in registers: each lane sorts its own by a network, shuffle merges sort
+each fine block's votes over 8 lanes and then the coarse block's over the
+warp; the window counts read the next lanes by shuffles and count by a
+binary search (the window ascends); the coarse sample
+is registers 0, 4, ... of every lane; the support for the coarse mode
+counts the lane's votes again. The model runs the search with small
+directories (s up to 64), the lanes and their shuffles on every coarse
+block at once, and the two together.
 
 K7 (`propagate_v2_kernel`): a warp takes a tile of T blocks of one pair,
 EXT_ITERS + 1 blocks of halo on its left and EXT_ITERS on its right; each
@@ -49,34 +51,106 @@ torch.set_num_threads(1)
 
 FINE = 32
 BIG = ag.BIG
-K8_SAMPLES = 32768      # csrc/align_v2.cu
+DIR_SAMPLES = 16384     # csrc/align_v2.cu: the directory's samples a strand
+TOP = 0xFFFF            # csrc/align_v2.cu: the largest seed value (SEED_K 8)
 
 # --------------------------------------------------------------------------
-# K8
+# K6's search: the seeds' votes (what K8 computed)
 # --------------------------------------------------------------------------
 
 
-def _descend(sample, v, limit, lo=None, top=None):
-    """The kernel's power-of-two descent, for every value of v at once:
-    from lo (default 0), the number of consecutive entries of `sample`
-    <= v, up to `limit` (an array of exclusive ends) by steps from `top`
-    down to 1."""
-    u = np.zeros(v.shape, np.int64) if lo is None else lo.copy()
-    step = top
-    while step:
-        at = np.clip(u + step - 1, 0, len(sample) - 1)
-        u += np.where((u + step <= limit) & (sample[at] <= v), step, 0)
-        step >>= 1
-    return u
+def dir_geometry(NR, most=DIR_SAMPLES):
+    """The directory of a reference row of NR sorted values: the stride s
+    (the least power of two from 4 with ceil(NR / s) <= most), the
+    samples ns and the tree's levels H (2^H - 1 nodes hold samples 1 ..
+    ns - 1)."""
+    s = 4
+    while -(-NR // s) > most:
+        s *= 2
+    ns = -(-NR // s)
+    return s, ns, max(1, (ns - 1).bit_length())
 
 
-def k8_model(b, r_rows, q_rows, Lq, Lr, C, samples):
-    """K8's votes (R, K, NQ, 4) and the lengths of the equal runs it
-    scanned."""
+def directory(sv, s, ns, H):
+    """The kernel's staged directory of one strand: T[k], k = 1 .. 2^H - 1,
+    the nodes of a complete search tree in breadth-first order; in-order
+    node m holds sample m + 1 (sv[(m + 1) s]) in 16 bits, BIG (and past
+    the samples) as TOP."""
+    T = np.full(1 << H, TOP, np.int64)
+    for i in range(1, min(ns, 1 << H)):
+        d = H - 1 - ((i & -i).bit_length() - 1)        # H - 1 - ctz(i)
+        T[(1 << d) + (i >> (H - d))] = min(sv[i * s], TOP)
+    return T
+
+
+def valid_tail(sv, s, ns):
+    """What the CTA finds at staging: the row's valid entries (< BIG), from
+    its last valid sample's segment, and whether the last holds TOP."""
+    valid = [i for i in range(ns) if sv[i * s] < BIG]
+    if not valid:
+        return 0, False
+    lo = valid[-1] * s
+    seg = sv[lo:min(lo + s, len(sv))]
+    nv = lo + int((seg < BIG).sum())
+    return nv, bool(sv[nv - 1] == TOP)
+
+
+def dir_search(sv, v, s, ns, H):
+    """For every value of v at once, as the kernel finds them: the entries
+    <= v (ub) and those == v at the end of them (eqc). The descent gives
+    the samples 1 .. ns - 1 <= v (g); the entries <= v and == v of the
+    segment [g s, g s + s) come from 16-byte loads, none past NR, each only
+    while every entry before it was <= v. TOP, which the directory cannot
+    tell from BIG, takes the row's valid entries (valid_tail)."""
+    NR = len(sv)
+    T = directory(sv, s, ns, H)
+    k = np.ones(v.shape, np.int64)
+    for _ in range(H):
+        k = 2 * k + (T[k] <= v)
+    seg0 = (k - (1 << H)) * s
+    live = v >= 0
+    cnt = np.zeros(v.shape, np.int64)
+    eqc = np.zeros(v.shape, np.int64)
+    assert NR % 4 == 0 and s >= 4
+    for o in range(0, s, 4):
+        ok = live & (v != TOP) & (seg0 + o < NR) & (cnt == o)
+        for e in range(4):
+            x = sv[np.clip(seg0 + o + e, 0, NR - 1)]
+            cnt += ok & (x <= v)
+            eqc += ok & (x == v)
+    nv, last_top = valid_tail(sv, s, ns)
+    top = v == TOP
+    return np.where(top, nv, seg0 + cnt), np.where(top, int(last_top), eqc)
+
+
+def check_pack_order(sv, pk1, pk2, pack):
+    """What the kernel takes from `_index_block`: inside a run of one
+    value the positions ascend, and pk2 of an entry is the position of the
+    entry before it where the two hold one value (0 where not), so the
+    plain version's maxes over a run are pk1 and pk2 of its last entry."""
+    same = np.zeros(len(sv), bool)
+    same[1:] = (sv[1:] == sv[:-1]) & (sv[1:] < BIG)
+    if pack == 32:
+        pos = pk1 & 0xFFFF
+        prev = np.where(same, (sv << 16) | np.roll(pos, 1), 0)
+        assert np.array_equal(pk2, np.where(sv < BIG, prev, 0))
+    else:
+        pos = (pk1 >> 20) & 0xFFFFF
+        assert np.array_equal(pk1 & 0xFFFFF, np.where(same, np.roll(pos, 1),
+                                                      0) * (sv < BIG))
+    assert (pos[1:][same[1:]] > pos[:-1][same[1:]]).all()
+
+
+def k8_model(b, r_rows, q_rows, Lq, Lr, C, most):
+    """The fused kernel's votes (R, K, NQ, 4) and the lengths of the runs
+    of entries equal to the seeds' values (0 where absent): the search,
+    then pk1 at the run's last entry ub - 1 and, for 32-bit packs, at the
+    entry before it (its value checked in the pack's top bits)."""
     qsv, qoff = b['qsv'].numpy(), b['qoff'].numpy()
     R, K = q_rows.shape
     NQ = Lq // FINE * C
     dspan = Lq + Lr + 64
+    pack = b['pack_bits']
     out = np.full((R, K, NQ, 4), BIG, np.int64)
     runs = set()
     for r in range(R):
@@ -84,67 +158,55 @@ def k8_model(b, r_rows, q_rows, Lq, Lr, C, samples):
         qr = q_rows[r].numpy()
         v = qsv[qr].astype(np.int64)                      # (K, NQ)
         qpos = (np.arange(NQ) // C) * FINE + (qoff[qr] & 31)
-        for s, keys in enumerate((('sv_f', 'pk1_f', 'pk2_f'),
-                                  ('sv_r', 'pk1_r', 'pk2_r'))):
+        for s_, keys in enumerate((('sv_f', 'pk1_f', 'pk2_f'),
+                                   ('sv_r', 'pk1_r', 'pk2_r'))):
             sv, pk1, pk2 = (b[k][g].numpy().astype(np.int64) for k in keys)
+            check_pack_order(sv, pk1, pk2, pack)
             NR = len(sv)
-            stride = 1
-            while -(-NR // stride) > samples:
-                stride *= 2
-            sample = sv[::stride]
-            ns = len(sample)
-            top = 1
-            while top * 2 <= ns:
-                top *= 2
-            u = _descend(sample, v, ns, top=top)
-            # Between samples u - 1 and u, through the row.
-            ub = _descend(sv, v, np.minimum(u * stride, NR),
-                          lo=(u - 1) * stride + 1, top=stride >> 1)
-            live = (v >= 0) & (u > 0)
-            i = ub - 1
-            live &= sv[np.clip(i, 0, NR - 1)] == v
-            m1 = np.zeros(v.shape, np.int64)
-            m2 = np.zeros(v.shape, np.int64)
-            run = np.zeros(v.shape, np.int64)
-            while live.any():
-                ic = np.clip(i, 0, NR - 1)
-                m1 = np.where(live, np.maximum(m1, pk1[ic]), m1)
-                m2 = np.where(live, np.maximum(m2, pk2[ic]), m2)
-                run += live
-                i -= 1
-                live &= (i >= 0) & (sv[np.clip(i, 0, NR - 1)] == v)
-            runs.update(np.unique(run).tolist())
-            base = Lq + (dspan if s else 0) - qpos
-            if b['pack_bits'] == 32:
+            s, ns, H = dir_geometry(NR, most)
+            ub, eqc = dir_search(sv, v, s, ns, H)
+            found = eqc > 0
+            m1 = np.where(found, pk1[np.clip(ub - 1, 0, NR - 1)], 0)
+            m0 = np.where(found & (ub >= 2), pk1[np.clip(ub - 2, 0, NR - 1)],
+                          0)
+            runs.update(np.unique(np.searchsorted(sv, v, 'right')
+                                  - np.searchsorted(sv, v)).tolist())
+            base = Lq + (dspan if s_ else 0) - qpos
+            if pack == 32:
                 d1 = np.where(((m1 >> 16) == v) & (m1 > 0),
                               (m1 & 0xFFFF) - 1 + base, BIG)
-                d2 = np.where(((m2 >> 16) == v) & (m2 > 0),
-                              (m2 & 0xFFFF) - 1 + base, BIG)
+                d2 = np.where(((m0 >> 16) == v) & (m0 > 0),
+                              (m0 & 0xFFFF) - 1 + base, BIG)
             else:
                 ok = ((m1 >> 40) == v) & (m1 > 0)
                 cq = m1 & 0xFFFFF
                 d1 = np.where(ok, ((m1 >> 20) & 0xFFFFF) - 1 + base, BIG)
                 d2 = np.where(ok & (cq > 0), cq - 1 + base, BIG)
-            found = (v >= 0) & (u > 0)
-            out[r, :, :, 2 * s] = np.where(found, d1, BIG)
-            out[r, :, :, 2 * s + 1] = np.where(found, d2, BIG)
+            out[r, :, :, 2 * s_] = np.where(found, d1, BIG)
+            out[r, :, :, 2 * s_ + 1] = np.where(found, d2, BIG)
     return out.astype(np.int32), runs
 
 
-@pytest.mark.parametrize('samples', [K8_SAMPLES, 16])
-@pytest.mark.parametrize('C', [1, 8, 16])
+@pytest.mark.parametrize('C,most,s', [(1, 16384, 4), (8, 256, 4),
+                                      (16, 256, 8), (8, 64, 16),
+                                      (32, 128, 32), (32, 64, 64)])
 @pytest.mark.parametrize('pack', [32, 64])
-def test_k8_search_matches_plain(pack, C, samples):
-    """K8's search and equal-run max == votes_v2_plain at both pack widths:
-    values that occur once, twice and 3+ times (the tandem repeat), values
-    absent from the reference (the unrelated genome), the value 0 at
-    position 0, invalid query seeds (the N run, the genome of N) and a
-    reference row of N only (row 1)."""
+def test_k8_search_matches_plain(pack, C, most, s):
+    """The fused kernel's search (a descent over a breadth-first directory
+    of every s-th sorted value, 16-byte loads between two samples, pk1 at
+    the end of the equal run) == votes_v2_plain at both pack widths, s
+    from 4 (the kernel's least) to 64: values that occur once, twice and
+    3+ times (the tandem repeat), values absent from the reference (the
+    unrelated genome), the value 0 at position 0, invalid query seeds (the
+    N run, the genome of N) and a reference row of N only (row 1). The
+    kernel's directory holds DIR_SAMPLES samples; `most` shrinks it here
+    so that s reaches 64 on small rows."""
     codes = v2_genomes(5, 3300)
     b = v2_arena(codes, 4096, pack, C)
+    assert dir_geometry(b['sv_f'].shape[1], most)[0] == s
     r_rows, rlens, q_rows, qlens = v2_rows(codes, 6, 3, 8, refs=(0, 5))
     want = ag.votes_v2_plain(b, r_rows, q_rows, Lq=4096, Lr=4096, C=C)
-    got, runs = k8_model(b, r_rows, q_rows, 4096, 4096, C, samples)
+    got, runs = k8_model(b, r_rows, q_rows, 4096, 4096, C, most)
     assert np.array_equal(got, want.numpy())
     w = want.numpy()
     qsv = b['qsv'][q_rows.long()].numpy()
@@ -158,99 +220,215 @@ def test_k8_search_matches_plain(pack, C, samples):
         assert 2 in runs and max(runs) >= 3 and (w[..., 1] < BIG).any()
 
 
+@pytest.mark.parametrize('C,most', [(16, 16384), (16, 128), (8, 256)])
+@pytest.mark.parametrize('pack', [32, 64])
+def test_k8_search_top_value(pack, C, most):
+    """Seeds of the value TOP (TTTTTTTT), which the 16-bit directory holds
+    as it holds BIG: a reference with a poly-T run (a run of TOP entries
+    across several segments, then BIG), queried by itself and by a mutant
+    with the run, and a reference row with no TOP entry; == votes_v2_plain."""
+    codes = v2_genomes(5, 3300)
+    for g in (0, 1):
+        codes[g][2000:2100] = 3
+    b = v2_arena(codes, 4096, pack, C)
+    r_rows, _, q_rows, _ = v2_rows(codes, 6, 3, 8, refs=(0, 4, 1))
+    q_rows[1, :2] = torch.tensor([0, 1])
+    want = ag.votes_v2_plain(b, r_rows, q_rows, Lq=4096, Lr=4096, C=C)
+    got = k8_model(b, r_rows, q_rows, 4096, 4096, C, most)[0]
+    assert np.array_equal(got, want.numpy())
+    sv = b['sv_f'][0].numpy()
+    s = dir_geometry(len(sv), most)[0]
+    assert (sv == TOP).sum() > s and (sv == BIG).any()
+    top = b['qsv'][q_rows.long()].numpy() == TOP
+    w = want.numpy()
+    assert top[0].any() and (w[0][top[0]][:, 0] < BIG).any()
+    assert top[1].any() and (w[1][top[1]][:, 0] == BIG).all()
+
+
 # --------------------------------------------------------------------------
-# K6
+# K6's election: a warp a coarse block, the votes in registers
 # --------------------------------------------------------------------------
 
 
-def sort_runs(x, frm, seg):
-    """The kernel's bitonic network on every row of x (rows, n) at once:
-    runs of `frm` sorted become runs of `seg` sorted, each ascending."""
-    n = x.shape[1]
-    p = np.arange(n // 2)
-    k = 2 * frm
-    while k <= seg:
-        j = k >> 1
+def lane_regs(C):
+    """Seeds a lane (ceil(C / 8)) and the votes a lane holds, V (4 a seed,
+    padded to a power of two)."""
+    spl = -(-C // 8)
+    return spl, 4 if spl == 1 else 8 if spl == 2 else 16
+
+
+def to_lanes(votes, C):
+    """The coarse blocks' votes as the kernel holds them, X (blocks, 32, V):
+    lane 8q + l holds the votes of seeds l, l + 8, ... of fine block q,
+    register 4t + j vote j of seed l + 8t; BIG where there is no seed and
+    past 4 ceil(C / 8)."""
+    R, K, NQ, _ = votes.shape
+    NBC = NQ // C // 4
+    spl, V = lane_regs(C)
+    v = votes.numpy().astype(np.int64).reshape(R * K * NBC, 4, C, 4)
+    X = np.full((R * K * NBC, 32, V), BIG, np.int64)
+    for lane in range(32):
+        for t in range(spl):
+            c = (lane & 7) + 8 * t
+            if c < C:
+                X[:, lane, 4 * t:4 * t + 4] = v[:, lane >> 3, c]
+    return X
+
+
+def _ce(X, i, j):
+    lo, hi = np.minimum(X[..., i], X[..., j]), np.maximum(X[..., i], X[..., j])
+    X[..., i], X[..., j] = lo, hi
+
+
+def sort_lane(X):
+    """Each lane's V registers ascending: a bitonic network whose first
+    step of each merge compares mirrored registers."""
+    V = X.shape[-1]
+    i = np.arange(V)
+    k = 2
+    while k <= V:
+        p = i ^ (k - 1)
+        _ce(X, i[i < p], p[i < p])
+        j = k >> 2
         while j:
-            i = ((p & ~(j - 1)) << 1) | (p & (j - 1))
-            o = i ^ (k - 1) if j == k >> 1 else i + j
-            lo, hi = np.minimum(x[:, i], x[:, o]), np.maximum(x[:, i], x[:, o])
-            x[:, i], x[:, o] = lo, hi
+            p = i ^ j
+            _ce(X, i[i < p], p[i < p])
             j >>= 1
         k <<= 1
-    return x
 
 
-def elect_model(x, w, y, vbits):
-    """The kernel's election on rows of sorted votes x[:, :w] and full rows
-    y: (mode, its votes)."""
+def merge_lanes(X, m):
+    """Runs of m lanes (ascending, lane-major) become runs of 2m: the
+    mirrored step by a shuffle over 2m - 1 (register V - 1 - i of the
+    partner), half cleaners by shuffles over m/2 .. 1, then in the lane."""
+    V = X.shape[-1]
+    lane = np.arange(32)
+    low = ((lane & m) == 0)[:, None]
+    Y = X[:, lane ^ (2 * m - 1), ::-1]
+    X[:] = np.where(low, np.minimum(X, Y), np.maximum(X, Y))
+    mm = m >> 1
+    while mm:
+        low = ((lane & mm) == 0)[:, None]
+        Y = X[:, lane ^ mm]
+        X[:] = np.where(low, np.minimum(X, Y), np.maximum(X, Y))
+        mm >>= 1
+    i = np.arange(V)
+    j = V >> 1
+    while j:
+        p = i ^ j
+        _ce(X, i[i < p], p[i < p])
+        j >>= 1
+
+
+def window_counts(X, span):
+    """Each value's count of the values within GAP_DIAG among the next SMAX
+    of the lane-major list of `span` lanes, and of those equal (0 for
+    BIG): the next SMAX values come from the lane's own registers and
+    from lanes + 1, + 2, ... by shuffles, BIG past the span; they ascend,
+    so each count is a binary search (count_le)."""
+    n = X.shape[-1]
+    lane = np.arange(32)
+    nx = np.empty(X.shape[:2] + (n + ag.SMAX,), np.int64)
+    nx[..., :n] = X
+    for j in range(ag.SMAX):
+        d = 1 + j // n
+        src = np.minimum(lane + d, 31)
+        nx[..., n + j] = np.where(((lane % span) + d < span)[None],
+                                  X[:, src, j % n], BIG)
+    assert (np.diff(nx, axis=-1) >= 0).all()          # the window ascends
+    ok = X < BIG
+    return (np.where(ok, 1 + count_le(nx, X + ag.GAP_DIAG), 0),
+            np.where(ok, 1 + count_le(nx, X), 0))
+
+
+def count_le(nx, lim):
+    """The kernel's count of nx[i + 1 .. i + SMAX] <= lim[i] for each of
+    the n values of a lane (nx holds n + SMAX, ascending): a binary search
+    of four steps, k grows by 8, 4, 2, 1 where nx[i + k + step] <= lim."""
+    n = lim.shape[-1]
+    i = np.arange(n)
+    k = np.zeros(lim.shape, np.int64)
+    for step in (8, 4, 2, 1):
+        at = np.broadcast_to(i + k + step, lim.shape)
+        k += np.where(np.take_along_axis(nx, at, axis=-1) <= lim, step, 0)
+    return k
+
+
+def reduce_span(x, span, op):
+    """A reduction over each group of `span` lanes (shuffles over span/2
+    .. 1), every lane of the group holding the result."""
+    B = x.shape[0]
+    r = op(x.reshape(B, 32 // span, span), axis=2)
+    return np.repeat(r, span, axis=1)
+
+
+def elect_lanes(W, span, Y, vbits):
+    """The election on the list W (lane-major over groups of `span`
+    lanes), its exact votes counted over Y: (mode, votes) a lane."""
     vmask = (1 << vbits) - 1
-    smax = min(ag.SMAX, w - 1)
-    xs = x[:, :w]
-    xp = np.concatenate([xs, np.full((len(xs), smax), BIG)], axis=1)
-    cnt = 1 + sum((xp[:, s:s + w] - xs <= ag.GAP_DIAG).astype(np.int64)
-                  for s in range(1, smax + 1))
-    eq = 1 + sum((xp[:, s:s + w] == xs).astype(np.int64)
-                 for s in range(1, smax + 1))
-    ok = xs < BIG
-    cnt, eq = np.where(ok, cnt, 0), np.where(ok, eq, 0)
-    inv = vmask - np.minimum(xs, vmask)
-    best = ((cnt << vbits) | inv).max(axis=1)
+    cnt, eq = window_counts(W, span)
+    inv = vmask - np.minimum(W, vmask)
+    best = reduce_span(((cnt << vbits) | inv).max(axis=2), span, np.max)
     vb = best >> vbits
-    start = (vmask - (best & vmask))[:, None]
-    inb = (xs >= start) & (xs <= start + ag.GAP_DIAG)
-    bm = np.where(inb, (eq << vbits) | inv, -1).max(axis=1)
+    start = (vmask - (best & vmask))[..., None]
+    inb = (W >= start) & (W <= start + ag.GAP_DIAG)
+    bm = reduce_span(np.where(inb, (eq << vbits) | inv, -1).max(axis=2),
+                     span, np.max)
     medv = np.where(vb > 0, vmask - (bm & vmask), BIG)
-    votes = (np.abs(y - medv[:, None]) <= ag.GAP_DIAG).sum(axis=1)
-    return medv, np.where(medv < BIG, votes, 0)
+    n = (np.abs(Y - medv[..., None]) <= ag.GAP_DIAG).sum(axis=2)
+    return medv, np.where(medv < BIG, reduce_span(n, span, np.sum), 0)
 
 
-def k6_model(votes, Lq, Lr):
-    """K6's A, S, D, vb (R, K, NBF) from votes (R, K, NQ, 4)."""
+def k6_model(votes, Lq, Lr, C, coarse=False):
+    """The fused kernel's A, S, D, vb (R, K, NBF) from the votes (R, K, NQ,
+    4) as its warps hold them (to_lanes); with `coarse` the coarse mode
+    and votes of every block instead."""
     R, K, NQ, _ = votes.shape
-    N, NBF = R * K, Lq // FINE
-    NBC, C = NBF // 4, NQ // NBF
-    C4 = 4 * C
-    P = 1
-    while P < C4:
-        P *= 2
+    NBF = Lq // FINE
     dspan = Lq + Lr + 64
     vbits = 22 if 2 * dspan + 64 < 1 << 22 else 32
-    v = votes.numpy().astype(np.int64).reshape(N * NBC, 4, C4)
-    x = np.full((N * NBC, 4, P), BIG, np.int64)
-    x[:, :, :C4] = v
-    x = sort_runs(x.reshape(N * NBC, 4 * P), 1, P)
-    assert np.array_equal(x.reshape(-1, 4, P), np.sort(
-        x.reshape(-1, 4, P), axis=-1))
-    fine = [elect_model(x[:, q * P:(q + 1) * P], C4,
-                        x[:, q * P:q * P + C4], vbits) for q in range(4)]
-    x = sort_runs(x, P, 4 * P)
-    assert np.array_equal(x, np.sort(x, axis=-1))
-    medv_c, vb_c = elect_model(x[:, 0:4 * C4:4], C4, x[:, :4 * C4], vbits)
+    X = to_lanes(votes, C)
+    Y = X.copy()                       # the support reads the votes again
+    sort_lane(X)
+    for m in (1, 2, 4):
+        merge_lanes(X, m)
+    assert np.array_equal(X.reshape(-1, 4, 8 * X.shape[-1]),
+                          np.sort(Y.reshape(-1, 4, 8 * X.shape[-1]), axis=-1))
+    medv_f, vb_f = elect_lanes(X, 8, X, vbits)
+    for m in (8, 16):
+        merge_lanes(X, m)
+    assert np.array_equal(X.reshape(len(X), -1),
+                          np.sort(Y.reshape(len(X), -1), axis=-1))
+    # The sample, every fourth of the sorted list: registers 0, 4, ...
+    medv_c, vb_c = elect_lanes(X[..., ::4], 32, X, vbits)
+    if coarse:
+        return medv_c[:, 0], vb_c[:, 0]
+    sup = reduce_span((np.abs(Y - medv_c[..., None]) <= ag.GAP_DIAG).sum(
+        axis=2), 8, np.sum)
     A_c, S_c = vb_c >= ag.MIN_VOTES_C, medv_c >= dspan
     D_c = np.where(S_c, medv_c - dspan, medv_c) - Lq
-    out = np.zeros((4, N * NBC, 4), np.int64)
-    for q, (medv_f, vb_f) in enumerate(fine):
-        sup = (np.abs(v[:, q] - medv_c[:, None]) <= ag.GAP_DIAG).sum(axis=1)
-        A_f, S_f = vb_f >= ag.MIN_VOTES_F, medv_f >= dspan
-        D_f = np.where(S_f, medv_f - dspan, medv_f) - Lq
-        use_f = A_f & (~A_c | (vb_f > sup))
-        out[:, :, q] = (use_f | A_c, np.where(use_f, S_f, S_c),
-                        np.where(use_f, D_f, D_c),
-                        np.where(use_f, vb_f, vb_c))
+    A_f, S_f = vb_f >= ag.MIN_VOTES_F, medv_f >= dspan
+    D_f = np.where(S_f, medv_f - dspan, medv_f) - Lq
+    use_f = A_f & (~A_c | (vb_f > sup))
+    # Lane 8q writes fine block q.
     shape = (R, K, NBF)
-    return (out[0].reshape(shape).astype(bool),
-            out[1].reshape(shape).astype(bool),
-            out[2].reshape(shape).astype(np.int32),
-            out[3].reshape(shape).astype(np.int32))
+    pick = (slice(None), slice(0, 32, 8))
+    return ((use_f | A_c)[pick].reshape(shape),
+            np.where(use_f, S_f, S_c)[pick].reshape(shape),
+            np.where(use_f, D_f, D_c)[pick].reshape(shape).astype(np.int32),
+            np.where(use_f, vb_f, vb_c)[pick].reshape(shape).astype(
+                np.int32))
 
 
 @pytest.mark.parametrize('wide', [False, True])
 @pytest.mark.parametrize('C', [1, 5, 8, 16, 32])
 def test_k6_coarse_blocks_match_plain(C, wide):
-    """K6's warp-a-coarse-block decomposition == elect_v2_plain, at C = 1-32
-    (4C not a power of two at C = 5) and both vote-pack widths (22 bits,
-    and 32 where Lr = 2^21 puts 2 DSPAN + 64 past 2^22): equal counts, empty
+    """The fused kernel's election, a warp a coarse block with the votes in
+    registers (lane-major sorts: in-lane networks, shuffle merges; window
+    counts from the next lanes; the coarse sample from registers 0, 4, ...)
+    == elect_v2_plain, at C = 1-32 (4C not a power of two at C = 5, lanes
+    without a seed at C < 8) and both vote-pack widths (22 bits, and 32
+    where Lr = 2^21 puts 2 DSPAN + 64 past 2^22): equal counts, empty
     blocks, and a fine election that ties its support for the coarse
     mode."""
     Lq = 4096
@@ -258,13 +436,53 @@ def test_k6_coarse_blocks_match_plain(C, wide):
     assert (2 * (Lq + Lr + 64) + 64 >= 1 << 22) == wide
     votes = votes_case(C + 40 * wide, 1, 3, Lq // FINE, C, Lq, Lr)
     want = ag.elect_v2_plain(votes, Lq=Lq, Lr=Lr)
-    got = k6_model(votes, Lq, Lr)
+    got = k6_model(votes, Lq, Lr, C)
     for g, w in zip(got, want):
-        assert np.array_equal(g, w.numpy())
+        assert g.dtype == w.numpy().dtype and np.array_equal(g, w.numpy())
     A, S, D, vb = (w.numpy() for w in want)
     assert A.any() and (~A).any() and (A & S).any() and (A & ~S).any()
     assert not A[0, 0, 4:8].any()                 # the empty coarse block
     assert A[0, 0, 0] and D[0, 0, 0] == D[0, 0, 1]   # the coarse mode wins
+
+
+@pytest.mark.parametrize('C', [5, 16])
+def test_k6_votes_permuted_in_blocks(C):
+    """The election does not depend on where the votes sit: permuted
+    inside each fine block (seeds and strands), the model gives the same
+    A, S, D and vb; permuted across each coarse block's 16C votes, the
+    same coarse mode and votes."""
+    Lq = Lr = 4096
+    NBF = Lq // FINE
+    votes = votes_case(60 + C, 2, 2, NBF, C, Lq, Lr)
+    want = ag.elect_v2_plain(votes, Lq=Lq, Lr=Lr)
+    rng = np.random.default_rng(C)
+    v = votes.numpy().reshape(-1, 4 * C)
+    fine = torch.from_numpy(rng.permuted(v, axis=1).reshape(votes.shape))
+    for g, w in zip(k6_model(fine, Lq, Lr, C), want):
+        assert np.array_equal(g, w.numpy())
+    coarse = torch.from_numpy(rng.permuted(v.reshape(-1, 16 * C), axis=1)
+                              .reshape(votes.shape))
+    medv, vb = k6_model(votes, Lq, Lr, C, coarse=True)
+    medv_p, vb_p = k6_model(coarse, Lq, Lr, C, coarse=True)
+    assert np.array_equal(medv, medv_p) and np.array_equal(vb, vb_p)
+    assert (vb > 0).any() and not np.array_equal(coarse, votes)
+
+
+@pytest.mark.parametrize('pack,C', [(32, 16), (64, 8)])
+def test_fused_front_matches_plain_pair(pack, C):
+    """The fused kernel as a whole, search then election, ==
+    elect_v2_plain(votes_v2_plain(...)) on the index genomes."""
+    codes = v2_genomes(9, 3300)
+    b = v2_arena(codes, 4096, pack, C)
+    r_rows, _, q_rows, _ = v2_rows(codes, 10, 2, 8, refs=(0, 3))
+    votes = ag.votes_v2_plain(b, r_rows, q_rows, Lq=4096, Lr=4096, C=C)
+    want = ag.elect_v2_plain(votes, Lq=4096, Lr=4096)
+    got_votes = k8_model(b, r_rows, q_rows, 4096, 4096, C, DIR_SAMPLES)[0]
+    assert np.array_equal(got_votes, votes.numpy())
+    got = k6_model(torch.from_numpy(got_votes), 4096, 4096, C)
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w.numpy())
+    assert want[0].any()
 
 
 # --------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Inputs of the v2 front end's kernels (K8, the seed votes; K6, the
+"""Inputs of the v2 front end's kernels (K6, the seed votes and their
 two-scale election; K7, the propagation and flags), made with numpy from a
 seed and the port's own v2 index (`_index_block`, torch on the CPU). Used
 by tests/test_torch_v2_model.py (numpy models of the kernels against the

@@ -190,8 +190,7 @@ def v2_inputs(torch, dev, ag, cs, corpus, kb, seed):
     q_rows = put([[b['rows'][g] for g in row] for row in qg])
     qlens = put([[len(codes[g]) for g in row] for row in qg])
     C = ag.SEEDS_PER_BLOCK
-    votes = ag._votes_v2(b, r_rows, q_rows, Lq=kb, Lr=kb, C=C)
-    A, S, D, _ = ag._elect_v2(votes, Lq=kb, Lr=kb)
+    A, S, D = ag._votes_elect_v2(b, r_rows, q_rows, Lq=kb, Lr=kb, C=C)[:3]
     flags = ag._propagate_v2(b, r_rows, rlens, q_rows, qlens, A, S, D, Lr=kb)
     N = B * K
     flat = [x.reshape((N,) + x.shape[2:]) for x in flags]

@@ -1,5 +1,6 @@
-// K8, K6 and K7: the v2 front end of the align row core (the seed votes,
-// the two-scale vote election, the neighbour propagation and its flags).
+// K6 (K8 fused in) and K7: the v2 front end of the align row core (the
+// seed votes and their two-scale election, the neighbour propagation and
+// its flags).
 //
 // Replace the XLA device programs of the JAX package's `_row_core` (its
 // ops/align_tpu.py:595-701): the sort join of the seed votes
@@ -7,12 +8,14 @@
 // densest diagonal cluster per fine and per coarse block (`_elect`,
 // :355-409, called at :628-650) and the propagation over re-evaluated
 // windows with the final flags (stage 2b, :653-697, with `_eval_on`,
-// :432-447, and `_window_rows`, :412-429). All three are bit-exact with the
+// :432-447, and `_window_rows`, :412-429). Both are bit-exact with the
 // plain torch versions beside their wrappers in ops/align_gpu.py
-// (`votes_v2_plain`, `elect_v2_plain`, `propagate_v2_plain`). A v2 dispatch
-// is then four launches: K8, K6, K7 and K4 (csrc/back_half.cu).
+// (`votes_elect_v2_plain`, i.e. `elect_v2_plain(votes_v2_plain(...))`, and
+// `propagate_v2_plain`). A v2 dispatch is then three launches: K6, K7 and
+// K4 (csrc/back_half.cu).
 //
-// K8 (k8_votes). For every query seed (value v >= 0) and strand, the two
+// K6 (k6_front): the seeds of a v2 dispatch in, the two-scale election out.
+// The votes. For every query seed (value v >= 0) and strand, the two
 // candidate diagonals. The plain version sorts the reference's seed keys
 // (sv << 6, even) with the queries' (v << 6 | offset << 1 | 1, odd), so no
 // query key equals a reference key, and its running max of the packs at a
@@ -24,38 +27,54 @@
 // So a seed needs one upper-bound search of v in the row's sorted sv and
 // the max of the packs over the equal run: no sort, no permutation, and
 // the order within equal keys (the sort's stability) does not enter.
+// The election. Per fine block (4C votes) the fine election, per coarse
+// block of 4 fine blocks (16C votes, sampled at stride 4 after sorting) the
+// coarse one; each sorts its votes, counts for every vote the votes within
+// GAP_DIAG among the next min(SMAX, w - 1), elects the largest count (ties:
+// the smallest start, a packed max in 22 bits, or 32 where the vote codes
+// need them, clamped in the pack's type), takes the mode inside the cluster
+// (ties: the smallest) and its exact votes. The fine election stands where
+// it beats the fine block's support for the coarse mode. A coarse block's
+// votes come from its 4C seeds of one query against one reference row, and
+// the election sorts them, so the two are one kernel: the votes never
+// reach device memory (16 bytes a query slot, 189 MB written and read back
+// at the B = 45 dispatch at 65,536 when they were two).
 // What bounds it, and what the design does about it:
-//   * Bytes: the votes written, 16 bytes a query slot (189 MB at the
-//     B = 45 dispatch at 65,536); the arena rows read once are a tenth.
-//   * Latency of the searches: a search through L2 is 15 dependent loads.
-//     A CTA takes one (reference row, strand) and a run of query slots; it
-//     stages the row's sv in shared memory (every stride-th entry, stride
-//     1 up to 32,768 entries = 128 KB, bucket 65,536 at C = 16), so the
-//     search runs on shared memory, a branch-free power-of-two descent;
-//     past the sample it refines through L2 (2 loads at 262,144). The
-//     packs are read only at the equal run (one or two entries as a rule).
-//
-// K6 (k6_elect). Per fine block (4C votes) the fine election, per coarse
-// block of 4 fine blocks (16C votes, sampled at stride 4 after sorting)
-// the coarse one; each sorts its votes, counts for every vote the votes
-// within GAP_DIAG among the next min(SMAX, w - 1), elects the largest count
-// (ties: the smallest start, a packed max in 22 bits, or 32 where the vote
-// codes need them, clamped in the pack's type), takes the mode inside the
-// cluster (ties: the smallest) and its exact votes. The fine election
-// stands where it beats the fine block's support for the coarse mode.
-// What bounds it, and what the design does about it:
-//   * Bytes: the votes read once (189 MB at B = 45). The work a vote is a
-//     few dozen operations, so the sort must stay on chip.
-//   * Design: a warp a coarse block, so the coarse mode meets the fine
-//     elections without a trip through device memory. The warp loads the
-//     16C votes into shared memory, each fine block padded with BIG to a
-//     power of two P, sorts the four runs with a bitonic network whose
-//     first step of each merge compares mirrored elements (every run comes
-//     out ascending), elects each fine block, merges the runs into one
-//     sorted coarse list (BIG padding sorts last) and elects on its every
-//     fourth vote. Lanes take votes lane + 32 t; the window counts read
-//     shared memory; the packed maxes and the counts reduce by shuffles.
-//
+//   * Not bytes: the index rows and the seeds read once and 10 bytes a
+//     fine block written. Operations: a search a seed and strand, then per
+//     vote a sort of a few dozen compare-exchanges and two window counts.
+//     What the card runs out of is the load unit, which the searches'
+//     loads at random places (each lane's its own line: ~32 cycles a warp
+//     instruction), the shared-memory descents and the sort's shuffles
+//     share, and issue slots.
+//   * The searches. A CTA (16 warps) takes a run of at least K6_MIN_ITEMS
+//     (query, coarse block) items of one reference row, CTAs in row order,
+//     a row cut into as many runs as keep the rows that the resident CTAs
+//     read within K6_L2_BYTES, so the random reads hit L2. A CTA stages a
+//     directory of each strand: every s-th sorted value (s the least power
+//     of two with at most DIR_SAMPLES samples), in 16 bits (32 KB a
+//     strand, two CTAs an SM), as a complete search tree in breadth-first
+//     order, so a level's nodes lie side by side (a sorted array's
+//     power-of-two strides put a descent's deep levels on one bank). A
+//     search is a branch-free descent (13 levels at 65,536, 14 at
+//     262,144), then the s >= 4 entries between two samples by 16-byte
+//     loads: one at 65,536 (s = 4), one or two at 262,144 (s = 8; a load
+//     only while the entries before it were <= v); the packs are read only
+//     at the run's last entry and
+//     the one before it (pk1's neighbour, one 16-byte load where aligned:
+//     pk2 is never read). The directory holds BIG as TOP (the largest
+//     value), so a search of TOP takes the row's valid entries, found at
+//     staging. A lane runs its seeds x 2 strands searches interleaved.
+//   * The election. A warp takes an item; lanes 8q .. 8q + 7 hold fine
+//     block q's votes, V = 4, 8 or 16 a lane (4 a seed, BIG padding). A
+//     lane sorts its own by a network; shuffle merges over lanes 1, 2, 4
+//     sort each fine block, over 8, 16 the coarse block; the window counts
+//     read the next lanes by shuffles and, the window being sorted, count
+//     by a binary search of four selects (not 15 compares); the coarse
+//     sample is registers 0, 4, ... of every lane; the packed maxes and
+//     counts reduce by shuffles; the support for the coarse mode counts
+//     the lane's votes, kept in registers. Nothing crosses CTAs.
+
 // K7 (k7_propagate). EXT_ITERS rounds of neighbour adoption (from the block
 // before, then from the block after): a block takes its neighbour's
 // (strand, diagonal) when the neighbour is assigned and the block's 32
@@ -83,6 +102,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+#include <type_traits>
+
 namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
@@ -93,15 +115,20 @@ constexpr int BIG = 1 << 30;
 constexpr int GAP_DIAG = 16;
 constexpr int SMAX = 15;
 
-// Sets the kernel's dynamic shared-memory limit once per device.
+// Sets the kernel's dynamic shared-memory limit once per device (and its
+// preferred shared-memory carveout, in percent, where one is given).
 template <typename Kernel>
-int allow_smem(Kernel k, int bytes, bool (&done)[MAX_DEVICES]) {
+int allow_smem(Kernel k, int bytes, bool (&done)[MAX_DEVICES],
+               int carveout = -1) {
   int dev = 0;
   cudaGetDevice(&dev);
   if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
   if (!done[dev]) {
     cudaError_t err = cudaFuncSetAttribute(
         k, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err == cudaSuccess && carveout >= 0)
+      err = cudaFuncSetAttribute(
+          k, cudaFuncAttributePreferredSharedMemoryCarveout, carveout);
     if (err != cudaSuccess) return (int)err;
     done[dev] = true;
   }
@@ -115,213 +142,403 @@ int sm_count() {
   return sms > 0 ? sms : 1;
 }
 
-// ---- K8 ------------------------------------------------------------------
-constexpr int K8_THREADS = 1024;
-constexpr int K8_SAMPLES = 32768;    // sv entries a CTA stages (128 KB)
-constexpr int K8_MIN_SLOTS = 8192;   // least query slots a CTA
+// ---- K6 (K8 fused in) ------------------------------------------------------
+constexpr int K6_WARPS = 16;
+constexpr int K6_MAX_C = 32;          // VCLUST_ALIGN_C's range
+constexpr int DIR_SAMPLES = 16384;    // directory entries a strand (32 KB)
+constexpr int K6_MIN_ITEMS = 256;     // least items a CTA (pays its staging)
+// A seed value's largest code (SEED_K 8): the directory holds values in 16
+// bits, BIG as TOP too, so a search of TOP takes the row's valid entries.
+constexpr int TOP = 0xFFFF;
+// The reference rows (sv and pk1 of both strands) that the CTAs resident at
+// once may read from: a sixth of the L2 (the searches' reads at random
+// places of a row hit L2 the more often, the fewer rows are read at once;
+// 24 MB ran slower at both v2 dispatches of PERF.md, tools/k6_probe.py).
+constexpr long long K6_L2_BYTES = 8LL << 20;
 
-struct VoteArgs {
+struct FrontArgs {
   const int32_t *qsv, *qoff;        // (Gq, NQ)
   const int32_t* sv[2];             // (Gr, NR), forward and reverse
-  const int64_t *pk1[2], *pk2[2];   // (Gr, NR)
+  const int64_t* pk1[2];            // (Gr, NR)
   const int32_t *r_rows, *q_rows;   // (R,), (R, K)
-  int K, NQ, NR, C, Lq, dspan, pack64, stride, samples, chunks, chunk;
-  int32_t* votes;                   // (R, K, NQ, 4)
+  int K, NBC, NQ, NR, C, Lq, dspan, pack64, s, ns, H, min_f, min_c;
+  int chunks, per_cta;              // a row's runs of (query, block) items
+  uint8_t *A, *S;
+  int32_t *D, *vb;                  // (R * K, 4 * NBC)
+  int32_t* votes;                   // (R, K, NQ, 4), or null
 };
 
-__global__ void __launch_bounds__(K8_THREADS) votes_kernel(VoteArgs a) {
-  extern __shared__ int32_t k8_sample[];
-  const int s = blockIdx.y;
-  const int r = blockIdx.x / a.chunks, ch = blockIdx.x % a.chunks;
-  const int g = __ldg(a.r_rows + r);
-  const int32_t* sv = a.sv[s] + (size_t)g * a.NR;
-  const int64_t* pk1 = a.pk1[s] + (size_t)g * a.NR;
-  const int64_t* pk2 = a.pk2[s] + (size_t)g * a.NR;
-  const int ns = a.samples, stride = a.stride;
-  for (int i = threadIdx.x; i < ns; i += blockDim.x)
-    k8_sample[i] = __ldg(sv + (size_t)i * stride);
-  __syncthreads();
-  int top = 1;
-  while (top * 2 <= ns) top *= 2;
-  const int offset = s ? a.dspan : 0;
-  const int total = a.K * a.NQ;
-  const int lo = ch * a.chunk, hi = min(lo + a.chunk, total);
-  for (int slot = lo + (int)threadIdx.x; slot < hi; slot += blockDim.x) {
-    const int k = slot / a.NQ, j = slot - k * a.NQ;
-    const size_t qo = (size_t)__ldg(a.q_rows + (size_t)r * a.K + k) * a.NQ + j;
-    const int v = __ldg(a.qsv + qo);
-    int d1 = BIG, d2 = BIG;
-    if (v >= 0) {
-      // u: the sampled entries <= v (sv ascending, BIG last).
-      int u = 0;
-      for (int step = top; step; step >>= 1)
-        if (u + step <= ns && k8_sample[u + step - 1] <= v) u += step;
-      if (u) {
-        // ub: the entries <= v; between samples u - 1 and u through L2.
-        int ub = (u - 1) * stride + 1;
-        const int end = min(u * stride, a.NR);
-        for (int step = stride >> 1; step; step >>= 1)
-          if (ub + step - 1 < end && __ldg(sv + ub + step - 1) <= v)
-            ub += step;
-        // The run of entries equal to v ends at ub - 1.
-        long long m1 = 0, m2 = 0;
-        for (int i = ub - 1; i >= 0; --i) {
-          const int x = stride == 1 ? k8_sample[i] : __ldg(sv + i);
-          if (x != v) break;
-          m1 = max(m1, (long long)__ldg(pk1 + i));
-          if (!a.pack64) m2 = max(m2, (long long)__ldg(pk2 + i));
-        }
-        const int qpos = (j / a.C) * FINE + (__ldg(a.qoff + qo) & 31);
-        const int base = a.Lq + offset - qpos;   // diagonal = position + base
-        if (!a.pack64) {
-          if ((m1 >> 16) == v && m1 > 0) d1 = (int)(m1 & 0xFFFF) - 1 + base;
-          if ((m2 >> 16) == v && m2 > 0) d2 = (int)(m2 & 0xFFFF) - 1 + base;
-        } else if ((m1 >> 40) == v && m1 > 0) {
-          d1 = (int)((m1 >> 20) & 0xFFFFF) - 1 + base;
-          const int cq = (int)(m1 & 0xFFFFF);
-          if (cq > 0) d2 = cq - 1 + base;
-        }
-      }
-    }
-    reinterpret_cast<int2*>(a.votes)[((size_t)r * a.K * a.NQ + slot) * 2 + s] =
-        make_int2(d1, d2);
+template <int V>
+__device__ __forceinline__ void cmp_swap(int (&x)[V], int i, int j) {
+  const int a = x[i], b = x[j];
+  x[i] = min(a, b);
+  x[j] = max(a, b);
+}
+
+// The half cleaners inside a lane: distances V/2 .. 1.
+template <int V>
+__device__ __forceinline__ void clean_lane(int (&x)[V]) {
+#pragma unroll
+  for (int j = V >> 1; j; j >>= 1)
+#pragma unroll
+    for (int i = 0; i < V; ++i)
+      if (i < (i ^ j)) cmp_swap(x, i, i ^ j);
+}
+
+// A lane's V registers ascending: a bitonic network whose first step of
+// each merge compares mirrored registers (every run it forms ascends).
+template <int V>
+__device__ __forceinline__ void sort_lane(int (&x)[V]) {
+#pragma unroll
+  for (int k = 2; k <= V; k <<= 1) {
+#pragma unroll
+    for (int i = 0; i < V; ++i)
+      if (i < (i ^ (k - 1))) cmp_swap(x, i, i ^ (k - 1));
+#pragma unroll
+    for (int j = k >> 2; j; j >>= 1)
+#pragma unroll
+      for (int i = 0; i < V; ++i)
+        if (i < (i ^ j)) cmp_swap(x, i, i ^ j);
   }
 }
 
-// ---- K6 ------------------------------------------------------------------
-constexpr int K6_WARPS = 8;
-constexpr int K6_MAX_C = 32;                        // VCLUST_ALIGN_C's range
-constexpr int K6_SORT = 16 * K6_MAX_C;             // 4 padded fine blocks
-constexpr int K6_WARP_INTS = K6_SORT + 4 * K6_MAX_C;   // + the coarse sample
-
-__device__ __forceinline__ long long warp_max64(long long v) {
+// Runs of M lanes (ascending, lane-major: element lane * V + i) become
+// runs of 2M: the mirrored step against register V - 1 - i of lane ^ (2M -
+// 1), half cleaners over lanes M/2 .. 1, then inside the lane.
+template <int V, int M>
+__device__ __forceinline__ void merge_lanes(int (&x)[V], int lane) {
+  int y[V];
 #pragma unroll
-  for (int o = 16; o; o >>= 1) v = max(v, __shfl_xor_sync(FULL, v, o));
+  for (int i = 0; i < V; ++i)
+    y[i] = __shfl_xor_sync(FULL, x[V - 1 - i], 2 * M - 1);
+  bool low = !(lane & M);
+#pragma unroll
+  for (int i = 0; i < V; ++i) x[i] = low ? min(x[i], y[i]) : max(x[i], y[i]);
+#pragma unroll
+  for (int m = M >> 1; m; m >>= 1) {
+    low = !(lane & m);
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const int o = __shfl_xor_sync(FULL, x[i], m);
+      x[i] = low ? min(x[i], o) : max(x[i], o);
+    }
+  }
+  clean_lane(x);
+}
+
+// The count of nx[i + 1 .. i + SMAX] that are <= lim, where they ascend (a
+// sorted list, BIG past its end): a binary search of four steps on
+// registers, each step's candidate picked by selects.
+template <int N>
+__device__ __forceinline__ int count_le(const int (&nx)[N], int i, int lim) {
+  static_assert(SMAX == 15, "four steps");
+  const bool b8 = nx[i + 8] <= lim;
+  const bool b4 = (b8 ? nx[i + 12] : nx[i + 4]) <= lim;
+  const bool b2 = (b8 ? (b4 ? nx[i + 14] : nx[i + 10])
+                      : (b4 ? nx[i + 6] : nx[i + 2])) <= lim;
+  const bool b1 = (b8 ? (b4 ? (b2 ? nx[i + 15] : nx[i + 13])
+                            : (b2 ? nx[i + 11] : nx[i + 9]))
+                      : (b4 ? (b2 ? nx[i + 7] : nx[i + 5])
+                            : (b2 ? nx[i + 3] : nx[i + 1]))) <= lim;
+  return 8 * b8 + 4 * b4 + 2 * b2 + b1;
+}
+
+template <int SPAN, typename T>
+__device__ __forceinline__ T span_max(T v) {
+#pragma unroll
+  for (int o = SPAN >> 1; o; o >>= 1) v = max(v, __shfl_xor_sync(FULL, v, o));
   return v;
 }
 
-// Sorts ascending every run of `seg` elements (a power of two) of x[0, n),
-// runs of `from` being sorted already: a bitonic network whose first step
-// of each merge compares mirrored elements, so every run it forms ascends.
-__device__ void sort_runs(int* x, int n, int from, int seg, int lane) {
-  for (int k = 2 * from; k <= seg; k <<= 1) {
-    for (int j = k >> 1; j; j >>= 1) {
-      for (int p = lane; p < n / 2; p += 32) {
-        const int i = ((p & ~(j - 1)) << 1) | (p & (j - 1));
-        const int o = j == k >> 1 ? i ^ (k - 1) : i + j;
-        const int u = x[i], w = x[o];
-        x[i] = min(u, w);
-        x[o] = max(u, w);
-      }
-      __syncwarp();
-    }
-  }
+template <int SPAN>
+__device__ __forceinline__ int span_sum(int v) {
+#pragma unroll
+  for (int o = SPAN >> 1; o; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+  return v;
 }
 
-// The election on the sorted votes x[0, w) (w <= 128): every vote's count
-// of the votes within GAP_DIAG among the next smax (0 for BIG), the largest
-// count with ties to the smallest start, the cluster's mode (ties to the
-// smallest), and the mode's exact votes in the row y[0, ny). Returns the
-// mode (BIG where nothing was elected) and its votes.
-__device__ void elect(const int* x, int w, const int* y, int ny, int vbits,
-                      int lane, int& medv, int& votes) {
-  const long long vmask = (1LL << vbits) - 1;
-  const int smax = min(SMAX, w - 1);
-  int cnt[4], eq[4], xv[4];
-  long long best = 0;
+// The election on the sorted list w (N values a lane, lane-major over
+// groups of SPAN lanes, BIG past its w votes), its exact votes counted over
+// y (NY values a lane): every vote's count of the votes within GAP_DIAG
+// among the next SMAX (the lane's own registers, then lanes + 1, + 2, ...
+// by shuffles; BIG past the group; count_le, as they ascend) and of those
+// equal (those <= the vote, as they ascend), the largest count
+// with ties to the smallest start (a packed max of P: 22 bits of vote code
+// in int, or 32 in long long, clamped in P), the cluster's mode (ties to
+// the smallest) and its exact votes. BIG where nothing was elected.
+template <typename P, int VB, int SPAN, int N, int NY>
+__device__ __forceinline__ void elect(const int (&w)[N], const int (&y)[NY],
+                                      int lane, int& medv, int& votes) {
+  constexpr P VM = (P(1) << VB) - 1;
+  int nx[N + SMAX];
 #pragma unroll
-  for (int t = 0; t < 4; ++t) {
-    const int i = lane + 32 * t;
-    cnt[t] = eq[t] = 0;
-    xv[t] = BIG;
-    if (i >= w) continue;
-    const int xi = x[i];
-    xv[t] = xi;
-    if (xi < BIG) {
-      int c = 1, e = 1;
-      for (int s = 1; s <= smax; ++s) {
-        const int nb = i + s < w ? x[i + s] : BIG;
-        c += nb - xi <= GAP_DIAG;
-        e += nb == xi;
-      }
-      cnt[t] = c;
-      eq[t] = e;
-    }
-    best = max(best, ((long long)cnt[t] << vbits) |
-                         (vmask - min((long long)xi, vmask)));
+  for (int i = 0; i < N; ++i) nx[i] = w[i];
+  const int at = lane & (SPAN - 1);
+#pragma unroll
+  for (int j = 0; j < SMAX; ++j) {
+    const int d = 1 + j / N;
+    const int o = __shfl_down_sync(FULL, w[j % N], d);
+    nx[N + j] = at + d < SPAN ? o : BIG;
   }
-  best = warp_max64(best);
-  const int vb = (int)(best >> vbits);
-  const int start = (int)(vmask - (best & vmask));
-  long long bm = -1;
+  int eq[N];
+  P best = 0;
 #pragma unroll
-  for (int t = 0; t < 4; ++t)
-    if (lane + 32 * t < w && xv[t] >= start && xv[t] <= start + GAP_DIAG)
-      bm = max(bm, ((long long)eq[t] << vbits) |
-                       (vmask - min((long long)xv[t], vmask)));
-  bm = warp_max64(bm);
-  medv = vb > 0 ? (int)(vmask - (bm & vmask)) : BIG;
+  for (int i = 0; i < N; ++i) {
+    const int xi = w[i];
+    const int c = xi < BIG ? 1 + count_le(nx, i, xi + GAP_DIAG) : 0;
+    eq[i] = xi < BIG ? 1 + count_le(nx, i, xi) : 0;
+    best = max(best, (P(c) << VB) | (VM - min(P(xi), VM)));
+  }
+  best = span_max<SPAN>(best);
+  const int vb = (int)(best >> VB);
+  const P start = VM - (best & VM);
+  P bm = -1;
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    if (P(w[i]) >= start && P(w[i]) <= start + GAP_DIAG)
+      bm = max(bm, (P(eq[i]) << VB) | (VM - min(P(w[i]), VM)));
+  bm = span_max<SPAN>(bm);
+  medv = vb > 0 ? (int)(VM - (bm & VM)) : BIG;
   int n = 0;
   if (medv < BIG)
-    for (int e = lane; e < ny; e += 32) n += abs(y[e] - medv) <= GAP_DIAG;
-  votes = __reduce_add_sync(FULL, n);
+#pragma unroll
+    for (int i = 0; i < NY; ++i) n += abs(y[i] - medv) <= GAP_DIAG;
+  votes = span_sum<SPAN>(n);
 }
 
-struct ElectArgs {
-  const int32_t* votes;   // (N, NQ, 4), NQ = NBF * C
-  int N, NBC, C, P, lgP, Lq, dspan, vbits, min_f, min_c;
-  uint8_t *A, *S;
-  int32_t *D, *vb;        // (N, NBF)
-};
+// One item, (query k, coarse block cb) of row r, by the whole warp. dir:
+// the directory of both strands; tail: per strand, the row's valid entries
+// (< BIG) and whether the last of them holds TOP.
+template <int SPL, bool WIDE>
+__device__ __forceinline__ void front_item(const FrontArgs& a,
+                                           const uint16_t* dir,
+                                           const int* tail, int nodes,
+                                           int r, int g, int item, int lane) {
+  constexpr int V = SPL == 1 ? 4 : SPL == 2 ? 8 : 16;   // votes a lane
+  constexpr int NS = 2 * SPL;        // searches a lane: seeds x strands
+  using P = typename std::conditional<WIDE, long long, int>::type;
+  constexpr int VB = WIDE ? 32 : 22;
+  const int k = item / a.NBC, cb = item - k * a.NBC;
+  const int lq = lane & 7;
+  const long long n = (long long)r * a.K + k;            // the pair
+  const int f = 4 * cb + (lane >> 3);                    // the lane's block
+  const size_t qo = (size_t)__ldg(a.q_rows + n) * a.NQ + (size_t)f * a.C;
 
-__global__ void __launch_bounds__(K6_WARPS * 32) elect_kernel(ElectArgs a) {
-  __shared__ int k6_smem[K6_WARPS * K6_WARP_INTS];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long gw = (long long)blockIdx.x * K6_WARPS + warp;
-  if (gw >= (long long)a.N * a.NBC) return;   // the whole warp leaves
-  const int n = (int)(gw / a.NBC), cb = (int)(gw % a.NBC);
-  const int C4 = 4 * a.C, P = a.P, n4 = 4 * P;
-  const int* v = a.votes + ((size_t)n * a.NBC * 4 * a.C + (size_t)cb * C4) * 4;
-  int* x = k6_smem + warp * K6_WARP_INTS;
-  int* xs = x + K6_SORT;
-  // Fine block q's votes at x[q P, q P + 4C), BIG past them.
-  for (int e2 = lane; e2 < n4; e2 += 32) {
-    const int q = e2 >> a.lgP, e = e2 & (P - 1);
-    x[e2] = e < C4 ? __ldg(v + q * C4 + e) : BIG;
-  }
-  __syncwarp();
-  sort_runs(x, n4, 1, P, lane);
-  int medv_f[4], vb_f[4];
+  // 1. The lane's seeds: l, l + 8, ... of its fine block (-1: none).
+  int v[SPL], qpos[SPL];
 #pragma unroll
-  for (int q = 0; q < 4; ++q)
-    elect(x + q * P, C4, x + q * P, C4, a.vbits, lane, medv_f[q], vb_f[q]);
-  sort_runs(x, n4, P, n4, lane);
-  // The coarse block's votes sorted in x[0, 16C); its sample, every fourth.
-  for (int e = lane; e < C4; e += 32) xs[e] = x[4 * e];
-  __syncwarp();
+  for (int t = 0; t < SPL; ++t) {
+    const int c = lq + 8 * t;
+    v[t] = -1;
+    qpos[t] = 0;
+    if (c < a.C) {
+      v[t] = __ldg(a.qsv + qo + c);
+      qpos[t] = f * FINE + (__ldg(a.qoff + qo + c) & 31);
+    }
+  }
+
+  // 2. The descents, every search of the lane at once: node k goes right
+  //    where its sample is <= v; after H levels k - 2^H samples are.
+  int kk[NS];
+#pragma unroll
+  for (int j = 0; j < NS; ++j) kk[j] = 1;
+  for (int lvl = 0; lvl < a.H; ++lvl)
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+      kk[j] = 2 * kk[j] + (dir[(j & 1) * nodes + kk[j]] <= v[j >> 1]);
+
+  // 3. The segment [g s, g s + s) after sample g: its entries <= v and
+  //    == v, 16 bytes a load (s >= 4, NR % 4 == 0), none past NR; a load
+  //    only while every entry before it was <= v (the segment ascends). A
+  //    search of TOP counts every valid entry (tail).
+  const int32_t* svr[2] = {a.sv[0] + (size_t)g * a.NR,
+                           a.sv[1] + (size_t)g * a.NR};
+  int seg0[NS], cnt[NS], eqc[NS];
+#pragma unroll
+  for (int j = 0; j < NS; ++j) {
+    seg0[j] = (kk[j] - nodes) * a.s;
+    cnt[j] = eqc[j] = 0;
+  }
+  for (int o = 0; o < a.s; o += 4)
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      const int vv = v[j >> 1];
+      if (vv < 0 || vv == TOP || seg0[j] + o >= a.NR || cnt[j] < o) continue;
+      const int4 e = __ldg(reinterpret_cast<const int4*>(svr[j & 1] +
+                                                         seg0[j] + o));
+      cnt[j] += (e.x <= vv) + (e.y <= vv) + (e.z <= vv) + (e.w <= vv);
+      eqc[j] += (e.x == vv) + (e.y == vv) + (e.z == vv) + (e.w == vv);
+    }
+#pragma unroll
+  for (int j = 0; j < NS; ++j)
+    if (v[j >> 1] == TOP) {
+      seg0[j] = 0;
+      cnt[j] = tail[2 * (j & 1)];
+      eqc[j] = tail[2 * (j & 1) + 1];
+    }
+
+  // 4. The packs of the run of entries equal to v, which ends at ub - 1
+  //    (eqc > 0). `_index_block` keeps a run's positions ascending, and
+  //    pk2 of an entry is pk1's position of the entry before it where the
+  //    two hold one value: so the plain version's maxes over the run are
+  //    pk1 at ub - 1 and, for 32-bit packs, pk1 at ub - 2 where that entry
+  //    holds v (its neighbour in memory, one 16-byte load where the pair
+  //    is aligned: pk2 is never read).
+  long long m1[NS], m0[NS];
+  const size_t prow = (size_t)g * a.NR;
+#pragma unroll
+  for (int j = 0; j < NS; ++j) {
+    m1[j] = m0[j] = 0;
+    if (!eqc[j]) continue;
+    const int last = seg0[j] + cnt[j] - 1;
+    const int64_t* pk = a.pk1[j & 1] + prow;
+    if (a.pack64) {
+      m1[j] = __ldg(pk + last);
+    } else if (last & 1) {
+      const longlong2 p =
+          __ldg(reinterpret_cast<const longlong2*>(pk + last - 1));
+      m0[j] = p.x;
+      m1[j] = p.y;
+    } else {
+      m1[j] = __ldg(pk + last);
+      if (last > 0) m0[j] = __ldg(pk + last - 1);
+    }
+  }
+
+  // 5. The votes: seed t's two candidates forward, then the two reverse,
+  //    at registers 4t .. 4t + 3; BIG where none and past 4 SPL.
+  int x[V], y[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) x[i] = BIG;
+#pragma unroll
+  for (int j = 0; j < NS; ++j) {
+    const int t = j >> 1, st = j & 1;
+    if (!eqc[j]) continue;
+    const long long vv = v[t];
+    const int base = a.Lq + (st ? a.dspan : 0) - qpos[t];
+    if (!a.pack64) {
+      if ((m1[j] >> 16) == vv && m1[j] > 0)
+        x[2 * j] = (int)(m1[j] & 0xFFFF) - 1 + base;
+      if ((m0[j] >> 16) == vv && m0[j] > 0)
+        x[2 * j + 1] = (int)(m0[j] & 0xFFFF) - 1 + base;
+    } else if ((m1[j] >> 40) == vv && m1[j] > 0) {
+      x[2 * j] = (int)((m1[j] >> 20) & 0xFFFFF) - 1 + base;
+      const int cq = (int)(m1[j] & 0xFFFFF);
+      if (cq > 0) x[2 * j + 1] = cq - 1 + base;
+    }
+  }
+  if (a.votes) {
+#pragma unroll
+    for (int t = 0; t < SPL; ++t)
+      if (lq + 8 * t < a.C)
+        reinterpret_cast<int4*>(a.votes)[n * a.NQ + (size_t)f * a.C + lq +
+                                         8 * t] =
+            make_int4(x[4 * t], x[4 * t + 1], x[4 * t + 2], x[4 * t + 3]);
+  }
+#pragma unroll
+  for (int i = 0; i < V; ++i) y[i] = x[i];
+
+  // 6. Fine block q's votes sorted over lanes 8q .. 8q + 7, its election;
+  //    the coarse block's sorted over the warp, the election on its every
+  //    fourth vote (registers 0, 4, ...: V >= 4), its exact votes over all.
+  sort_lane(x);
+  merge_lanes<V, 1>(x, lane);
+  merge_lanes<V, 2>(x, lane);
+  merge_lanes<V, 4>(x, lane);
+  int medv_f, vb_f;
+  elect<P, VB, 8>(x, x, lane, medv_f, vb_f);
+  merge_lanes<V, 8>(x, lane);
+  merge_lanes<V, 16>(x, lane);
+  int xs[V / 4];
+#pragma unroll
+  for (int i = 0; i < V / 4; ++i) xs[i] = x[4 * i];
   int medv_c, vb_c;
-  elect(xs, C4, x, 4 * C4, a.vbits, lane, medv_c, vb_c);
+  elect<P, VB, 32>(xs, x, lane, medv_c, vb_c);
+
+  // 7. The fine block's support for the coarse mode, from its votes kept
+  //    in y (BIG ones count where the mode is BIG, as the plain version's;
+  //    nothing is coarse-assigned then); lane 8q writes block q.
+  int sup = 0;
+#pragma unroll
+  for (int i = 0; i < V; ++i) sup += abs(y[i] - medv_c) <= GAP_DIAG;
+  sup = span_sum<8>(sup);
+  if (lq) return;
   const bool A_c = vb_c >= a.min_c, S_c = medv_c >= a.dspan;
   const int D_c = (S_c ? medv_c - a.dspan : medv_c) - a.Lq;
+  const bool A_f = vb_f >= a.min_f, S_f = medv_f >= a.dspan;
+  const int D_f = (S_f ? medv_f - a.dspan : medv_f) - a.Lq;
+  const bool use_f = A_f && (!A_c || vb_f > sup);
+  const size_t o = (size_t)n * 4 * a.NBC + f;
+  a.A[o] = (uint8_t)(use_f || A_c);
+  a.S[o] = (uint8_t)(use_f ? S_f : S_c);
+  a.D[o] = use_f ? D_f : D_c;
+  a.vb[o] = use_f ? vb_f : vb_c;
+}
+
+// Two CTAs of 16 warps an SM (64 registers a thread) where a lane holds 8
+// votes or fewer, one where it holds 16 (three CTAs of 8 warps ran slower,
+// tools/k6_probe.py). CTA blockIdx.x takes run blockIdx.x % chunks of row
+// blockIdx.x / chunks.
+template <int SPL, bool WIDE>
+__global__ void __launch_bounds__(K6_WARPS * 32, SPL <= 2 ? 2 : 1)
+    front_kernel(FrontArgs a) {
+  extern __shared__ uint16_t k6_dir[];  // 2 strands x 2^H (node 0 unused)
+  __shared__ int k6_last[2];            // a strand's last valid sample
+  __shared__ int k6_tail[4];            // see front_item
+  // The warp index from lane 0: the compiler sees it uniform in the warp,
+  // so the item loop's shuffles need no divergent path.
+  const int warp = __shfl_sync(FULL, (int)threadIdx.x >> 5, 0);
+  const int lane = threadIdx.x & 31;
+  const int nodes = 1 << a.H;
+  const int r = blockIdx.x / a.chunks;
+  const int lo = (blockIdx.x - r * a.chunks) * a.per_cta;
+  const int hi = min(lo + a.per_cta, a.K * a.NBC);
+  const int g = __ldg(a.r_rows + r);
+  const int32_t* svr[2] = {a.sv[0] + (size_t)g * a.NR,
+                           a.sv[1] + (size_t)g * a.NR};
+  if (threadIdx.x < 2) k6_last[threadIdx.x] = -1;
+  __syncthreads();
+  // In-order node m = i - 1 (i = (2p + 1) 2^(H - 1 - d)) is node 2^d + p
+  // of the breadth-first order, d = H - 1 - ctz(i); it holds sample i (in
+  // 16 bits, BIG as TOP). The valid samples lead: a warp's last valid one
+  // by a ballot.
+  for (int i0 = 0; i0 < nodes; i0 += blockDim.x) {
+    const int i = i0 + threadIdx.x;
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    // The fine block's support for the coarse mode (its BIG votes count
-    // where the mode is BIG, as the plain version's; nothing is coarse-
-    // assigned then).
-    int sup = 0;
-    for (int e = lane; e < C4; e += 32)
-      sup += abs(__ldg(v + q * C4 + e) - medv_c) <= GAP_DIAG;
-    sup = __reduce_add_sync(FULL, sup);
-    if (lane != q) continue;
-    const bool A_f = vb_f[q] >= a.min_f, S_f = medv_f[q] >= a.dspan;
-    const int D_f = (S_f ? medv_f[q] - a.dspan : medv_f[q]) - a.Lq;
-    const bool use_f = A_f && (!A_c || vb_f[q] > sup);
-    const size_t o = (size_t)n * 4 * a.NBC + 4 * cb + q;
-    a.A[o] = (uint8_t)(use_f || A_c);
-    a.S[o] = (uint8_t)(use_f ? S_f : S_c);
-    a.D[o] = use_f ? D_f : D_c;
-    a.vb[o] = use_f ? vb_f[q] : vb_c;
+    for (int st = 0; st < 2; ++st) {
+      const int x = i < a.ns ? __ldg(svr[st] + (size_t)i * a.s) : BIG;
+      if (i && i < nodes) {
+        const int d = a.H - __ffs(i);
+        k6_dir[st * nodes + (1 << d) + (i >> (a.H - d))] =
+            (uint16_t)min(x, TOP);
+      }
+      const unsigned ok = __ballot_sync(FULL, x < BIG);
+      if (ok && lane == 0) atomicMax(&k6_last[st], i - lane + 31 - __clz(ok));
+    }
   }
+  __syncthreads();
+  // Warp st: the valid entries of strand st end in the segment of its last
+  // valid sample.
+  if (warp < 2) {
+    const int last = k6_last[warp];
+    int nv = 0;
+    if (last >= 0) {
+      nv = last * a.s;
+      for (int o = 0; o < a.s; o += 32) {
+        const int e = last * a.s + o + lane;
+        const bool ok =
+            o + lane < a.s && e < a.NR && __ldg(svr[warp] + e) < BIG;
+        nv += __popc(__ballot_sync(FULL, ok));
+      }
+    }
+    if (lane == 0) {
+      k6_tail[2 * warp] = nv;
+      k6_tail[2 * warp + 1] = nv > 0 && __ldg(svr[warp] + nv - 1) == TOP;
+    }
+  }
+  __syncthreads();
+  for (int it = lo + warp; it < hi; it += K6_WARPS)
+    front_item<SPL, WIDE>(a, k6_dir, k6_tail, nodes, r, g, it, lane);
 }
 
 // ---- K7 ------------------------------------------------------------------
@@ -589,63 +806,75 @@ propagate_v2_kernel(V2PropArgs a) {
 
 extern "C" {
 
-// K8. qsv, qoff: (Gq, NQ) int32, the sampled query seeds (value, or -1)
-// and their offsets in their fine block, NQ = Lq / 32 * C; sv_f, sv_r:
-// (Gr, NR) int32, each row ascending (BIG where invalid, last); pk1_*,
-// pk2_*: (Gr, NR) int64, the packs aligned to sv (pack_bits 32: value << 16
-// | position + 1 and value << 16 | previous + 1, or 0; 64: value << 40 |
-// position + 1 << 20 | previous + 1, pk2 unused); r_rows: (R,), q_rows:
-// (R, K) int32 arena rows. Writes votes: (R, K, NQ, 4) int32, 8-byte
-// aligned. K * NQ < 2^31. Returns cudaGetLastError().
-int k8_votes(const int32_t* qsv, const int32_t* qoff, const int32_t* sv_f,
-             const int64_t* pk1_f, const int64_t* pk2_f, const int32_t* sv_r,
-             const int64_t* pk1_r, const int64_t* pk2_r,
+// K6 (K8 fused in). qsv, qoff: (Gq, NQ) int32, the sampled query seeds
+// (value, or -1) and their offsets in their fine block, NQ = NBF * C; sv_f,
+// sv_r: (Gr, NR) int32, each row ascending (BIG where invalid, last),
+// 16-byte aligned, NR % 4 == 0; pk1_f, pk1_r: (Gr, NR) int64, 16-byte
+// aligned, the packs
+// aligned to sv as `_index_block` builds them (pack_bits 32: value << 16 |
+// position + 1, or 0; 64: value << 40 | position + 1 << 20 | previous + 1;
+// positions ascending inside a run of one value; pk2 is not read, see
+// front_item); r_rows: (R,), q_rows: (R, K) int32 arena rows. Writes A, S:
+// (R * K, NBF) bool, D, vb: (R * K, NBF) int32 and, unless null, votes:
+// (R, K, NQ, 4) int32 (16-byte aligned). NBF % 4 == 0, 1 <= C <= 32,
+// K * NQ < 2^31, min_f, min_c >= 1. Returns cudaGetLastError().
+int k6_front(const int32_t* qsv, const int32_t* qoff, const int32_t* sv_f,
+             const int64_t* pk1_f, const int32_t* sv_r, const int64_t* pk1_r,
              const int32_t* r_rows, const int32_t* q_rows, int R, int K,
-             int NQ, int NR, int C, int Lq, int Lr, int pack_bits,
-             int32_t* votes, void* stream) {
-  if (R < 1 || K < 1 || NQ < 1 || NR < 1 || C < 1 || C > K6_MAX_C ||
-      NQ % C || (long long)K * NQ > 0x7fffffffLL ||
-      (pack_bits != 32 && pack_bits != 64))
-    return (int)cudaErrorInvalidValue;
-  static bool smem_set[MAX_DEVICES] = {};
-  int rc = allow_smem(votes_kernel, K8_SAMPLES * 4, smem_set);
-  if (rc) return rc;
-  int stride = 1;
-  while ((NR + stride - 1) / stride > K8_SAMPLES) stride <<= 1;
-  const int total = K * NQ;
-  const int most = (total + K8_MIN_SLOTS - 1) / K8_MIN_SLOTS;
-  int chunks = (4 * sm_count() + 2 * R - 1) / (2 * R);
-  chunks = max(1, min(chunks, most));
-  if ((long long)R * chunks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  VoteArgs a{qsv, qoff, {sv_f, sv_r}, {pk1_f, pk1_r}, {pk2_f, pk2_r},
-             r_rows, q_rows, K, NQ, NR, C, Lq, Lq + Lr + 64,
-             pack_bits == 64, stride, (NR + stride - 1) / stride, chunks,
-             (total + chunks - 1) / chunks, votes};
-  votes_kernel<<<dim3(R * chunks, 2), K8_THREADS, a.samples * 4,
-                 static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
-}
-
-// K6. votes: (N, NBF * C, 4) int32 (vote codes >= 0, BIG where none);
-// writes A, S: (N, NBF) bool and D, vb: (N, NBF) int32. NBF % 4 == 0,
-// 1 <= C <= 32, min_f, min_c >= 1. Returns cudaGetLastError().
-int k6_elect(const int32_t* votes, int N, int NBF, int C, int Lq, int Lr,
+             int NBF, int NR, int C, int Lq, int Lr, int pack_bits,
              int min_f, int min_c, uint8_t* A, uint8_t* S, int32_t* D,
-             int32_t* vb, void* stream) {
-  if (N < 1 || NBF < 4 || NBF % 4 || C < 1 || C > K6_MAX_C || min_f < 1 ||
-      min_c < 1)
+             int32_t* vb, int32_t* votes, void* stream) {
+  if (R < 1 || K < 1 || NBF < 4 || NBF % 4 || NR < 4 || NR % 4 || C < 1 ||
+      C > K6_MAX_C || (long long)K * NBF * C > 0x7fffffffLL ||
+      (pack_bits != 32 && pack_bits != 64) || min_f < 1 || min_c < 1)
     return (int)cudaErrorInvalidValue;
-  int P = 1, lgP = 0;
-  while (P < 4 * C) P <<= 1, ++lgP;
+  // s >= 4: one 16-byte load reads a segment of 4 entries as cheaply as
+  // one of 1 or 2, which would cost the descent levels.
+  int s = 4;
+  while ((NR + s - 1) / s > DIR_SAMPLES) s <<= 1;
+  const int ns = (NR + s - 1) / s;
+  int H = 1;
+  while ((1 << H) < ns) ++H;
   const int dspan = Lq + Lr + 64;
-  const long long warps = (long long)N * (NBF / 4);
-  const long long ctas = (warps + K6_WARPS - 1) / K6_WARPS;
-  if (ctas > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  ElectArgs a{votes, N, NBF / 4, C, P, lgP, Lq, dspan,
-              2LL * dspan + 64 < (1LL << 22) ? 22 : 32, min_f, min_c,
-              A, S, D, vb};
-  elect_kernel<<<(int)ctas, K6_WARPS * 32, 0,
-                 static_cast<cudaStream_t>(stream)>>>(a);
+  const int wide = 2LL * dspan + 64 < (1LL << 22) ? 0 : 1;
+  const int spl = (C + 7) / 8;          // seeds a lane
+  using Kernel = void (*)(FrontArgs);
+  static const Kernel kernels[4][2] = {
+      {front_kernel<1, false>, front_kernel<1, true>},
+      {front_kernel<2, false>, front_kernel<2, true>},
+      {front_kernel<3, false>, front_kernel<3, true>},
+      {front_kernel<4, false>, front_kernel<4, true>}};
+  const Kernel kern = kernels[spl - 1][wide];
+  static bool smem_set[4][2][MAX_DEVICES] = {};
+  int rc = allow_smem(kern, 2 * DIR_SAMPLES * 2, smem_set[spl - 1][wide],
+                      100);
+  if (rc) return rc;
+  const int smem = 2 * (1 << H) * 2;
+  int per_sm = 0;
+  rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, kern, K6_WARPS * 32, smem);
+  if (rc) return rc;
+  // CTAs in row order, each row's items cut into runs of at least
+  // K6_MIN_ITEMS: as many as keep the rows that the resident CTAs read
+  // (sv and pk1 of both strands, 24 bytes an entry) within K6_L2_BYTES, so
+  // that the searches' random reads hit L2.
+  const int per_row = K * (NBF / 4);
+  const long long resident = (long long)(per_sm > 0 ? per_sm : 1) *
+                             sm_count();
+  const long long live = std::max(1LL, K6_L2_BYTES / (24LL * NR));
+  long long chunks = std::min((resident + live - 1) / live,
+                              (long long)(per_row + K6_MIN_ITEMS - 1) /
+                                  K6_MIN_ITEMS);
+  chunks = std::max(chunks, 1LL);
+  const int per_cta = (int)((per_row + chunks - 1) / chunks);
+  chunks = (per_row + per_cta - 1) / per_cta;
+  if ((long long)R * chunks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const FrontArgs a{qsv, qoff, {sv_f, sv_r}, {pk1_f, pk1_r}, r_rows,
+                    q_rows, K, NBF / 4, NBF * C, NR, C, Lq, dspan,
+                    pack_bits == 64, s, ns, H, min_f, min_c, (int)chunks,
+                    per_cta, A, S, D, vb, votes};
+  kern<<<(int)(R * chunks), K6_WARPS * 32, smem,
+         static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 

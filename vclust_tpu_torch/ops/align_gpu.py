@@ -32,14 +32,16 @@ leaves hard, and with VCLUST_ALIGN_PIPE=v2:
    seeds of each fine block with the smallest value hash, and per strand
    their value-sorted packs (value, position) / (value, previous
    position), plus 64-wide overlapped window rows.
-2. **Votes** (`_votes_v2`, kernel K8 in csrc/align_v2.cu): the plain
-   version's stable sort joins the K queries' seeds with the reference's
-   and a running max carries the last two reference occurrences of each
-   value to the query seeds; the kernel finds the same by a search of
-   each seed's value in the reference's sorted values.
-3. **Election** (`_elect_v2`, kernel K6) of the densest diagonal cluster
-   per fine and per coarse block, and the fine override.
-4. **Propagation** (`_propagate_v2`, kernel K7) over re-evaluated windows
+2. **Votes and election** (`_votes_elect_v2`, kernel K6 in
+   csrc/align_v2.cu, K8 fused in): the plain version's stable sort join
+   joins the K queries' seeds with the reference's and a running max
+   carries the last two reference occurrences of each value to the query
+   seeds (`votes_v2_plain`); then the densest diagonal cluster per fine
+   and per coarse block is elected, with the fine override
+   (`elect_v2_plain`). The kernel finds the votes by a search of each
+   seed's value in the reference's sorted values and elects on them in
+   registers: the votes never reach device memory.
+3. **Propagation** (`_propagate_v2`, kernel K7) over re-evaluated windows
    (`_eval_on`) and the final flags, then the same back half.
 
 A dispatch is R rows of one reference and K queries each (the JAX
@@ -50,10 +52,10 @@ sort is an inverse permutation, and the dispatch size comes from a bound
 on live device bytes (`_dispatch_rows`, `_dispatch_rows_v2`).
 
 `stage1_pack` (K2), `band_counts` (K3), `_propagate_v3` (K5),
-`_blocks_to_measures` (K4), `_votes_v2` (K8), `_elect_v2` (K6) and
+`_blocks_to_measures` (K4), `_votes_elect_v2` (K6, K8 fused in) and
 `_propagate_v2` (K7) are the kernel wrappers: CPU tensors take
 `stage1_pack_plain`, `band_counts_plain`, `propagate_v3_plain`,
-`blocks_to_measures_plain`, `votes_v2_plain`, `elect_v2_plain` and
+`blocks_to_measures_plain`, `votes_elect_v2_plain` and
 `propagate_v2_plain`, CUDA tensors launch the kernel or raise. Each
 wrapper's `launches` counts its kernel launches. Entry points:
 `all2all_gpu` and `_all2all_single`, on `cuda`
@@ -1315,10 +1317,10 @@ def _eval_on(q_fwd, r2dov, r_rows, D, S, okb, rlen, qlens, *, Lr):
 
 
 def votes_v2_plain(b, r_rows, q_rows, *, Lq, Lr, C):
-    """Plain torch version of K8 on any device, stage 1: the seed votes of
-    R rows (one reference, K queries each) on both strands, (R, K, NQ, 4)
-    int32: the two candidates forward, then the two reverse (offset
-    DSPAN)."""
+    """Plain torch version of K6's search (K8, fused into K6) on any
+    device, stage 1: the seed votes of R rows (one reference, K queries
+    each) on both strands, (R, K, NQ, 4) int32: the two candidates
+    forward, then the two reverse (offset DSPAN)."""
     R, K = q_rows.shape
     NQ = (Lq // FINE) * C
     rr = r_rows.to(torch.int64)
@@ -1335,10 +1337,10 @@ def votes_v2_plain(b, r_rows, q_rows, *, Lq, Lr, C):
 
 
 def elect_v2_plain(votes, *, Lq, Lr):
-    """Plain torch version of K6 on any device, stage 2: the two-scale
-    block election on the votes (R, K, NQ, 4): per fine block the fine
-    election, overridden by the coarse block's unless the fine one
-    strictly beats the fine block's support for the coarse diagonal
+    """Plain torch version of K6's election on any device, stage 2: the
+    two-scale block election on the votes (R, K, NQ, 4): per fine block
+    the fine election, overridden by the coarse block's unless the fine
+    one strictly beats the fine block's support for the coarse diagonal
     (repeats support two clusters equally). Returns A, S (True = reverse
     strand), D and the winner's votes vb, (R, K, NBF)."""
     R, K, NQ, _ = votes.shape
@@ -1416,30 +1418,48 @@ def _check(t, name, dtype, shape, dev):
                          f'{tuple(t.shape)}')
 
 
-def _votes_v2(b, r_rows, q_rows, *, Lq, Lr, C):
-    """K8 wrapper (see votes_v2_plain): the plain version for CPU tensors,
-    the CUDA kernel for CUDA tensors (or raise). The kernel reads the
-    arena's rows in place: a row's sorted sv (ascending, BIG last, as
-    `_index_block` builds it), searched for each query seed, and its packs
-    at the run of equal values; C 1-32."""
+def votes_elect_v2_plain(b, r_rows, q_rows, *, Lq, Lr, C, want_votes=False):
+    """Plain torch version of K6 (K8 fused in) on any device: the two-scale
+    election of the seed votes, elect_v2_plain(votes_v2_plain(...)).
+    Returns A, S, D, vb (R, K, NBF) and the votes (R, K, NQ, 4), or None
+    unless want_votes."""
+    votes = votes_v2_plain(b, r_rows, q_rows, Lq=Lq, Lr=Lr, C=C)
+    return (*elect_v2_plain(votes, Lq=Lq, Lr=Lr),
+            votes if want_votes else None)
+
+
+def _votes_elect_v2(b, r_rows, q_rows, *, Lq, Lr, C, want_votes=False):
+    """K6 wrapper, K8 fused in (see votes_elect_v2_plain): the plain
+    version for CPU tensors, the CUDA kernel for CUDA tensors (or raise).
+    The kernel reads the arena's rows in place, as `_index_block` builds
+    them: the queries' seeds, and a reference row's sorted sv (ascending,
+    BIG last; 16-byte aligned, a multiple of 4 entries) and pk1 at the end
+    of the run of equal values (positions ascend inside a run, and pk2
+    holds the position of the entry before: the kernel reads it from pk1).
+    It takes 1-32 seeds a block, Lq a multiple of BLOCK and fewer than
+    2^31 query slots a row; with want_votes it also writes the votes."""
     dev = r_rows.device
     if dev.type == 'cpu':
-        return votes_v2_plain(b, r_rows, q_rows, Lq=Lq, Lr=Lr, C=C)
+        return votes_elect_v2_plain(b, r_rows, q_rows, Lq=Lq, Lr=Lr, C=C,
+                                    want_votes=want_votes)
     if dev.type != 'cuda':
         raise ValueError(f'unsupported device {dev}')
     if not 1 <= C <= 32:
-        raise ValueError(f'K8 takes 1-32 seeds a block; got C={C}')
-    if Lq % FINE or Lq < FINE:
-        raise ValueError(f'K8: Lq={Lq} is not a positive multiple of '
-                         f'{FINE}')
+        raise ValueError(f'K6 takes 1-32 seeds a block; got C={C}')
+    if Lq % BLOCK or Lq < BLOCK:
+        raise ValueError(f'K6: Lq={Lq} is not a positive multiple of '
+                         f'{BLOCK}')
     pack_bits = b['pack_bits']
     if pack_bits not in (32, 64):
-        raise ValueError(f'K8 takes packs of 32 or 64 bits; got '
+        raise ValueError(f'K6 takes packs of 32 or 64 bits; got '
                          f'{pack_bits}')
+    if not (MIN_VOTES_F >= 1 and MIN_VOTES_C >= 1):
+        raise ValueError('K6 takes MIN_VOTES_F and MIN_VOTES_C >= 1')
     R, K = q_rows.shape
-    NQ = (Lq // FINE) * C
+    NBF = Lq // FINE
+    NQ = NBF * C
     if K * NQ >= 1 << 31:
-        raise ValueError(f'K8 takes fewer than 2^31 query slots a row; got '
+        raise ValueError(f'K6 takes fewer than 2^31 query slots a row; got '
                          f'{K} x {NQ}')
     r_rows, q_rows = r_rows.contiguous(), q_rows.contiguous()
     _check(r_rows, 'r_rows', torch.int32, (R,), dev)
@@ -1449,66 +1469,36 @@ def _votes_v2(b, r_rows, q_rows, *, Lq, Lr, C):
         _check(b[name], name, torch.int32, (Gq, NQ), dev)
     Gr, NR = b['sv_f'].shape
     for name, dt in (('sv_f', torch.int32), ('pk1_f', torch.int64),
-                     ('pk2_f', torch.int64), ('sv_r', torch.int32),
-                     ('pk1_r', torch.int64), ('pk2_r', torch.int64)):
+                     ('sv_r', torch.int32), ('pk1_r', torch.int64)):
         _check(b[name], name, dt, (Gr, NR), dev)
-    votes = torch.empty((R, K, NQ, 4), dtype=torch.int32, device=dev)
-    if R and K:
-        lib = cuda.library('align_v2', cuda.ALIGN_V2_SIGNATURES)
-        with torch.cuda.device(dev):
-            rc = lib.k8_votes(
-                *(cuda.ptr(b[k]) for k in ('qsv', 'qoff', 'sv_f', 'pk1_f',
-                                           'pk2_f', 'sv_r', 'pk1_r',
-                                           'pk2_r')),
-                cuda.ptr(r_rows), cuda.ptr(q_rows), R, K, NQ, NR, C, Lq, Lr,
-                pack_bits, cuda.ptr(votes), cuda.stream(votes))
-        cuda.check(lib, rc, 'k8_votes')
-        _votes_v2.launches += 1
-    return votes
-
-
-_votes_v2.launches = 0
-
-
-def _elect_v2(votes, *, Lq, Lr):
-    """K6 wrapper (see elect_v2_plain): the plain version for CPU tensors,
-    the CUDA kernel for CUDA tensors (or raise). The kernel takes 1-32
-    seeds a fine block (C = NQ / NBF, 4C votes) and Lq a multiple of
-    BLOCK."""
-    dev = votes.device
-    if dev.type == 'cpu':
-        return elect_v2_plain(votes, Lq=Lq, Lr=Lr)
-    if dev.type != 'cuda':
-        raise ValueError(f'unsupported device {dev}')
-    if Lq % BLOCK or Lq < BLOCK:
-        raise ValueError(f'K6: Lq={Lq} is not a positive multiple of '
-                         f'{BLOCK}')
-    NBF = Lq // FINE
-    R, K, NQ = votes.shape[:3]
-    C = NQ // NBF
-    if NQ != NBF * C or not 1 <= C <= 32:
-        raise ValueError(f'K6 takes 1-32 seeds a block: NQ={NQ} at '
-                         f'{NBF} blocks')
-    _check(votes, 'votes', torch.int32, (R, K, NQ, 4), dev)
-    if not (MIN_VOTES_F >= 1 and MIN_VOTES_C >= 1):
-        raise ValueError('K6 takes MIN_VOTES_F and MIN_VOTES_C >= 1')
+    if NR % 4 or any(b[k].data_ptr() % 16 for k in ('sv_f', 'sv_r', 'pk1_f',
+                                                    'pk1_r')):
+        raise ValueError('K6 reads sv and pk1 16 bytes at a time: their rows '
+                         'must hold a multiple of 4 entries, 16-byte '
+                         'aligned')
     A, S = (torch.empty((R, K, NBF), dtype=torch.bool, device=dev)
             for _ in range(2))
     D, vb = (torch.empty((R, K, NBF), dtype=torch.int32, device=dev)
              for _ in range(2))
+    votes = (torch.empty((R, K, NQ, 4), dtype=torch.int32, device=dev)
+             if want_votes else None)
     if R and K:
         lib = cuda.library('align_v2', cuda.ALIGN_V2_SIGNATURES)
         with torch.cuda.device(dev):
-            rc = lib.k6_elect(cuda.ptr(votes), R * K, NBF, C, Lq, Lr,
-                              MIN_VOTES_F, MIN_VOTES_C,
-                              *(cuda.ptr(t) for t in (A, S, D, vb)),
-                              cuda.stream(votes))
-        cuda.check(lib, rc, 'k6_elect')
-        _elect_v2.launches += 1
-    return A, S, D, vb
+            rc = lib.k6_front(
+                *(cuda.ptr(b[k]) for k in ('qsv', 'qoff', 'sv_f', 'pk1_f',
+                                           'sv_r', 'pk1_r')),
+                cuda.ptr(r_rows), cuda.ptr(q_rows), R, K, NBF, NR, C, Lq, Lr,
+                pack_bits, MIN_VOTES_F, MIN_VOTES_C,
+                *(cuda.ptr(t) for t in (A, S, D, vb)),
+                None if votes is None else cuda.ptr(votes),
+                cuda.stream(A))
+        cuda.check(lib, rc, 'k6_front')
+        _votes_elect_v2.launches += 1
+    return A, S, D, vb, votes
 
 
-_elect_v2.launches = 0
+_votes_elect_v2.launches = 0
 
 
 def _propagate_v2(b, r_rows, rlens, q_rows, qlens, A, S, D, *, Lr):
@@ -1585,8 +1575,8 @@ def _row_core(b, r_rows, rlens, q_rows, qlens, *, Lq, Lr, K, mqd, mrd, reg,
     R = r_rows.shape[0]
     if q_rows.shape != (R, K):
         raise ValueError(f'q_rows must be ({R}, {K})')
-    votes = _votes_v2(b, r_rows, q_rows, Lq=Lq, Lr=Lr, C=C)
-    A, S, D, vb = _elect_v2(votes, Lq=Lq, Lr=Lr)
+    A, S, D, vb, votes = _votes_elect_v2(b, r_rows, q_rows, Lq=Lq, Lr=Lr,
+                                         C=C, want_votes=debug)
     flags = _propagate_v2(b, r_rows, rlens, q_rows, qlens, A, S, D, Lr=Lr)
     N = R * K
 

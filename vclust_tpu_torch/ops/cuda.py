@@ -43,13 +43,12 @@ BACK_HALF_SIGNATURES = {
     # agg, recs, nrec, scratch, scratch_ints, stream
     'k4_back_half': [_P] * 10 + [_I] * 6 + [_P] * 4 + [_I, _P],
 }
-# csrc/align_v2.cu, kernels K8, K6 and K7 of the v2 front end.
+# csrc/align_v2.cu, kernels K6 (K8 fused in) and K7 of the v2 front end.
 ALIGN_V2_SIGNATURES = {
-    # qsv, qoff, sv_f, pk1_f, pk2_f, sv_r, pk1_r, pk2_r, r_rows, q_rows, R,
-    # K, NQ, NR, C, Lq, Lr, pack_bits, votes, stream
-    'k8_votes': [_P] * 10 + [_I] * 8 + [_P] * 2,
-    # votes, N, NBF, C, Lq, Lr, min_f, min_c, A, S, D, vb, stream
-    'k6_elect': [_P] + [_I] * 7 + [_P] * 5,
+    # qsv, qoff, sv_f, pk1_f, sv_r, pk1_r, r_rows, q_rows, R, K, NBF, NR,
+    # C, Lq, Lr, pack_bits, min_f, min_c, A, S, D, vb, votes (or null),
+    # stream
+    'k6_front': [_P] * 8 + [_I] * 10 + [_P] * 6,
     # q, q_rows, qlens, r2dov, r_rows, rlens, A0, S0, D0, N, K, NBF, Lr,
     # NRT, iters, ext_min, ext_margin, m1, m0, sw, A, S, D, Ap, Sp, Dp,
     # stream
