@@ -1757,14 +1757,12 @@ def v2_front_end_alone(torch, ag, b, r_rows, rlens, q_rows, qlens, kb, C,
     votes_v2_plain (row k8). The library_ms of both is one
     torch.searchsorted over the same rows and values (both strands), timed
     in the same call."""
-    import math
     R, K = q_rows.shape
     N, NBF = R * K, kb // ag.FINE
     NQ = NBF * C
     kw = dict(Lq=kb, Lr=kb, C=C)
-    n_ref = len(torch.unique(r_rows))
-    n_q = len(torch.unique(q_rows))
-    NR = b['sv_f'].shape[1]
+    uq, ur = torch.unique(q_rows).long(), torch.unique(r_rows).long()
+    n_q, n_ref = len(uq), len(ur)
     packs = 1 if b['pack_bits'] == 64 else 2
     rr = r_rows.long()
     sv2 = torch.cat([b['sv_f'][rr], b['sv_r'][rr]]).contiguous()
@@ -1777,15 +1775,28 @@ def v2_front_end_alone(torch, ag, b, r_rows, rlens, q_rows, qlens, kb, C,
                 'references\' sorted values, both strands, one call (the '
                 'search alone: no packs, no election)')
     del sv2, vals, vals2
-    # Each distinct query's seeds and offsets and each distinct reference's
-    # values and packs (both strands) read once, the election written (10
-    # bytes a fine block; the votes too, 16 bytes a query slot, with the
-    # votes output); a search a seed and strand (a compare-select a level)
-    # and K6's least election work (k6_slots).
-    nbytes = n_q * NQ * 8 + n_ref * 2 * NR * (4 + 8 * packs) + N * NBF * 10
+    # Counted on this dispatch's data: a query slot past its genome's end,
+    # or in a block of fewer valid seeds, holds no seed (qsv -1), and a
+    # reference row's entries past its valid ones are BIG. Each distinct
+    # query's seed values (and the valid seeds' offsets) and each distinct
+    # reference's valid values and packs (both strands) read once, the
+    # election written (10 bytes a fine block; the votes too, 16 bytes a
+    # query slot, with the votes output); a search a valid seed and strand
+    # over the reference strand's valid entries (a compare-select a
+    # level), and K6's least election work (k6_slots) on the fine and
+    # coarse blocks that hold a valid seed.
+    valid = [(b[k] < ag.BIG).sum(dim=1) for k in ('sv_f', 'sv_r')]
+    nbytes = (n_q * NQ * 4 + int((b['qsv'][uq] >= 0).sum()) * 4
+              + int(sum(n[ur].sum() for n in valid)) * (4 + 8 * packs)
+              + N * NBF * 10)
+    seeds = (b['qsv'][q_rows.long()] >= 0).view(R, K, NBF, C)
+    levels = sum(torch.ceil(torch.log2(n[rr].double() + 1))
+                 for n in valid)
     fine, coarse = k6_slots(C)
-    slots = (2 * 2 * N * NQ * math.ceil(math.log2(NR + 1))
-             + N * NBF * fine + N * NBF // 4 * coarse)
+    slots = (2 * int((seeds.sum(dim=(1, 2, 3)).double() * levels).sum())
+             + int(seeds.any(dim=3).sum()) * fine
+             + int(seeds.view(R, K, NBF // 4, 4 * C).any(dim=3).sum())
+             * coarse)
     k6 = v2_alone(
         torch, '_votes_elect_v2',
         lambda: ag._votes_elect_v2(b, r_rows, q_rows, **kw)[:4],

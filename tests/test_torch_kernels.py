@@ -20,8 +20,9 @@ sys.path.insert(0, '.')
 from back_half_cases import (CASES, PARAMS, back_half_case,  # noqa: E402
                              chain_case, last_chunk_case, long_segment_case,
                              propagate_case, sparse_cap_case)
-from v2_cases import (chain_election, election_case,  # noqa: E402
-                      random_election, v2_arena, v2_genomes, v2_rows)
+from v2_cases import (CRAFTED, chain_election, crafted_case,  # noqa: E402
+                      election_case, random_election, v2_arena, v2_genomes,
+                      v2_rows)
 from vclust_tpu_torch.ops import align_gpu as tav  # noqa: E402
 from vclust_tpu_torch.ops import extend as tx      # noqa: E402
 from vclust_tpu_torch.ops import prefilter as tpf  # noqa: E402
@@ -736,11 +737,16 @@ def _v2_inputs(device, Lp, pack, C, R=3, K=8, seed=5, poly_t=False):
 
 
 def _k6_matches(device, Lp, pack, C, R=3, K=8, poly_t=False):
-    """The fused kernel on the index genomes == the plain pair: the
-    election without and with the votes output, and the votes; one launch
-    each."""
+    """The fused kernel on the index genomes == the plain pair (see
+    _k6_equal)."""
     b, (r_rows, rlens, q_rows, qlens) = _v2_inputs(device, Lp, pack, C, R,
                                                    K, poly_t=poly_t)
+    return _k6_equal(b, r_rows, q_rows, Lp, C)
+
+
+def _k6_equal(b, r_rows, q_rows, Lp, C):
+    """The fused kernel == the plain pair: the election without and with
+    the votes output, and the votes; one launch each."""
     kw = dict(Lq=Lp, Lr=Lp, C=C)
     before = tav._votes_elect_v2.launches
     got = tav._votes_elect_v2(b, r_rows, q_rows, **kw)
@@ -790,6 +796,24 @@ def test_k6_kernel_wide_pack(cuda_device):
     own type (ROADMAP R9); the rows sampled every 32nd value."""
     A = _k6_matches(cuda_device, 1 << 20, 64, 16, R=1, K=2)[0]
     assert A.any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('Lq,C,pack', CRAFTED)
+def test_k6_kernel_crafted_votes(cuda_device, Lq, C, pack):
+    """The fused kernel's election (and votes) == the plain pair on an
+    arena whose seeds give votes_case's crafted votes: two clusters of
+    equal size, empty blocks, a coarse block with no vote, a fine election
+    that ties its support for the coarse mode (the tie-breaks of ROADMAP
+    P3: the smallest start, then the smallest mode), at C = 5, 16 and 32
+    and at 2^20, where the election's pack holds 32 bits of vote code."""
+    b, r_rows, q_rows, _ = crafted_case(Lq, C, pack)
+    b = {k: v.to(cuda_device) if isinstance(v, torch.Tensor) else v
+         for k, v in b.items()}
+    A, _, D, _, _ = _k6_equal(b, r_rows.to(cuda_device),
+                              q_rows.to(cuda_device), Lq, C)
+    assert A.any() and not A[0, 0, 4:8].any()
+    assert A[0, 0, 0] and D[0, 0, 0] == D[0, 0, 1]
 
 
 @pytest.mark.gpu

@@ -43,8 +43,9 @@ import torch
 
 sys.path.insert(0, '.')
 
-from v2_cases import (chain_election, election_case, v2_arena,  # noqa: E402
-                      v2_genomes, v2_rows, votes_case)
+from v2_cases import (CRAFTED, chain_election, crafted_case,  # noqa: E402
+                      election_case, v2_arena, v2_genomes, v2_rows,
+                      votes_case)
 from vclust_tpu_torch.ops import align_gpu as ag  # noqa: E402
 
 torch.set_num_threads(1)
@@ -466,6 +467,29 @@ def test_k6_votes_permuted_in_blocks(C):
     medv_p, vb_p = k6_model(coarse, Lq, Lr, C, coarse=True)
     assert np.array_equal(medv, medv_p) and np.array_equal(vb, vb_p)
     assert (vb > 0).any() and not np.array_equal(coarse, votes)
+
+
+@pytest.mark.parametrize('Lq,C,pack', CRAFTED)
+def test_crafted_arena_gives_crafted_votes(Lq, C, pack):
+    """The arena of tests/v2_cases.py:crafted_arena, on which the card
+    holds the fused kernel against the plain pair, makes votes_v2_plain
+    give votes_case's crafted votes (moved as one per coarse block): each
+    fine block's the same multiset, so the same election, ties included
+    (the empty coarse block, the fine election that ties its support for
+    the coarse mode)."""
+    b, r_rows, q_rows, moved = crafted_case(Lq, C, pack)
+    R, K = q_rows.shape
+    votes = ag.votes_v2_plain(b, r_rows, q_rows, Lq=Lq, Lr=Lq, C=C)
+    assert torch.equal(votes.view(moved.shape).sort(dim=-1).values,
+                       moved.sort(dim=-1).values)
+    want = ag.elect_v2_plain(moved.view(R, K, -1, 4), Lq=Lq, Lr=Lq)
+    got = ag.elect_v2_plain(votes, Lq=Lq, Lr=Lq)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    A, _, D, _ = got
+    assert A.any() and not A.all()
+    assert not A[0, 0, 4:8].any()                 # the empty coarse block
+    assert A[0, 0, 0] and D[0, 0, 0] == D[0, 0, 1]   # the coarse mode wins
 
 
 @pytest.mark.parametrize('pack,C', [(32, 16), (64, 8)])

@@ -142,6 +142,106 @@ def votes_case(seed, R, K, NBF, C, Lq, Lr):
     return torch.from_numpy(v.reshape(R, K, NBF * C, 4).astype(np.int32))
 
 
+
+def crafted_arena(votes, Lq, Lr, pack_bits, C, seed, reverse):
+    """An arena whose seed votes (votes_v2_plain) are crafted ones: R
+    reference rows, R * K query rows, r_rows (R,) and q_rows (R, K) of
+    pairs r * K + k. votes (R, K, NBF, M) int32: each fine block's M <= 4C
+    vote codes (BIG where none), as votes_case makes them. Every vote of
+    coarse block cb moves by Lq - 128 cb, and by DSPAN more with
+    `reverse`, so a block's votes keep their gaps and ties. Each vote is
+    one reference position of a fresh seed value, a seed's two candidates
+    on a strand the last two positions of its value there. With `reverse`
+    a vote may lie on either strand (a forward one at a position past
+    Lr + 64), so a fine block takes 4C votes; without, on the forward
+    strand only, 2C. The other slots of a coarse block with a vote hold no
+    seed (-1) or a value the reference lacks. Returns the arena, r_rows,
+    q_rows and the moved votes (R, K, NBF, 4C), BIG past each block's."""
+    rng = np.random.default_rng(seed)
+    R, K, NBF, M = votes.shape
+    NQ = NBF * C
+    dspan = Lq + Lr + 64
+    pmax = (1 << (16 if pack_bits == 32 else 20)) - 2   # largest position
+    cols = 4 if reverse else 2
+    assert M <= cols * C
+    v = votes.numpy().astype(np.int64)
+    shift = Lq - ag.BLOCK * (np.arange(NBF) // 4) + (dspan if reverse else 0)
+    moved = np.full((R, K, NBF, 4 * C), ag.BIG, np.int64)
+    moved[..., :M] = np.where(v < ag.BIG, v + shift[:, None], ag.BIG)
+    qsv = np.full((R * K, NQ), -1, np.int64)
+    qoff = rng.integers(0, FINE, (R * K, NQ))
+    values = rng.permutation(0xFFFF)       # the largest value, 0xFFFF, out
+    entries = [[[], []] for _ in range(R)]  # (value, position) a strand
+    used = [0] * R
+    busy = (moved < ag.BIG).reshape(R, K, NBF // 4, -1).any(-1)
+    for r, k, cb in zip(*np.nonzero(busy)):
+        n = r * K + k
+        for f in range(4 * cb, 4 * cb + 4):
+            ws = moved[r, k, f][moved[r, k, f] < ag.BIG]
+            rng.shuffle(ws)
+            order = rng.permutation(C)
+            for i, c in enumerate(order):
+                mine = ws[cols * i:cols * (i + 1)]
+                if not len(mine) and rng.random() < 0.5:
+                    continue                  # no seed
+                val = int(values[used[r]])
+                used[r] += 1
+                qsv[n, f * C + c] = val
+                qpos = f * FINE + qoff[n, f * C + c]
+                for st in (0, 1):
+                    d = np.sort(mine[2 * st:2 * st + 2])
+                    pos = d - Lq - st * dspan + qpos
+                    assert ((pos >= 0) & (pos <= pmax)).all()
+                    entries[r][st] += [(val, int(p)) for p in pos]
+    NR = max(4, -(-max(len(e) for row in entries for e in row) // 4) * 4)
+    b = dict(qsv=torch.from_numpy(qsv.astype(np.int32)),
+             qoff=torch.from_numpy(qoff.astype(np.int32)),
+             pack_bits=pack_bits)
+    for st, tag in enumerate('fr'):
+        sv = np.full((R, NR), ag.BIG, np.int64)
+        pk1 = np.zeros((R, NR), np.int64)
+        pk2 = np.zeros((R, NR), np.int64)
+        for r in range(R):
+            e = sorted(entries[r][st])
+            for i, (val, p) in enumerate(e):
+                prev = e[i - 1][1] + 1 if i and e[i - 1][0] == val else 0
+                sv[r, i] = val
+                if pack_bits == 32:
+                    pk1[r, i] = val << 16 | p + 1
+                    pk2[r, i] = val << 16 | prev if prev else 0
+                else:
+                    pk1[r, i] = pk2[r, i] = (val << 40 | (p + 1) << 20
+                                             | prev)
+        b.update({f'sv_{tag}': torch.from_numpy(sv.astype(np.int32)),
+                  f'pk1_{tag}': torch.from_numpy(pk1),
+                  f'pk2_{tag}': torch.from_numpy(pk2)})
+    r_rows = torch.arange(R, dtype=torch.int32)
+    q_rows = torch.arange(R * K, dtype=torch.int32).view(R, K)
+    return b, r_rows, q_rows, torch.from_numpy(moved.astype(np.int32))
+
+
+# (Lq, C, pack_bits) of the crafted arenas: at 2^20 the election's pack
+# needs 32 bits of vote code (2 DSPAN + 64 >= 2^22).
+CRAFTED = [(4096, 5, 32), (4096, 16, 64), (4096, 32, 32), (1 << 20, 16, 64)]
+
+
+def crafted_case(Lq, C, pack_bits):
+    """crafted_arena of votes_case's votes at bucket Lq (Lr = Lq). Below
+    2^20, 2 rows x 4 queries, votes_case's votes moved to the reverse
+    strand. At 2^20, 1 x 2, the votes of votes_case at 4,096 and C / 2
+    seeds a block (forward only, 2C a block) in the first 32 and the last
+    32 fine blocks, the rest empty."""
+    if Lq <= 65536:
+        votes = votes_case(Lq + C, 2, 4, Lq // FINE, C, Lq, Lq)
+        votes = votes.view(2, 4, Lq // FINE, 4 * C)
+        return crafted_arena(votes, Lq, Lq, pack_bits, C, C, True)
+    small = votes_case(C + 7, 1, 2, 64, C // 2, 4096, 4096).view(
+        1, 2, 64, 2 * C)
+    votes = torch.full((1, 2, Lq // FINE, 2 * C), ag.BIG, dtype=torch.int32)
+    votes[:, :, :32] = small[:, :, :32]
+    votes[:, :, -32:] = small[:, :, 32:]
+    return crafted_arena(votes, Lq, Lq, pack_bits, C, C, False)
+
 def election_case(b, rows, Lq, Lr, C, seed):
     """An election for K7: the plain votes and election of the rows on the
     arena, then a third of the assigned blocks unassigned (so neighbours

@@ -166,9 +166,10 @@ def v3_inputs(torch, dev, ag, cs, corpus, kb, seed):
     return el, g3, rl, f'v3 bucket {kb}: B={B} x K={K}, NBF={kb // 32}'
 
 
-def v2_inputs(torch, dev, ag, cs, corpus, kb, seed):
-    """One full v2 dispatch at bucket kb: K4's inputs from the v2 front
-    end."""
+def v2_dispatch(torch, dev, ag, cs, corpus, kb, seed):
+    """One full v2 dispatch at bucket kb of the corpus's pairs: the arena,
+    B rows of K queries drawn from `seed` (r_rows, rlens, q_rows, qlens)
+    and its label."""
     import numpy as np
     codes, pairs = cs.align_inputs(corpus)
     lens = [len(c) for c in codes]
@@ -189,13 +190,22 @@ def v2_inputs(torch, dev, ag, cs, corpus, kb, seed):
     qg = rng.choice(gids, (B, K))
     q_rows = put([[b['rows'][g] for g in row] for row in qg])
     qlens = put([[len(codes[g]) for g in row] for row in qg])
+    return (b, r_rows, rlens, q_rows, qlens,
+            f'v2 bucket {kb}: B={B} x K={K}, NBF={kb // 32}')
+
+
+def v2_inputs(torch, dev, ag, cs, corpus, kb, seed):
+    """One full v2 dispatch at bucket kb: K4's inputs from the v2 front
+    end."""
+    b, r_rows, rlens, q_rows, qlens, at = v2_dispatch(torch, dev, ag, cs,
+                                                      corpus, kb, seed)
     C = ag.SEEDS_PER_BLOCK
     A, S, D = ag._votes_elect_v2(b, r_rows, q_rows, Lq=kb, Lr=kb, C=C)[:3]
     flags = ag._propagate_v2(b, r_rows, rlens, q_rows, qlens, A, S, D, Lr=kb)
-    N = B * K
-    flat = [x.reshape((N,) + x.shape[2:]) for x in flags]
-    rl = rlens[:, None].expand(B, K).reshape(N)
-    return flat, rl, f'v2 bucket {kb}: B={B} x K={K}, NBF={kb // 32}'
+    B, K = q_rows.shape
+    flat = [x.reshape((B * K,) + x.shape[2:]) for x in flags]
+    rl = rlens[:, None].expand(B, K).reshape(B * K)
+    return flat, rl, at
 
 
 def timed(cs, fn, reps, check_only):

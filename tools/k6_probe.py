@@ -3,12 +3,12 @@
 `_votes_elect_v2`) alone on a card at the v2 dispatch shapes of the align
 paths that chip_smoke.py drives, whole and with parts cut out.
 
-Points (inputs built from the corpora of chip_smoke.py as
-tools/k45_probe.py builds them, query rows drawn from --seed):
+Points (inputs built from the corpora of chip_smoke.py by
+tools/k45_probe.py:v2_dispatch, query rows drawn from --seed):
   v2 65536   the 48 genomes at bucket 65,536: B = 45 rows x K = 8
              queries on an 80 GB card, C = 16, 32-bit packs;
   v2 262144  the v2 corpus of chip_smoke.py at 262,144: B = 11, 64-bit
-             packs (the directory samples every 16th value).
+             packs (the directory samples every 8th value).
 At each point the kernel's election, and its votes output, are held
 against the plain pair (`votes_elect_v2_plain`) on the same tensors, bit
 for bit; then its CUDA-event time (`ms`, the wrapper's host work
@@ -50,6 +50,8 @@ import sys
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
+
+from k45_probe import v2_dispatch  # noqa: E402
 
 # [(text of csrc/align_v2.cu, its replacement)] of each variant.
 CUTS = {
@@ -123,30 +125,6 @@ def build_cuts(cuda):
     return libs
 
 
-def v2_inputs(torch, dev, ag, cs, corpus, kb, seed):
-    """One full v2 dispatch at bucket kb: the arena and B rows of K
-    queries."""
-    import numpy as np
-    codes, pairs = cs.align_inputs(corpus)
-    lens = [len(c) for c in codes]
-    gids = sorted({g for i, j in pairs.tolist() for g in (i, j)
-                   if max(ag._pad_bucket(lens[i]),
-                          ag._pad_bucket(lens[j])) == kb})
-    b = ag.GenomeIndex(codes, device=dev).ensure(kb, gids)
-    K = ag.K_QUERIES
-    B = ag._dispatch_rows_v2(kb, K, False)
-    rng = np.random.default_rng(seed)
-    refs = [gids[w % len(gids)] for w in range(B)]
-
-    def put(a):
-        return torch.tensor(np.asarray(a, np.int32), device=dev)
-
-    r_rows = put([b['rows'][g] for g in refs])
-    q_rows = put([[b['rows'][g] for g in row]
-                  for row in rng.choice(gids, (B, K))])
-    return b, r_rows, q_rows, f'v2 bucket {kb}: B={B} x K={K}'
-
-
 def point(torch, cuda, ag, cs, cut_libs, b, r_rows, q_rows, kb, at, reps):
     C = ag.SEEDS_PER_BLOCK
     kw = dict(Lq=kb, Lr=kb, C=C)
@@ -203,8 +181,8 @@ def main():
     cut_libs = build_cuts(cuda)
     for corpus, kb in ((cs.mutant_corpus(), 65536),
                        (cs.v2_corpus(), 262144)):
-        b, r_rows, q_rows, at = v2_inputs(torch, dev, ag, cs, corpus, kb,
-                                          args.seed)
+        b, r_rows, _, q_rows, _, at = v2_dispatch(torch, dev, ag, cs,
+                                                  corpus, kb, args.seed)
         point(torch, cuda, ag, cs, cut_libs, b, r_rows, q_rows, kb, at,
               args.reps)
         del b
