@@ -18,9 +18,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
               Each K1 line gives the limb products issued (one per k-block
               and limb of its class) against the index-wide limb count on
               every k-block, the split-K factor, and the kernel's own
-              device time (`device_ms`, torch.profiler) beside its event
-              time; (c) also times one launch a chunk (`ms_per_chunk`)
-              against one a pass of chunks (`ms`: counts added once);
+              device time (`device_ms`: CUDA events, the calls queued
+              behind a spin kernel) beside its event time; (c) also
+              times one launch a chunk (`ms_per_chunk`) against one a
+              pass of chunks (`ms`: counts added once);
   4. cc     - device connected components (ops/cc.py:_cc_run, torch ops)
               through single linkage on 200,000 nodes, == host union-find,
               with its time and bytes bound;
@@ -174,34 +175,72 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+# Clock cycles that torch.cuda._sleep spins a millisecond at most (an H100
+# SXM's SM clock peaks at 1.98 GHz; at a lower clock it spins longer).
+SPIN_CYCLES_PER_MS = 1.98e6
+
+
 def device_ms(fn, reps: int, tries: int = 3):
-    """Device time of `fn` by torch.profiler: its kernels' and memsets' own
-    time, the mean of `reps` calls after a warm-up. Every call launches
-    the same kernels, so a trace in which one of them shows fewer events
-    than calls has lost some (the profiler can drop them) and is taken
-    again, up to `tries` times; None when none held them all."""
+    """Device time of `fn`: the mean of `reps` calls after a warm-up, timed
+    by CUDA events on the stream while a spin kernel queued before them
+    (torch.cuda._sleep) holds it busy, so that every launch of the calls is
+    queued before the first one starts and the host's time between launches
+    never enters: the stream's busy time, its kernels, memsets and the gaps
+    between them on the card. Held only where the spin still ran when the
+    last call was queued (the start event not yet reached); else taken again
+    with a spin four times as long, up to `tries` times, and None where none
+    held (fn waits on the device), the reason in device_ms.why. (No
+    torch.profiler sums: a trace can lose a kernel's events or their time;
+    tools/k6_probe.py --trace-check shows them beside this.)"""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    queued_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    spin_ms = 2 * queued_ms + 1.0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
     for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        seen = [e for e in prof.key_averages()
-                if e.self_device_time_total > 0]
-        if seen and all(e.count >= reps for e in seen):
-            return sum(e.self_device_time_total for e in seen) / 1e3 / reps
+        torch.cuda._sleep(int(spin_ms * SPIN_CYCLES_PER_MS))
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        held = not start.query()
+        torch.cuda.synchronize()
+        if held:
+            device_ms.why = None
+            return start.elapsed_time(end) / reps
+        spin_ms *= 4
+    device_ms.why = (f'not held: a spin of {spin_ms / 4:.1f} ms ended before '
+                     f'{reps} calls were queued (the calls wait on the '
+                     f'device)')
     return None
+
+
+device_ms.why = None
+
+
+def device_ms_item(fn, reps: int) -> dict:
+    """{'device_ms': device_ms(fn, reps)}, with 'device_ms_why' where it is
+    None."""
+    ms = device_ms(fn, reps)
+    return dict(device_ms=ms) if ms is not None else dict(
+        device_ms=None, device_ms_why=device_ms.why)
 
 
 def with_shares(d: dict) -> dict:
     """d (with ms, device_ms and bound_ms) with the share of the bound the
-    device time reaches and the wrapper's host time, ms - device_ms."""
+    device time reaches and the wrapper's host time, ms - device_ms; where
+    device_ms is None, why (device_ms.why of the last call)."""
     if d.get('device_ms'):
         d['share_of_bound'] = d['bound_ms'] / d['device_ms']
         d['host_ms'] = d['ms'] - d['device_ms']
+    elif 'device_ms' in d:
+        d['device_ms_why'] = device_ms.why
     return d
 
 
@@ -535,8 +574,8 @@ def k1_case(torch, dev, name, index, host=None, per_chunk=False):
         del apart, each
     # The kernel's own device time (counts are not zeroed in between: the
     # sums above are already checked).
-    res['device_ms'] = device_ms(
-        lambda: [pf.occupancy_count(counts, c) for c in passes], reps)
+    res.update(device_ms_item(
+        lambda: [pf.occupancy_count(counts, c) for c in passes], reps))
     plain_ms = time_ms(run_plain, 1)
     pairs = n * (n - 1) / 2
     rows = sum(int(c.weights.numel()) for c in passes)
@@ -1310,7 +1349,7 @@ def k2_k3_alone(torch, dev, ag, b, codes, seed: int, kb: int):
                 (cnt1, g1, cnt2, g2), ag._stage1_v3(*s1))):
             fail(f'K2 at bucket {kb}: cnt1, g1, cnt2, g2 != plain')
     k2_ms = time_ms(lambda: ag.stage1_pack(*s1), 5)
-    k2_dev = device_ms(lambda: ag.stage1_pack(*s1), 5)
+    k2_dev = device_ms_item(lambda: ag.stage1_pack(*s1), 5)
     k2_plain = time_ms(lambda: ag.stage1_pack_plain(*s1), 1)
     ops = 2.0 * tasks * M2 * NRB * H
     # The arena rows the dispatch reads, each once, and the three outputs.
@@ -1322,7 +1361,7 @@ def k2_k3_alone(torch, dev, ag, b, codes, seed: int, kb: int):
     k2 = dict(name='stage1_pack', route='cuda',
               source='vclust_tpu_torch/csrc/align_v3.cu',
               replaces='vclust_tpu/ops/align_tpu.py:1108', design=K2_DESIGN,
-              max_abs_err=k2_err, ms=k2_ms, device_ms=k2_dev,
+              max_abs_err=k2_err, ms=k2_ms, **k2_dev,
               plain_ms=k2_plain, bound_ms=max(t_ops, t_bytes),
               bound_by='operations' if t_ops >= t_bytes else 'bytes',
               library_ms=k2_library_ms(torch, *s1),
@@ -1341,7 +1380,7 @@ def k2_k3_alone(torch, dev, ag, b, codes, seed: int, kb: int):
     if k3_err:
         fail(f'K3 != plain at bucket {kb} (max abs err {k3_err})')
     k3_ms = time_ms(lambda: ag.band_counts(wins, qb), 5)
-    k3_dev = device_ms(lambda: ag.band_counts(wins, qb), 5)
+    k3_dev = device_ms_item(lambda: ag.band_counts(wins, qb), 5)
     k3_plain = time_ms(lambda: ag.band_counts_plain(wins, qb), 1)
     n = qb.shape[0]
     band = g3['BAND']
@@ -1358,7 +1397,7 @@ def k2_k3_alone(torch, dev, ag, b, codes, seed: int, kb: int):
     k3 = dict(name='band_counts', route='cuda',
               source='vclust_tpu_torch/csrc/align_v3.cu',
               replaces='vclust_tpu/ops/align_tpu.py:1175', design=K3_DESIGN,
-              max_abs_err=k3_err, ms=k3_ms, device_ms=k3_dev,
+              max_abs_err=k3_err, ms=k3_ms, **k3_dev,
               plain_ms=k3_plain, bound_ms=max(t_ops, t_bytes),
               bound_by='operations' if t_ops >= t_bytes else 'bytes',
               library_ms=None,
@@ -1698,13 +1737,16 @@ K6_DESIGN = ('the seeds of a v2 dispatch in, the election out: a warp an '
              'coarse block), window counts from the next lanes by '
              'shuffles, the coarse sample at registers 0, 4, ..., packed '
              'maxes by shuffles; the votes never reach device memory')
-K7_DESIGN = ('K5\'s tiles: a warp a tile of 128 blocks with a halo of '
-             'EXT_ITERS, blocks lane + 32 j; up front a table of 32-bit '
-             'match masks at the initial states of the assigned blocks of '
-             '[i - EXT_ITERS - 1, i + EXT_ITERS] (query bases staged, '
-             'window words funnel-shifted, __vcmpeq4; runs of one state '
-             'once); steps by shuffles with population counts; m1 and m0 '
-             'the masks of the final sources, 16 bytes a lane')
+K7_DESIGN = ('K5\'s tiles, of 64 blocks with a halo of EXT_ITERS, the warps '
+             'of one wave of CTAs taking tiles in turn; each assigned '
+             'block\'s mask at its own state, then, before every step from '
+             'the block before, the masks at both neighbours\' states (a '
+             'run of one state once) that the table lacks, listed over the '
+             'warp by ballots and evaluated 32 at a time; a mask from the '
+             'window\'s 2-3 aligned 16-byte pieces, a byte compare as a '
+             'carry-free add, bits transposed so a flag word is a shift and '
+             'a mask; the table c-major in shared memory; two steps without '
+             'an adoption end the steps')
 
 
 # Int32 issue slots of the least work of K6 on a fine block of 4C votes
@@ -1747,6 +1789,21 @@ def v2_alone(torch, name, run, plain, nbytes, slots, at, **extra):
         bound_by='bytes' if t_bytes >= t_ops else 'operations',
         bound_bytes_ms=t_bytes, bound_ops_ms=t_ops, bytes=nbytes,
         int32_slots=slots, at=at, **extra))
+
+
+def k7_least(torch, b, r_rows, q_rows, kb) -> tuple:
+    """K7's least bytes and int32 slots on one v2 dispatch: the election
+    read (6 bytes a block), each distinct query's codes and reference's
+    window rows read once, the flags (a byte a query position each) and
+    the states (13 bytes a block) written; the final masks 6 slots a word
+    of 4 positions."""
+    R, K = q_rows.shape
+    N, NBF = R * K, kb // 32
+    NRT = b['r2dov'].shape[1] // 2
+    n_q, n_ref = len(torch.unique(q_rows)), len(torch.unique(r_rows))
+    nbytes = (N * NBF * 6 + n_q * kb + n_ref * 2 * NRT * 64 + 2 * N * kb
+              + N * NBF * 13)
+    return nbytes, N * NBF * 8 * 6
 
 
 def v2_front_end_alone(torch, ag, b, r_rows, rlens, q_rows, qlens, kb, C,
@@ -1810,16 +1867,11 @@ def v2_front_end_alone(torch, ag, b, r_rows, rlens, q_rows, qlens, kb, C,
         nbytes + N * NQ * 16, slots, at, wrapper='_votes_elect_v2',
         **library)
     A, S, D = ag._votes_elect_v2(b, r_rows, q_rows, **kw)[:3]
-    NRT = b['r2dov'].shape[1] // 2
-    # K7: the election read, each distinct query's codes and reference's
-    # window rows read once, the flags and the states written; the final
-    # masks 6 slots a word of 4 positions.
     args = (b, r_rows, rlens, q_rows, qlens, A, S, D)
     k7 = v2_alone(
         torch, '_propagate_v2', lambda: ag._propagate_v2(*args, Lr=kb),
         lambda: ag.propagate_v2_plain(*args, Lr=kb),
-        N * NBF * 6 + n_q * kb + n_ref * 2 * NRT * 64 + 2 * N * kb
-        + N * NBF * 13, N * NBF * 8 * 6, at, library_ms=None,
+        *k7_least(torch, b, r_rows, q_rows, kb), at, library_ms=None,
         library='none: no PyTorch call computes the neighbour adoption '
                 '(its plain version is ~20 torch ops a step)')
     return k8, k6, k7

@@ -20,8 +20,9 @@ sys.path.insert(0, '.')
 from back_half_cases import (CASES, PARAMS, back_half_case,  # noqa: E402
                              chain_case, last_chunk_case, long_segment_case,
                              propagate_case, sparse_cap_case)
-from v2_cases import (CRAFTED, chain_election, crafted_case,  # noqa: E402
-                      election_case, random_election, v2_arena, v2_genomes,
+from v2_cases import (CRAFTED, chain_election, clipped_election,  # noqa
+                      crafted_case, distinct_election, election_case,
+                      random_election, relay_election, v2_arena, v2_genomes,
                       v2_rows)
 from vclust_tpu_torch.ops import align_gpu as tav  # noqa: E402
 from vclust_tpu_torch.ops import extend as tx      # noqa: E402
@@ -926,6 +927,84 @@ def test_k7_chain_across_tile_edge(cuda_device, monkeypatch, c0, iters):
     got = _k7_matches(cuda_device, b, rows, A, S, D, Lp)
     assert got[3][0, :, c0 - iters:c0 + iters + 1].all()
     assert int(got[3].sum()) == 2 * (2 * iters + 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('Lp,iters', [(65536, 3), (262144, 3), (9600, 0),
+                                      (9600, 16), (65536, 16)])
+@pytest.mark.parametrize('kind', ['distinct', 'distinct_c0', 'relay',
+                                  'clipped'])
+def test_k7_crafted_elections(cuda_device, monkeypatch, Lp, iters, kind):
+    """The propagation's kernel == propagate_v2_plain, every output, one
+    launch, on crafted elections (tests/v2_cases.py) at buckets 65,536 and
+    262,144 and at a ragged 300 blocks, EXT_ITERS 0, 3 and 16: no
+    candidate state repeats in a window (with and without blocks at
+    diagonal 0 whose state spreads), a state handed on over assigned
+    blocks across a tile's edge, windows at and past the clips."""
+    monkeypatch.setattr(tav, 'EXT_ITERS', iters)
+    codes = v2_genomes(7, Lp - 700)
+    b = v2_arena(codes, Lp, tav._pack_bits(Lp), 16, cuda_device)
+    lens = torch.tensor([len(c) for c in codes], dtype=torch.int32)
+    r_rows = torch.tensor([0, 3], dtype=torch.int32)
+    q_rows = torch.tensor([[0, 1, 2, 7], [3, 0, 4, 6]], dtype=torch.int32)
+    rows = tuple(x.to(cuda_device) for x in (
+        r_rows, lens[r_rows.long()], q_rows, lens[q_rows.long()]))
+    NBF = Lp // 32
+    A, S, D = {
+        'distinct': lambda: distinct_election(NBF, 2, 4, Lp),
+        'distinct_c0': lambda: distinct_election(NBF, 2, 4, Lp, c0=200),
+        'relay': lambda: relay_election(NBF, 2, 4, 124),
+        'clipped': lambda: clipped_election(NBF, 2, 4, Lp, 5)}[kind]()
+    got = _k7_matches(cuda_device, b, rows, A, S, D, Lp)
+    if iters and kind != 'distinct':
+        assert (got[5].cpu() != D).any()             # something adopted
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('c0,iters', [(60, 3), (61, 3), (118, 3), (78, 16),
+                                      (79, 16), (110, 16)])
+@pytest.mark.parametrize('kind', ['chain', 'relay'])
+def test_k7_state_across_64_block_tile_edge(cuda_device, monkeypatch, c0,
+                                            iters, kind):
+    """A state handed on block by block across the edges between the
+    kernel's tiles of 64 blocks (tile t >= 1 writes from 64 - EXT_ITERS +
+    (t - 1)(63 - 2 EXT_ITERS): 61 and 118 at EXT_ITERS 3, 79 and 110 at
+    16), over unassigned blocks (chain) or over assigned ones at other
+    diagonals (relay), on the reference against itself and its mutant
+    (away from the mutant's N run)."""
+    monkeypatch.setattr(tav, 'EXT_ITERS', iters)
+    Lp = 16384
+    codes = v2_genomes(7, Lp - 700)
+    b = v2_arena(codes, Lp, 32, 16, cuda_device)
+    lens = torch.tensor([len(c) for c in codes], dtype=torch.int32)
+    r_rows = torch.tensor([0], dtype=torch.int32)
+    q_rows = torch.tensor([[0, 1]], dtype=torch.int32)
+    rows = tuple(x.to(cuda_device) for x in (
+        r_rows, lens[r_rows.long()], q_rows, lens[q_rows.long()]))
+    NBF = Lp // 32
+    A, S, D = (chain_election(q_rows, NBF, c0) if kind == 'chain' else
+               relay_election(NBF, 1, 2, c0))
+    got = _k7_matches(cuda_device, b, rows, A, S, D, Lp)
+    assert (got[5][0, :, c0 - iters:c0 + iters + 1] == 0).all()
+    assert got[3][0, :, c0 - iters:c0 + iters + 1].all()
+
+
+@pytest.mark.gpu
+def test_k7_wrapper_raises_on_misaligned_rows(cuda_device):
+    """On the card K7's wrapper raises, and neither launches nor falls
+    back to the plain version, where the window rows are 4-byte but not
+    16-byte aligned (the kernel reads them 16 bytes at a time)."""
+    b, rows = _v2_inputs(cuda_device, 4096, 32, 8, R=2, K=4)
+    A, S, D = (x.to(cuda_device) for x in random_election(3, 2, 4, 128,
+                                                          4096))
+    r2 = b['r2dov']
+    shifted = torch.empty(r2.numel() + 4, dtype=torch.int8,
+                          device=cuda_device)[4:].view(r2.shape)
+    shifted.copy_(r2)
+    before = tav._propagate_v2.launches
+    with pytest.raises(ValueError, match='16-byte'):
+        tav._propagate_v2(dict(b, r2dov=shifted), *rows, A, S, D, Lr=4096)
+    assert tav._propagate_v2.launches == before
 
 
 def _hybrid_codes(seed=4):

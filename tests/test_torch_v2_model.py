@@ -21,14 +21,19 @@ directories (s up to 64), the lanes and their shuffles on every coarse
 block at once, and the two together.
 
 K7 (`propagate_v2_kernel`): a warp takes a tile of T blocks of one pair,
-EXT_ITERS + 1 blocks of halo on its left and EXT_ITERS on its right; each
-block's match masks at the initial states of the initially assigned
-blocks of [i - EXT_ITERS - 1, i + EXT_ITERS] are evaluated before the
-first step, the steps carry each block's source block, and m1 and m0 are
-the masks of the block's and the previous block's final sources. The
-model runs tiles of 8 to 128 blocks (edges all over the pairs) and asserts
-that every source a step or a flag reads lies in the table and was
-assigned from the start.
+EXT_ITERS + 1 blocks of halo on its left and EXT_ITERS on its right.
+`k7_model` is the kernel's first design: each block's match masks at the
+initial states of the initially assigned blocks of [i - EXT_ITERS - 1,
+i + EXT_ITERS] evaluated before the first step, the steps carrying each
+block's source block; it asserts that every source a step or a flag reads
+lies in that window and was assigned from the start, which the present
+design rests on. `k7_lazy_model` is the present design: each assigned
+block's own mask; a state carries the first block of its run of one
+state; before every step from the block before, the masks at both
+neighbours' current states that the table lacks, listed and evaluated;
+the masks built from the window's aligned 16-byte pieces, bits
+transposed; two steps without an adoption end the steps. Both run tiles
+of 8 to 128 blocks (edges all over the pairs).
 
 Inputs from tests/v2_cases.py (seeded numpy and the port's v2 index);
 every output is an integer or a flag, so the tolerance is 0. No JAX
@@ -43,8 +48,9 @@ import torch
 
 sys.path.insert(0, '.')
 
-from v2_cases import (CRAFTED, chain_election, crafted_case,  # noqa: E402
-                      election_case, v2_arena, v2_genomes, v2_rows,
+from v2_cases import (CRAFTED, chain_election, clipped_election,  # noqa
+                      crafted_case, distinct_election, election_case,
+                      relay_election, v2_arena, v2_genomes, v2_rows,
                       votes_case)
 from vclust_tpu_torch.ops import align_gpu as ag  # noqa: E402
 
@@ -685,3 +691,326 @@ def test_k7_chain_across_tile_edge(monkeypatch, Lp, c0, tile):
     got = _k7_check(monkeypatch, b, rows, A, S, D, Lp, (iters, 17, 4), tile)
     assert got[3][0, :, c0 - iters:c0 + iters + 1].all()
     assert int(got[3].sum()) == 2 * (2 * iters + 1)
+
+
+# --------------------------------------------------------------------------
+# K7 as the kernel forms it: own masks, masks listed when first needed,
+# 16-byte pieces
+# --------------------------------------------------------------------------
+
+M32 = 0xFFFFFFFF
+
+
+def range_t(lo, hi):
+    """The transposed bits (8 j + k is position 4 k + j) of positions
+    [lo, hi), as the kernel's k7_range forms them."""
+    m = np.zeros(np.shape(lo), np.int64)
+    for j in range(4):
+        k0 = (lo - j + 3) >> 2
+        k1 = (hi - j + 3) >> 2
+        m |= (((1 << k1) - 1) & ~((1 << k0) - 1) & 0xFF) << (8 * j)
+    return m
+
+
+def masks_16b(b, q_row, r_row, qlen, rlen, Lr, f, d, s):
+    """Transposed match masks of blocks f at states (d, s), as k7_mask
+    forms them: the window's 2 or 3 aligned 16-byte pieces of its 64-byte
+    row (asserted inside the row), the words selected by bits 1 and 0 of
+    the word offset, funnel-shifted to the phase, a byte equal where
+    (r ^ q') + 0x7F7F7F7F clears its top bit (q' = q, N made 0x44), the
+    positions kept clipped to the reference and the query."""
+    r2 = b['r2dov'].numpy()
+    fwd = b['fwd'].numpy()
+    NRT = r2.shape[1] // 2
+    f, d, s = (np.asarray(x, np.int64) for x in (f, d, s))
+    start = f * FINE + d
+    sc = np.clip(start, -FINE, Lr - 1)
+    t_lo = np.maximum(0, -start)
+    t_hi = np.minimum(FINE, np.minimum(rlen - start, qlen - f * FINE))
+    keep = (start == sc) & (t_hi > t_lo)
+    row = (sc + FINE) >> 5
+    phase = sc + FINE - (row << 5)
+    c0 = phase >> 4
+    three = (phase & 15) != 0
+    assert (c0 + np.where(three, 2, 1) <= 3).all()
+    rows = r2[r_row, row + np.where(s, NRT, 0)]            # (n, 64) int8
+    pieces = np.zeros((len(f), 48), np.uint8)
+    for p in range(3):
+        c = np.minimum(c0 + p, 3)
+        got = np.take_along_axis(rows.view(np.uint8),
+                                 (16 * c)[:, None] + np.arange(16), 1)
+        pieces[:, 16 * p:16 * p + 16] = np.where(
+            (p < 2) | three[:, None], got, 0)
+    w = pieces.view('<u4').astype(np.int64)                 # (n, 12)
+    wo = (phase >> 2) & 3
+    v = np.where((wo & 2)[:, None] != 0, w[:, 2:12], w[:, 0:10])
+    u = np.where((wo & 1)[:, None] != 0, v[:, 1:10], v[:, 0:9])
+    sh = 8 * (phase & 3)
+    q = fwd[q_row, f[:, None] * FINE + np.arange(FINE)].astype(np.uint8)
+    qw = q.copy().view('<u4').astype(np.int64)              # (n, 8)
+    qx = qw | ((qw & 0x04040404) << 4)
+    m = np.zeros(len(f), np.int64)
+    for k in range(8):     # a left shift's wrap leaves the low 32 bits
+        r = (u[:, k] >> sh | u[:, k + 1] << (32 - sh)) & M32
+        y = ((r ^ qx[:, k]) + 0x7F7F7F7F) & M32
+        m |= ((~y & M32) >> (7 - k)) & (0x01010101 << k)
+    part = (t_lo > 0) | (t_hi < FINE)
+    m = np.where(part, m & range_t(np.where(keep, t_lo, 0),
+                                   np.where(keep, t_hi, 1)), m)
+    return np.where(keep, m, 0)
+
+
+def untranspose(m):
+    """Flags (..., 32) of transposed masks: position 4 k + j is bit
+    8 j + k."""
+    p = np.arange(FINE)
+    return ((m[..., None] >> (8 * (p % 4) + p // 4)) & 1) == 1
+
+
+def k7_lazy_model(b, rows, A, S, D, Lr, iters, ext_min, ext_margin,
+                  tile=128):
+    """K7's outputs as the redesigned kernel forms them, tile by tile:
+    each assigned block's own mask; runs of one state (a state carries its
+    run's first block); before every step from the block before (the
+    first, the third, ...), the masks at both neighbours' current states
+    that the table lacks, listed and evaluated (asserted: each at its
+    neighbour's state, in a slot of [0, 2 EXT_ITERS + 2)), which covers
+    that step and the next; the steps stopped after two without an
+    adoption; the masks at the previous blocks' final states where they
+    are switchable. Every mask the steps and flags read is asserted to be
+    the block's own or in the table. Returns the nine outputs and the
+    number of masks evaluated beyond the own ones."""
+    r_rows, rlens, q_rows, qlens = (x.numpy() for x in rows)
+    R, K, NBF = A.shape
+    N = R * K
+    A0, S0, D0 = (x.numpy().reshape(N, NBF) for x in (A, S, D))
+    E, Cn = iters, 2 * iters + 2
+    out = tile - 2 * E - 1
+    assert out >= 1
+    tiles = 1 + -(-max(NBF - tile, 0) // out)
+    res = {k: np.zeros((N, NBF), dt) for k, dt in (
+        ('sw', bool), ('A', bool), ('S', bool), ('D', np.int32),
+        ('Ap', bool), ('Sp', bool), ('Dp', np.int32))}
+    m1 = np.zeros((N, NBF), np.int64)
+    m0 = np.zeros((N, NBF), np.int64)
+    i = np.arange(tile)
+    tasks = 0
+    for n in range(N):
+        r = n // K
+        ctx = (q_rows.reshape(-1)[n], r_rows[r], qlens.reshape(-1)[n],
+               rlens[r], Lr)
+        for t in range(tiles):
+            o_t = tile - E + (t - 1) * out if t else 0
+            f_lo = o_t - (E + 1) if t else 0
+            f_end = NBF if f_lo + tile >= NBF else f_lo + tile - E
+            f = f_lo + i
+            real = f < NBF
+            fc = np.minimum(f, NBF - 1)
+            d0 = np.where(real, D0[n, fc], 0)
+            s0 = real & S0[n, fc]
+            a0 = real & A0[n, fc]
+            own = np.zeros(tile, np.int64)
+            own[a0] = masks_16b(b, *ctx, f[a0], d0[a0], s0[a0])
+            cont = np.zeros(tile, bool)
+            cont[1:] = a0[:-1] & a0[1:] & (d0[1:] == d0[:-1]) & (
+                s0[1:] == s0[:-1])
+            start = a0 & ~cont
+            src = np.maximum.accumulate(np.where(start, i, 0))
+            d, s, a = d0.copy(), s0.copy(), a0.copy()
+            cc = np.where(a0, _popc(own), -1)
+            tab = np.zeros((Cn, tile), np.int64)
+            done = np.zeros((Cn, tile), bool)
+
+            def slot(g):
+                return np.maximum(g, i - E - 1) - (i - E - 1)
+
+            def neighbours(after):
+                k = 1 if after else -1
+                nd, ns, na, ng = (np.roll(x, -k) for x in (d, s, a, src))
+                edge = tile - 1 if after else 0
+                nd[edge], ns[edge], na[edge], ng[edge] = 0, False, False, 0
+                return nd, ns, na, ng
+
+            def own_state(nd, ns):
+                return a0 & (nd == d0) & (ns == s0)
+
+            def evaluate(want, nd, ns, ng):
+                c = slot(ng)
+                w = np.flatnonzero(want)
+                assert ((c[w] >= 0) & (c[w] < Cn)).all()
+                assert not done[c[w], w].any()
+                g = ng[w]
+                assert (d0[g] == nd[w]).all() and (s0[g] == ns[w]).all()
+                assert a0[g].all()
+                tab[c[w], w] = masks_16b(b, *ctx, f[w], d0[g], s0[g])
+                done[c[w], w] = True
+                return len(w)
+
+            def lookup(use, nd, ns, ng):
+                mine = own_state(nd, ns)
+                c = np.clip(slot(ng), 0, Cn - 1)
+                assert (mine | done[c, i] | ~use).all()
+                return np.where(mine, own, tab[c, i])
+
+            def need_of(nd, ns, na):
+                return real & na & ~((cc >= 0) & (nd == d) & (ns == s))
+
+            quiet = 0
+            for step in range(2 * E):
+                if quiet == 2:
+                    break
+                if step % 2 == 0:      # before a step from the block before
+                    for after in (False, True):
+                        nd, ns, na, ng = neighbours(after)
+                        want = need_of(nd, ns, na) & ~own_state(nd, ns)
+                        want &= ~done[np.clip(slot(ng), 0, Cn - 1), i]
+                        tasks += evaluate(want, nd, ns, ng)
+                nd, ns, na, ng = neighbours(step & 1)
+                need = need_of(nd, ns, na)
+                cn = np.where(need, _popc(lookup(need, nd, ns, ng)), -1)
+                better = need & (cn >= ext_min) & (cn > cc + ext_margin)
+                d = np.where(better, nd, d)
+                s = np.where(better, ns, s)
+                src = np.where(better, ng, src)
+                a |= better
+                cc = np.where(better, cn, cc)
+                quiet = 0 if better.any() else quiet + 1
+            dp, sp, ap, gp = neighbours(False)
+            sw = a & ap & ((d != dp) | (s != sp))
+            want = sw & ~own_state(dp, sp)
+            want &= ~done[np.clip(slot(gp), 0, Cn - 1), i]
+            tasks += evaluate(want, dp, sp, gp)
+            w1 = np.where(a, lookup(a, d, s, src), 0)
+            w0 = np.where(sw, lookup(sw, dp, sp, gp), 0)
+            keep = slice(o_t - f_lo, f_end - f_lo)
+            fo = f[keep]
+            for k, x in (('D', d), ('S', s), ('A', a), ('Dp', dp),
+                         ('Sp', sp), ('Ap', ap), ('sw', sw)):
+                res[k][n, fo] = x[keep]
+            m1[n, fo], m0[n, fo] = w1[keep], w0[keep]
+    shape = (R, K, NBF)
+    return ((untranspose(m1).reshape(R, K, NBF * FINE),
+             untranspose(m0).reshape(R, K, NBF * FINE),
+             *(res[k].reshape(shape) for k in ('sw', 'A', 'S', 'D', 'Ap',
+                                                'Sp', 'Dp'))), tasks)
+
+
+def _k7_lazy_check(monkeypatch, b, rows, A, S, D, Lr, knobs, tile=128):
+    for name, v in zip(('EXT_ITERS', 'EXT_MIN', 'EXT_MARGIN'), knobs):
+        monkeypatch.setattr(ag, name, v)
+    r_rows, rlens, q_rows, qlens = rows
+    want = ag.propagate_v2_plain(b, r_rows, rlens, q_rows, qlens, A, S, D,
+                                 Lr=Lr)
+    got, tasks = k7_lazy_model(b, rows, A, S, D, Lr, *knobs, tile)
+    for g, w in zip(got, want):
+        assert g.dtype == w.numpy().dtype and np.array_equal(g, w.numpy())
+    return got, tasks
+
+
+def test_k7_masks_from_16_byte_pieces():
+    """k7_mask's transposed masks from the aligned pieces == the plain
+    flags of `_eval_on` (block_masks), at every phase, both strands, query
+    N and windows clipped at -32 and past Lr - 1 and at the reference's and
+    the query's ends (also lengths short of the arena's bases, where only
+    the clip to them leaves a position out)."""
+    Lp = 4096
+    codes = v2_genomes(11, Lp - 700)
+    b = v2_arena(codes, Lp, 32, 16)
+    rng = np.random.default_rng(12)
+    NBF = Lp // FINE
+    hits = 0
+    for q_row, r_row, cut in ((0, 0, 0), (1, 0, 0), (2, 3, 0), (6, 5, 0),
+                              (0, 6, 0), (1, 0, 45), (0, 0, 1000)):
+        qlen, rlen = len(codes[q_row]) - cut, len(codes[r_row]) - cut // 3
+        f = rng.integers(0, NBF, 4000)
+        d = np.concatenate([rng.integers(-40, 40, 2000),
+                            rng.integers(-Lp, Lp, 1900),
+                            -FINE * f[3900:3950] - 32,
+                            -FINE * f[3950:] + Lp - 1])
+        d[:64] = np.arange(64) - 32                    # every phase
+        s = rng.random(4000) < 0.5
+        got = untranspose(masks_16b(b, q_row, r_row, qlen, rlen, Lp, f, d,
+                                    s))
+        want = (block_masks(b, q_row, r_row, qlen, rlen, Lp, f, d, s)[
+            :, None] >> np.arange(FINE)) & 1 == 1
+        assert np.array_equal(got, want)
+        hits += int(got.sum())
+    assert hits > 10000
+
+
+@pytest.mark.parametrize('Lp,knobs,tile', [
+    (4096, (3, 17, 4), 64), (4096, (0, 17, 4), 8), (4096, (3, 17, 4), 16),
+    (4096, (16, 17, 4), 40), (6144, (16, 12, 0), 128),
+    (6144, (5, 20, 8), 24)])
+def test_k7_lazy_matches_plain(monkeypatch, Lp, knobs, tile):
+    """The redesigned K7 (own masks, masks at a neighbour's state listed
+    when first needed, 16-byte pieces, two quiet steps stop) ==
+    propagate_v2_plain, every output, on elections of the index genomes
+    with blocks unassigned, diagonals moved and windows clipped; every mask
+    read was evaluated first (asserted inside the model)."""
+    codes = v2_genomes(7, Lp - 700)
+    b = v2_arena(codes, Lp, 32, 16)
+    rows = v2_rows(codes, 8, 2, 4, refs=(0, 3))
+    A, S, D = election_case(b, rows, Lp, Lp, 16, 9)
+    got, tasks = _k7_lazy_check(monkeypatch, b, rows, A, S, D, Lp, knobs,
+                                tile)
+    assert tasks > 0
+    if knobs[0]:
+        assert (got[3] & ~A.numpy()).any()            # something adopted
+
+
+def _crafted_rows(Lp):
+    codes = v2_genomes(7, Lp - 700)
+    b = v2_arena(codes, Lp, 32, 16)
+    lens = torch.tensor([len(c) for c in codes], dtype=torch.int32)
+    r_rows = torch.tensor([0, 3], dtype=torch.int32)
+    q_rows = torch.tensor([[0, 1, 2, 7], [3, 0, 4, 6]], dtype=torch.int32)
+    return b, (r_rows, lens[r_rows.long()], q_rows, lens[q_rows.long()])
+
+
+@pytest.mark.parametrize('iters', [0, 3, 16])
+@pytest.mark.parametrize('kind', ['distinct', 'distinct_c0', 'relay',
+                                  'clipped', 'chain'])
+def test_k7_lazy_crafted_elections(monkeypatch, kind, iters):
+    """The redesigned K7 == propagate_v2_plain on crafted elections, at
+    EXT_ITERS 0, 3 and 16: every block's neighbours at other states (no
+    candidate repeats; with blocks at diagonal 0 whose state spreads), a
+    state handed on over assigned blocks (each adopts it a step after its
+    neighbour did), windows at and past the clips, and one assigned block
+    whose state spreads over unassigned ones."""
+    Lp = 4096
+    NBF = Lp // FINE
+    b, rows = _crafted_rows(Lp)
+    R, K = rows[2].shape
+    A, S, D = {
+        'distinct': lambda: distinct_election(NBF, R, K, Lp),
+        'distinct_c0': lambda: distinct_election(NBF, R, K, Lp, c0=60),
+        'relay': lambda: relay_election(NBF, R, K, 70),
+        'clipped': lambda: clipped_election(NBF, R, K, Lp, 5),
+        'chain': lambda: chain_election(rows[2], NBF, 50)}[kind]()
+    got, tasks = _k7_lazy_check(monkeypatch, b, rows, A, S, D, Lp,
+                                (iters, 17, 4))
+    f = np.arange(NBF)
+    if kind == 'relay' and iters:           # pair (0, 0): the self pair
+        assert (got[5][0, 0, 70 - iters:71 + iters] == 0).all()
+        assert (got[5][0, 0, 71 + iters:] == 3 + f[71 + iters:] % 5).all()
+    if kind == 'clipped':
+        start = f * FINE + D.numpy()
+        assert (start == -33).any() and (start == Lp).any()
+        assert (start == -32).any() and (start == Lp - 1).any()
+    if kind != 'chain':
+        assert tasks > 0
+
+
+def test_k7_lazy_collinear_needs_no_tasks(monkeypatch):
+    """Where every block of a pair is assigned at one state, no mask
+    beyond the own ones is evaluated and the steps stop after two."""
+    Lp = 4096
+    b, rows = _crafted_rows(Lp)
+    shape = tuple(rows[2].shape) + (Lp // FINE,)
+    A = torch.ones(shape, dtype=torch.bool)
+    S = torch.zeros(shape, dtype=torch.bool)
+    D = torch.zeros(shape, dtype=torch.int32)
+    got, tasks = _k7_lazy_check(monkeypatch, b, rows, A, S, D, Lp,
+                                (3, 17, 4))
+    assert tasks == 0 and not got[2].any()

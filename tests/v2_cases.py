@@ -275,3 +275,55 @@ def chain_election(q_rows, NBF, c0):
     A[..., c0] = True
     return (torch.from_numpy(A), torch.zeros((R, K, NBF), dtype=torch.bool),
             torch.zeros((R, K, NBF), dtype=torch.int32))
+
+
+def distinct_election(NBF, R, K, Lr, c0=None):
+    """K7's election where every block is assigned and no two blocks of
+    any 35 in a row share a state (diagonal 3 + 5 (f mod 7) on the forward
+    strand where f mod 5 is even, else diagonal 1 - 4 (f mod 7) reversed),
+    so no window of candidates repeats one; with c0, blocks c0 of every
+    pair and its neighbours at diagonal 0 forward (its own and its
+    neighbours' match the self and mutant pairs best)."""
+    f = np.arange(NBF)
+    rev = (f % 5) % 2 == 1
+    D = np.where(rev, 1 - 4 * (f % 7) - 40 * (f % 5), 3 + 5 * (f % 7)
+                 + 50 * (f % 5))
+    if c0 is not None:
+        D[max(c0 - 1, 0):c0 + 2] = 0
+        rev[max(c0 - 1, 0):c0 + 2] = False
+    shape = (R, K, NBF)
+    return (torch.ones(shape, dtype=torch.bool),
+            torch.from_numpy(np.tile(rev, shape[:2] + (1,))),
+            torch.from_numpy(np.tile(D.astype(np.int32), shape[:2] + (1,))))
+
+
+def relay_election(NBF, R, K, c0):
+    """K7's election where every block is assigned, each at another
+    diagonal than its neighbours (3 + f mod 5, forward), block c0 of every
+    pair at diagonal 0: on the self and mutant pairs each step hands the
+    state at 0 on to the next block, which adopts it a step after its
+    neighbour did (over assigned blocks, not empty ones)."""
+    f = np.arange(NBF)
+    D = 3 + f % 5
+    D[c0] = 0
+    shape = (R, K, NBF)
+    return (torch.ones(shape, dtype=torch.bool),
+            torch.zeros(shape, dtype=torch.bool),
+            torch.from_numpy(np.tile(D.astype(np.int32), shape[:2] + (1,))))
+
+
+def clipped_election(NBF, R, K, Lr, seed):
+    """K7's election of windows at and past the clips: in every tenth
+    block starts at -32 (kept), -33 (clipped), Lr - 1 (kept) and Lr
+    (clipped), on either strand, the other blocks at diagonal 0 forward or
+    unassigned (the clipped blocks adopt their neighbours' state)."""
+    rng = np.random.default_rng(seed)
+    shape = (R, K, NBF)
+    f = np.arange(NBF)
+    starts = np.array([-32, -33, Lr - 1, Lr])
+    at = f % 10 == 3
+    D = np.where(at, starts[rng.integers(0, 4, shape)] - FINE * f, 0)
+    A = at | (rng.random(shape) < 0.8)
+    S = at & (rng.random(shape) < 0.3)
+    return (torch.from_numpy(A), torch.from_numpy(S),
+            torch.from_numpy(D.astype(np.int32)))

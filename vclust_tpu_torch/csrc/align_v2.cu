@@ -85,19 +85,36 @@
 // every step; they are the flags at the final state, formed once here.
 // What bounds it, and what the design does about it:
 //   * Bytes: m1 and m0 written (2 bytes a query position, 47 MB at B = 45),
-//     the query bases and the reference window rows read once.
-//   * Design: K5's (csrc/align_v3.cu): a warp a tile of 128 blocks of one
-//     pair, with EXT_ITERS + 1 blocks of halo on the left and EXT_ITERS on
-//     the right, so tiles never wait on each other; blocks lane + 32 j.
-//     Up front the warp evaluates, for each block, the match mask (32
-//     bits) at the initial state of every initially assigned block of
-//     g in [i - EXT_ITERS - 1, i + EXT_ITERS] (runs of one state once):
-//     the block's own final state and the previous block's lie there. A
-//     mask is 8 compares of 4 bytes (__vcmpeq4) of the tile's query bases,
-//     staged in shared memory, against a window row's words funnel-shifted
-//     to the diagonal's phase. The steps exchange states by shuffles and
-//     read counts as population counts of the masks; the flags are the
-//     masks of the final sources, written 16 bytes a lane.
+//     the states and the election, the query bases and the reference
+//     window rows read once. Beside them, the masks the steps compare: a
+//     block's 32 bases against a window of the reference, at its own state
+//     and at the neighbours' states that reach it. The rest is latency: a
+//     list of masks waits on its window loads.
+//   * Tiles as K5's (csrc/align_v3.cu), of 64 blocks of one pair (2 a
+//     lane, lane + 32 j), with EXT_ITERS + 1 blocks of halo on the left
+//     and EXT_ITERS on the right, so tiles never wait on each other; one
+//     wave of CTAs of 4 warps, each warp taking tiles in turn, the next
+//     tile's states loaded while it works on this one. Tiles of 128 held
+//     more registers than 80 and spilled (tools/k6_probe.py).
+//   * Only the masks that are read, every lane busy. Each assigned block's
+//     mask at its own state (its m1 unless it adopts) comes first, its
+//     loads issued at once with the tile's query bases, which are staged
+//     in shared memory. A state reaches block i only from the initially
+//     assigned blocks of [i - EXT_ITERS - 1, i + EXT_ITERS]; a run of one
+//     state gives one mask, kept at the slot of the run's first block (or
+//     of the window's first, where the run starts before it). Before every
+//     step from the block before, the masks at both neighbours' current
+//     states that the table lacks are listed over the warp by ballots and
+//     evaluated 32 at a time: they cover that step and the next, since a
+//     neighbour that moves in between takes the block's own state. Two
+//     steps without an adoption end the steps.
+//   * A mask: the window's 2 or 3 aligned 16-byte pieces of the 64-byte
+//     row, the words selected and funnel-shifted to the phase, a byte
+//     equality as a carry-free add (codes 0-4, a query N made 0x44), the
+//     bits kept transposed (bit 8 j + k is position 4 k + j), so that a
+//     flag word of 4 bytes is a shift and a mask.
+//   * The table: c-major in shared memory, a slot a lane's own block, so
+//     the steps' reads hit 32 banks.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -542,11 +559,11 @@ __global__ void __launch_bounds__(K6_WARPS * 32, SPL <= 2 ? 2 : 1)
 }
 
 // ---- K7 ------------------------------------------------------------------
-constexpr int K7_WARPS = 4;               // warps a CTA, a tile each
-constexpr int K7_BPT = 4;                 // blocks a lane: lane + 32 j
+constexpr int K7_WARPS = 4;               // warps a CTA, each a tile at a time
+constexpr int K7_MIN_CTAS = 6;            // CTAs an SM the registers allow
+constexpr int K7_BPT = 2;                 // blocks a lane: lane + 32 j
 constexpr int K7_TILE = 32 * K7_BPT;      // blocks a tile holds, halo included
 constexpr int K7_MAX_ITERS = 16;          // VCLUST_ALIGN_EXTI's range
-constexpr int K7_GATHER = 4;              // masks a lane evaluates at once
 
 struct V2PropArgs {
   const int8_t* q;                  // (Gq, Lq) query codes
@@ -562,243 +579,449 @@ struct V2PropArgs {
   int32_t* Dp;
 };
 
-// Shared memory of a warp, by tile index: the query bases (32 bytes a
-// block), the initial diagonals, the flag masks (m1's, then m0's), the
-// initial strands (bit 0; bit 1 marks a block outside the pair, bit 2 an
-// assigned one) and the mask table, 2 EXT_ITERS + 2 words a block.
-constexpr int K7_AT_D0 = 32 * K7_TILE, K7_AT_M = 36 * K7_TILE,
-              K7_AT_S0 = 44 * K7_TILE, K7_AT_TAB = 45 * K7_TILE;
+// Shared memory of a warp: the mask table, c-major (slot c of tile block i
+// at tab[c * K7_TILE + i], so that lanes reading a slot each of their own
+// blocks hit 32 banks), 2 EXT_ITERS + 2 slots; the tile's query bases (the
+// first 16 of every block, then the last 16); its initial diagonals and
+// strands; the task list, 2 entries a block of 16 bits.
+__host__ __device__ constexpr int k7_tab_bytes(int iters) {
+  return 4 * K7_TILE * (2 * iters + 2);
+}
 __host__ __device__ constexpr int k7_warp_bytes(int iters) {
-  return (K7_AT_TAB + 4 * K7_TILE * (2 * iters + 2) + 15) / 16 * 16;
+  return k7_tab_bytes(iters) + 32 * K7_TILE + 5 * K7_TILE + 2 * 2 * K7_TILE;
 }
 
-// A block's state in a register: its source block in the tile (bits 0-7),
-// strand (bit 8), assigned (bit 9); the diagonal beside it.
+// A block's state in a register: the first block of the run of its state's
+// source (bits 0-7, a tile index), strand (bit 8), assigned (bit 9); the
+// diagonal beside it.
 constexpr uint32_t K7_SRC = 255u, K7_STRAND = 256u, K7_ASG = 512u;
 
-// Bits t of the mask: query base t of block f (q: its 32 bases as words)
-// is a base equal to the reference base on strand s at diagonal d, inside
-// the reference and the query; 0 where the window start was clipped.
-__device__ __forceinline__ uint32_t block_mask(const V2PropArgs& a,
-                                               const int8_t* rrow,
-                                               const uint32_t* q, int f,
-                                               int d, int s, int rlen,
-                                               int qlen) {
+// A mask's bit 8 j + k is position 4 k + j of the block: the flag word k
+// (positions 4 k .. 4 k + 3, a byte each) is then (m >> k) & 0x01010101.
+// The bits of positions [lo, hi), 0 <= lo < hi <= 32.
+__device__ __forceinline__ uint32_t k7_range(int lo, int hi) {
+  uint32_t m = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int k0 = (lo - j + 3) >> 2, k1 = (hi - j + 3) >> 2;
+    m |= (((1u << k1) - 1u) & ~((1u << k0) - 1u) & 0xFFu) << (8 * j);
+  }
+  return m;
+}
+
+// The query bases of a block (32 codes, 0-4, as two 16-byte pieces) as 8
+// words with N (4) made 0x44: a byte of the XOR with a reference word is 0
+// exactly where the query base is 0-3 and equals the reference's, and at
+// most 0x47.
+__device__ __forceinline__ void k7_query(const uint4 (&q)[2],
+                                         uint32_t (&qx)[8]) {
+  const uint32_t w[8] = {q[0].x, q[0].y, q[0].z, q[0].w,
+                         q[1].x, q[1].y, q[1].z, q[1].w};
+#pragma unroll
+  for (int k = 0; k < 8; ++k) qx[k] = w[k] | (w[k] & 0x04040404u) << 4;
+}
+
+__device__ __forceinline__ void k7_load_query(const int8_t* qblock,
+                                              uint4 (&q)[2]) {
+  const uint4* p = reinterpret_cast<const uint4*>(qblock);
+  q[0] = __ldg(p);
+  q[1] = __ldg(p + 1);
+}
+
+// Block f's window at diagonal d on the strand whose window rows start at
+// rrow: position t counts where the reference base at f * 32 + t + d lies
+// inside the reference (rlen) and the query (qhi, its bases left in the
+// block), none where the window start was clipped to [-32, Lr - 1]. Its 32
+// bases lie in a 64-byte row at a phase of 0-31, read as the 2 or 3 aligned
+// 16-byte pieces that hold them (x, zeros where nothing counts).
+struct K7Win {
+  uint4 x[3];
+  int phase, t_lo, t_hi;
+};
+
+__device__ __forceinline__ K7Win k7_window(const int8_t* rrow, int f, int d,
+                                           int Lr, int rlen, int qhi,
+                                           bool want) {
+  K7Win w;
   const int start = f * FINE + d;
-  const int sc = min(max(start, -FINE), a.Lr - 1);
-  if (start != sc) return 0u;
-  const int row = (sc + FINE) >> 5, phase = sc + FINE - (row << 5);
-  const uint32_t* w = reinterpret_cast<const uint32_t*>(
-                          rrow + (size_t)(row + (s ? a.NRT : 0)) * 64) +
-                      (phase >> 2);
-  const int sh = 8 * (phase & 3);
-  uint32_t lo = __ldg(w), m = 0;
+  const int sc = min(max(start, -FINE), Lr - 1);
+  w.t_lo = max(0, -start);
+  w.t_hi = min(FINE, min(rlen - start, qhi));
+  const bool keep = want && start == sc && w.t_hi > w.t_lo;
+  const int row = (sc + FINE) >> 5;
+  w.phase = sc + FINE - (row << 5);
+  const uint4* p =
+      reinterpret_cast<const uint4*>(rrow + (size_t)row * 64) +
+      (w.phase >> 4);
+  const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+  w.x[0] = keep ? __ldg(p) : z;
+  w.x[1] = keep ? __ldg(p + 1) : z;
+  w.x[2] = keep && (w.phase & 15) ? __ldg(p + 2) : z;
+  if (!keep) w.t_hi = w.t_lo = 0;
+  return w;
+}
+
+// The block's match mask in its window (0 where nothing counts): the words
+// selected and funnel-shifted to the phase, a byte equality as a carry-free
+// add, the positions outside [t_lo, t_hi) cleared.
+__device__ __forceinline__ uint32_t k7_match(const K7Win& w,
+                                             const uint32_t (&qx)[8]) {
+  if (w.t_hi <= w.t_lo) return 0u;
+  const uint32_t x[12] = {w.x[0].x, w.x[0].y, w.x[0].z, w.x[0].w,
+                          w.x[1].x, w.x[1].y, w.x[1].z, w.x[1].w,
+                          w.x[2].x, w.x[2].y, w.x[2].z, w.x[2].w};
+  const int wo = (w.phase >> 2) & 3, sh = 8 * (w.phase & 3);
+  uint32_t v[10], u[9];
+#pragma unroll
+  for (int k = 0; k < 10; ++k) v[k] = wo & 2 ? x[k + 2] : x[k];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) u[k] = wo & 1 ? v[k + 1] : v[k];
+  uint32_t m = 0;
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
-    const uint32_t hi = __ldg(w + k + 1);   // word 15 of the row at most
-    const uint32_t e = __vcmpeq4(__funnelshift_r(lo, hi, sh), q[k]) &
-                       __vcmpltu4(q[k], 0x04040404u) & 0x01010101u;
-    m |= ((e | e >> 7 | e >> 14 | e >> 21) & 0xFu) << (4 * k);
-    lo = hi;
+    const uint32_t y = (__funnelshift_r(u[k], u[k + 1], sh) ^ qx[k]) +
+                       0x7F7F7F7Fu;
+    m |= (~y >> (7 - k)) & (0x01010101u << k);
   }
-  const int t_lo = max(0, -start);
-  const int t_hi = min(FINE, min(rlen - start, qlen - f * FINE));
-  if (t_hi <= t_lo) return 0u;
-  return m & (t_hi == FINE ? FULL : (1u << t_hi) - 1u) & (FULL << t_lo);
+  return w.t_lo > 0 || w.t_hi < FINE ? m & k7_range(w.t_lo, w.t_hi) : m;
 }
 
-// 4 bits as 4 bytes of 0 or 1.
-__device__ __forceinline__ uint32_t nibble_bytes(uint32_t x) {
-  return (x & 1u) | ((x & 2u) << 7) | ((x & 4u) << 14) | ((x & 8u) << 21);
+// A block's mask at another state than its own initial one lies in the
+// table, c-major, at the slot of that state's source run: the run's first
+// block, or block i - E - 1 where the run starts before it (a state reaches
+// block i or i + 1 only from [i - E - 1, i + E]); at its own initial state
+// it is the block's own mask.
+struct K7Tile {
+  uint32_t* tab;
+  uint16_t* list;                   // tasks: block i << 7 | source g
+  int E;
+  __device__ __forceinline__ int slot(int i, int g) const {
+    return max(g, i - E - 1) - (i - E - 1);
+  }
+  __device__ __forceinline__ bool own_state(bool own_asg, int d0, bool s0,
+                                            int d, uint32_t x) const {
+    return own_asg && d == d0 && ((x & K7_STRAND) != 0) == s0;
+  }
+  __device__ __forceinline__ uint32_t mask(int i, bool own_asg, int d0,
+                                           bool s0, uint32_t own, int d,
+                                           uint32_t x) const {
+    return own_state(own_asg, d0, s0, d, x)
+               ? own
+               : tab[slot(i, (int)(x & K7_SRC)) * K7_TILE + i];
+  }
+  // Whether block i (at state (d, mt), count cc) needs its mask at an
+  // assigned neighbour's state (nd, nm): not at its own current state,
+  // where the count could not beat its own; and whether the table lacks
+  // it (then its task entry, and the slot marked in done).
+  __device__ __forceinline__ void wanted(int i, bool real, bool own_asg,
+                                         int d0, bool s0, int cc, int d,
+                                         uint32_t mt, int nd, uint32_t nm,
+                                         uint64_t& done, bool& need,
+                                         bool& want,
+                                         uint16_t& entry) const {
+    need = real && (nm & K7_ASG) &&
+           !(cc >= 0 && nd == d && ((nm ^ mt) & K7_STRAND) == 0);
+    const int c = slot(i, (int)(nm & K7_SRC));
+    want = need && !own_state(own_asg, d0, s0, nd, nm) &&
+           !((done >> c) & 1ull);
+    if (want) done |= 1ull << c;
+    entry = (uint16_t)(i << 7 | (nm & K7_SRC));
+  }
+};
+
+// Appends each lane's wanted entries to the warp's task list, in order of
+// m, then lane; returns the list's length.
+template <int M>
+__device__ __forceinline__ int k7_list(uint16_t* list, const bool (&want)[M],
+                                       const uint16_t (&entry)[M],
+                                       int lane) {
+  int n = 0;
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    const uint32_t bal = __ballot_sync(FULL, want[m]);
+    if (want[m]) list[n + __popc(bal & ((1u << lane) - 1u))] = entry[m];
+    n += __popc(bal);
+  }
+  return n;
 }
 
-__device__ __forceinline__ uint4 bits_bytes(uint32_t b) {
-  return make_uint4(nibble_bytes(b & 15u), nibble_bytes((b >> 4) & 15u),
-                    nibble_bytes((b >> 8) & 15u),
-                    nibble_bytes((b >> 12) & 15u));
+__device__ __forceinline__ uint4 k7_flags(uint32_t m, int h) {
+  m >>= 4 * h;
+  return make_uint4(m & 0x01010101u, (m >> 1) & 0x01010101u,
+                    (m >> 2) & 0x01010101u, (m >> 3) & 0x01010101u);
 }
 
-__global__ void __launch_bounds__(K7_WARPS * 32)
+// The neighbours' states of a lane's blocks: of block i - 1 (lane - 1, or
+// lane 31 of j - 1) or of block i + 1 (lane + 1, or lane 0 of j + 1);
+// outside the tile unassigned (only the halo is then wrong).
+__device__ __forceinline__ void k7_neighbours(const int (&d)[K7_BPT],
+                                              const uint32_t (&mt)[K7_BPT],
+                                              bool after, int lane,
+                                              int (&nd)[K7_BPT],
+                                              uint32_t (&nm)[K7_BPT]) {
+  if (after) {
+#pragma unroll
+    for (int j = 0; j < K7_BPT; ++j) {
+      nd[j] = __shfl_down_sync(FULL, d[j], 1);
+      nm[j] = __shfl_down_sync(FULL, mt[j], 1);
+      const int wd = __shfl_sync(FULL, d[(j + 1) % K7_BPT], 0);
+      const uint32_t wm = __shfl_sync(FULL, mt[(j + 1) % K7_BPT], 0);
+      if (lane == 31) {
+        nd[j] = wd;
+        nm[j] = j + 1 < K7_BPT ? wm : 0u;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < K7_BPT; ++j) {
+      nd[j] = __shfl_up_sync(FULL, d[j], 1);
+      nm[j] = __shfl_up_sync(FULL, mt[j], 1);
+      const int wd = __shfl_sync(FULL, d[(j + K7_BPT - 1) % K7_BPT], 31);
+      const uint32_t wm = __shfl_sync(FULL, mt[(j + K7_BPT - 1) % K7_BPT], 31);
+      if (lane == 0) {
+        nd[j] = j ? wd : 0;
+        nm[j] = j ? wm : 0u;
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(K7_WARPS * 32, K7_MIN_CTAS)
 propagate_v2_kernel(V2PropArgs a) {
   extern __shared__ __align__(16) uint8_t k7_smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long unit = (long long)blockIdx.x * K7_WARPS + warp;
-  if (unit >= (long long)a.N * a.tiles) return;   // the whole warp leaves
-  const int E = a.iters, Cn = 2 * E + 2;
+  const int E = a.iters;
   uint8_t* mine = k7_smem + warp * k7_warp_bytes(E);
-  int32_t* d0s = reinterpret_cast<int32_t*>(mine + K7_AT_D0);
-  uint32_t* m1s = reinterpret_cast<uint32_t*>(mine + K7_AT_M);
-  uint32_t* m0s = m1s + K7_TILE;
-  uint8_t* s0s = mine + K7_AT_S0;
-  uint32_t* tab = reinterpret_cast<uint32_t*>(mine + K7_AT_TAB);
-  const int n = (int)(unit / a.tiles), t = (int)(unit % a.tiles);
-  // Tile t writes blocks o_t .. and holds blocks f_lo .. f_lo + K7_TILE - 1,
-  // as K5's tiles (csrc/align_v3.cu).
-  const int o_t = t ? K7_TILE - E + (t - 1) * a.out : 0;
-  const int f_lo = t ? o_t - (E + 1) : 0;   // the block at tile index 0
-  const int f_end = f_lo + K7_TILE >= a.NBF ? a.NBF : f_lo + K7_TILE - E;
-  const size_t row = (size_t)n * a.NBF;
-  const int r = n / a.K;
-  const int qlen = __ldg(a.qlens + n), rlen = __ldg(a.rlens + r);
-  const int8_t* rrow = a.r2dov + (size_t)__ldg(a.r_rows + r) * 2 * a.NRT * 64;
-  const int8_t* qrow =
-      a.q + ((size_t)__ldg(a.q_rows + n) * a.NBF + f_lo) * FINE;
-  const int r_lo = max(0, -f_lo), r_hi = min(K7_TILE, a.NBF - f_lo);
-
-  // 1. The tile's blocks, lane + 32 j in lane j: the initial state (blocks
-  //    outside the pair unassigned at (forward, 0)), and its query bases.
-  int d[K7_BPT], cc[K7_BPT];
-  uint32_t mt[K7_BPT];
-  unsigned real = 0;
-#pragma unroll
-  for (int j = 0; j < K7_BPT; ++j) {
-    const int i = lane + 32 * j, f = f_lo + i;
-    const bool in = f >= 0 && f < a.NBF;
-    const size_t o = row + (in ? f : 0);
-    real |= (unsigned)in << j;
-    d[j] = in ? __ldg(a.D0 + o) : 0;
-    const bool s0 = in && __ldg(a.S0 + o), a0 = in && __ldg(a.A0 + o);
-    mt[j] = (uint32_t)i | (s0 ? K7_STRAND : 0u) | (a0 ? K7_ASG : 0u);
-    d0s[i] = d[j];
-    s0s[i] = (uint8_t)((s0 ? 1u : 0u) | (in ? 0u : 2u) | (a0 ? 4u : 0u));
-  }
-  for (int u = 2 * r_lo + lane; u < 2 * r_hi; u += 32)
-    reinterpret_cast<uint4*>(mine)[u] =
-        __ldg(reinterpret_cast<const uint4*>(qrow) + u);
-  __syncwarp();
-
-  // 2. The mask table: tab[i * Cn + c] is block i's mask at the initial
-  //    state of block g = i - E - 1 + c where g was assigned from the
-  //    start (no other state reaches a neighbour as an assigned one, the
-  //    final state of block i lies at c >= 1 and that of block i - 1 at
-  //    c <= 2E). A candidate whose state equals the one before it takes
-  //    the first of its run's mask, in a second pass. cp lanes a block.
-  int cp = 1;
-  while (cp < Cn) cp <<= 1;
-  const int lg = __ffs(cp) - 1;
-  auto head_of = [&](int i, int c) {   // -1: no mask; else the run's first
-    const int g = i - E - 1 + c;
-    if (g < 0 || g >= K7_TILE || !(s0s[g] & 4)) return -1;
-    const int s = s0s[g] & 1, dg = d0s[g];
-    int h = c;
-    while (h > 0 && g - (c - h) - 1 >= 0 &&
-           (s0s[g - (c - h) - 1] & 5) == (4 | s) &&
-           d0s[g - (c - h) - 1] == dg)
-      --h;
-    return h;
+  uint4* qs = reinterpret_cast<uint4*>(mine + k7_tab_bytes(E));
+  int32_t* d0s = reinterpret_cast<int32_t*>(qs + 2 * K7_TILE);
+  uint8_t* s0s = reinterpret_cast<uint8_t*>(d0s + K7_TILE);
+  const K7Tile tile{reinterpret_cast<uint32_t*>(mine),
+                    reinterpret_cast<uint16_t*>(s0s + K7_TILE), E};
+  const long long units = (long long)a.N * a.tiles;
+  const long long stride = (long long)gridDim.x * K7_WARPS;
+  // A unit's tile: tile t of pair n writes blocks o_t .. and holds blocks
+  // f_lo .. f_lo + K7_TILE - 1, as K5's tiles (csrc/align_v3.cu); its
+  // blocks' initial states, lane + 32 j in lane j (blocks outside the pair
+  // unassigned at (forward, 0)), loaded a unit ahead.
+  struct Raw {
+    int n, o_t, f_lo, d0[K7_BPT];
+    uint8_t s0[K7_BPT], a0[K7_BPT];
   };
-  for (int t0 = r_lo * cp; t0 < r_hi * cp; t0 += 32 * K7_GATHER) {
+  auto fetch = [&](long long unit, Raw& x) {
+    x.n = (int)(unit / a.tiles);
+    const int t = (int)(unit % a.tiles);
+    x.o_t = t ? K7_TILE - E + (t - 1) * a.out : 0;
+    x.f_lo = t ? x.o_t - (E + 1) : 0;
 #pragma unroll
-    for (int u = 0; u < K7_GATHER; ++u) {
-      const int task = t0 + 32 * u + lane;
-      const int i = task >> lg, c = task & (cp - 1);
-      if (task >= r_hi * cp || c >= Cn) continue;
-      const int h = head_of(i, c);
-      if (h != c) {
-        if (h < 0) tab[i * Cn + c] = 0u;
-        continue;
-      }
-      const int g = i - E - 1 + c;
-      tab[i * Cn + c] = block_mask(
-          a, rrow, reinterpret_cast<const uint32_t*>(mine + i * FINE),
-          f_lo + i, d0s[g], s0s[g] & 1, rlen, qlen);
+    for (int j = 0; j < K7_BPT; ++j) {
+      const int f = x.f_lo + lane + 32 * j;
+      const bool in = f < a.NBF;
+      const size_t o = (size_t)x.n * a.NBF + (in ? f : 0);
+      x.d0[j] = in ? __ldg(a.D0 + o) : 0;
+      x.s0[j] = in ? __ldg(a.S0 + o) : 0;
+      x.a0[j] = in ? __ldg(a.A0 + o) : 0;
     }
-  }
-  __syncwarp();
-  for (int task = r_lo * cp + lane; task < r_hi * cp; task += 32) {
-    const int i = task >> lg, c = task & (cp - 1);
-    if (c >= Cn) continue;
-    const int h = head_of(i, c);
-    if (h >= 0 && h < c) tab[i * Cn + c] = tab[i * Cn + h];
-  }
-  __syncwarp();
-#pragma unroll
-  for (int j = 0; j < K7_BPT; ++j)
-    cc[j] = mt[j] & K7_ASG ? __popc(tab[(lane + 32 * j) * Cn + E + 1]) : -1;
+  };
+  long long unit = (long long)blockIdx.x * K7_WARPS + warp;
+  Raw next;
+  if (unit < units) fetch(unit, next);
+  for (; unit < units; unit += stride) {
+    const Raw cur = next;
+    if (unit + stride < units) fetch(unit + stride, next);
+    const int n = cur.n, o_t = cur.o_t, f_lo = cur.f_lo;
+    const int f_end = f_lo + K7_TILE >= a.NBF ? a.NBF : f_lo + K7_TILE - E;
+    const size_t row = (size_t)n * a.NBF;
+    const int r = n / a.K;
+    const int qlen = __ldg(a.qlens + n), rlen = __ldg(a.rlens + r);
+    const int8_t* rrow =
+        a.r2dov + (size_t)__ldg(a.r_rows + r) * 2 * a.NRT * 64;
+    const int8_t* qrow = a.q + (size_t)__ldg(a.q_rows + n) * a.NBF * FINE;
+    // Tile block i's mask at the initial state of tile block g.
+    auto mask_at = [&](int i, int g) {
+      const int f = f_lo + i;
+      const uint4 q[2] = {qs[i], qs[K7_TILE + i]};
+      const K7Win w = k7_window(rrow + (s0s[g] ? (size_t)a.NRT * 64 : 0), f,
+                                d0s[g], a.Lr, rlen, qlen - f * FINE, true);
+      uint32_t qx[8];
+      k7_query(q, qx);
+      return k7_match(w, qx);
+    };
+    // Evaluates the T listed tasks 32 at a time (every lane busy).
+    auto run = [&](int T) {
+      __syncwarp();
+      for (int k = lane; k < T; k += 32) {
+        const int e = tile.list[k], i = e >> 7, g = e & 127;
+        tile.tab[tile.slot(i, g) * K7_TILE + i] = mask_at(i, g);
+      }
+      __syncwarp();
+    };
+    __syncwarp();   // the last unit's table, list and states read
 
-  // 3. The steps, from the block before, then from the block after. A
-  //    neighbour's state is read from before the step; past the tile's
-  //    ends the neighbour counts as unassigned (only the halo is wrong).
-  for (int step = 0; step < 2 * E; ++step) {
-    int nd[K7_BPT];
-    uint32_t nm[K7_BPT];
-    if (step & 1) {            // block i + 1: lane + 1, or lane 0 of j + 1
+    // 1. The initial states and the query bases, staged; each assigned
+    //    block's mask at its own state (its m1 unless it adopts), every
+    //    load of them at once.
+    int d[K7_BPT], d0[K7_BPT], cc[K7_BPT];
+    uint32_t mt[K7_BPT], own[K7_BPT];
+    uint64_t done[K7_BPT];   // the table slots a block has
+    unsigned real = 0, asg0 = 0, str0 = 0;
+    uint4 q[K7_BPT][2];
+    K7Win w[K7_BPT];
 #pragma unroll
-      for (int j = 0; j < K7_BPT; ++j) {
-        nd[j] = __shfl_down_sync(FULL, d[j], 1);
-        nm[j] = __shfl_down_sync(FULL, mt[j], 1);
-        const int wd = __shfl_sync(FULL, d[(j + 1) % K7_BPT], 0);
-        const uint32_t wm = __shfl_sync(FULL, mt[(j + 1) % K7_BPT], 0);
-        if (lane == 31) {
-          nd[j] = wd;
-          nm[j] = j + 1 < K7_BPT ? wm : 0u;
-        }
-      }
-    } else {                   // block i - 1: lane - 1, or lane 31 of j - 1
-#pragma unroll
-      for (int j = 0; j < K7_BPT; ++j) {
-        nd[j] = __shfl_up_sync(FULL, d[j], 1);
-        nm[j] = __shfl_up_sync(FULL, mt[j], 1);
-        const int wd = __shfl_sync(FULL, d[(j + K7_BPT - 1) % K7_BPT], 31);
-        const uint32_t wm =
-            __shfl_sync(FULL, mt[(j + K7_BPT - 1) % K7_BPT], 31);
-        if (lane == 0) {
-          nd[j] = wd;
-          nm[j] = j ? wm : 0u;
-        }
-      }
+    for (int j = 0; j < K7_BPT; ++j) {
+      const int i = lane + 32 * j, f = f_lo + i;
+      const bool in = f < a.NBF;
+      d0[j] = cur.d0[j];
+      real |= (unsigned)in << j;
+      asg0 |= (unsigned)(cur.a0[j] != 0) << j;
+      str0 |= (unsigned)(cur.s0[j] != 0) << j;
+      d0s[i] = d0[j];
+      s0s[i] = (uint8_t)(cur.s0[j] != 0);
+      done[j] = 0;
+      q[j][0] = q[j][1] = make_uint4(0u, 0u, 0u, 0u);
+      if (in) k7_load_query(qrow + (size_t)f * FINE, q[j]);
+      w[j] = k7_window(rrow + (cur.s0[j] ? (size_t)a.NRT * 64 : 0), f, d0[j],
+                       a.Lr, rlen, qlen - f * FINE, cur.a0[j] != 0);
     }
 #pragma unroll
     for (int j = 0; j < K7_BPT; ++j) {
+      qs[lane + 32 * j] = q[j][0];
+      qs[K7_TILE + lane + 32 * j] = q[j][1];
+      uint32_t qx[8];
+      k7_query(q[j], qx);
+      own[j] = (asg0 >> j) & 1u ? k7_match(w[j], qx) : 0u;
+    }
+    __syncwarp();
+
+    // 2. Runs of one state: an assigned block whose previous block is not
+    //    assigned at its state starts one (tile index 0 too); a state word
+    //    carries its run's first block as its source.
+    const unsigned pa = __shfl_up_sync(FULL, asg0, 1);
+    const unsigned wa = __shfl_sync(FULL, asg0, 31);
+    int last = 0;   // the last run start before word j
+#pragma unroll
+    for (int j = 0; j < K7_BPT; ++j) {
       const int i = lane + 32 * j;
-      if (!((real >> j) & 1u) || !(nm[j] & K7_ASG)) continue;
-      const int cn = __popc(tab[i * Cn + (int)(nm[j] & K7_SRC) - i + E + 1]);
-      if (cn >= a.ext_min && cn > cc[j] + a.ext_margin) {
-        d[j] = nd[j];
-        mt[j] = (nm[j] & (K7_SRC | K7_STRAND)) | K7_ASG;
-        cc[j] = cn;
+      const bool a0 = (asg0 >> j) & 1u, s0 = (str0 >> j) & 1u;
+      const bool prev_a = lane ? (pa >> j) & 1u : j && ((wa >> (j - 1)) & 1u);
+      const bool cont = prev_a && d0s[i - 1] == d0[j] && s0s[i - 1] == s0;
+      const uint32_t as = __ballot_sync(FULL, a0 && !cont);
+      const uint32_t upto = as & (FULL >> (31 - lane));
+      const int h = upto ? 32 * j + 31 - __clz(upto) : last;
+      if (as) last = 32 * j + 31 - __clz(as);
+      d[j] = d0[j];
+      mt[j] = (uint32_t)h | (s0 ? K7_STRAND : 0u) | (a0 ? K7_ASG : 0u);
+      cc[j] = a0 ? __popc(own[j]) : -1;
+    }
+
+    // 3. The steps, from the block before, then from the block after, each
+    //    reading the neighbours' states from before it. A block needs a
+    //    mask at an assigned neighbour's state unless that is its own
+    //    current state (the count could not beat its own). Before every step
+    //    from the block before, the masks at both neighbours' current states
+    //    that the table lacks are listed over the warp and evaluated: they
+    //    cover that step and the next (a neighbour that moves in between
+    //    takes the block's own state, whose mask it has). Two steps in a row
+    //    without an adoption leave the states as they are.
+    int nd[K7_BPT];
+    uint32_t nm[K7_BPT];
+    for (int step = 0, quiet = 0; step < 2 * E && quiet < 2; ++step) {
+      if (!(step & 1)) {     // the block after's states, then the one before's
+        bool need[2 * K7_BPT], want[2 * K7_BPT];
+        uint16_t entry[2 * K7_BPT];
+#pragma unroll
+        for (int side = 0; side < 2; ++side) {
+          k7_neighbours(d, mt, !side, lane, nd, nm);
+#pragma unroll
+          for (int j = 0; j < K7_BPT; ++j)
+            tile.wanted(lane + 32 * j, (real >> j) & 1u, (asg0 >> j) & 1u,
+                        d0[j], (str0 >> j) & 1u, cc[j], d[j], mt[j], nd[j],
+                        nm[j], done[j], need[side * K7_BPT + j],
+                        want[side * K7_BPT + j], entry[side * K7_BPT + j]);
+        }
+        const int T = k7_list(tile.list, want, entry, lane);
+        if (T) run(T);
+      } else {
+        k7_neighbours(d, mt, true, lane, nd, nm);
+      }
+      bool moved = false;
+#pragma unroll
+      for (int j = 0; j < K7_BPT; ++j) {
+        if (!((real >> j) & 1u) || !(nm[j] & K7_ASG) ||
+            (cc[j] >= 0 && nd[j] == d[j] &&
+             ((nm[j] ^ mt[j]) & K7_STRAND) == 0))
+          continue;
+        const int cn = __popc(tile.mask(lane + 32 * j, (asg0 >> j) & 1u,
+                                        d0[j], (str0 >> j) & 1u, own[j],
+                                        nd[j], nm[j]));
+        if (cn >= a.ext_min && cn > cc[j] + a.ext_margin) {
+          d[j] = nd[j];
+          mt[j] = (nm[j] & (K7_SRC | K7_STRAND)) | K7_ASG;
+          cc[j] = cn;
+          moved = true;
+        }
+      }
+      quiet = __any_sync(FULL, moved) ? 0 : quiet + 1;
+    }
+
+    // 4. The previous block's state (none before block 0); where a block
+    //    is switchable, its mask there, listed and evaluated if new.
+    k7_neighbours(d, mt, false, lane, nd, nm);
+    {
+      bool want[K7_BPT];
+      uint16_t entry[K7_BPT];
+#pragma unroll
+      for (int j = 0; j < K7_BPT; ++j) {
+        const int i = lane + 32 * j;
+        const bool sw = (mt[j] & K7_ASG) && (nm[j] & K7_ASG) &&
+                        (d[j] != nd[j] || ((mt[j] ^ nm[j]) & K7_STRAND));
+        const int c = tile.slot(i, (int)(nm[j] & K7_SRC));
+        want[j] = sw && !tile.own_state((asg0 >> j) & 1u, d0[j],
+                                        (str0 >> j) & 1u, nd[j], nm[j]) &&
+                  !((done[j] >> c) & 1ull);
+        entry[j] = (uint16_t)(i << 7 | (nm[j] & K7_SRC));
+      }
+      const int T = k7_list(tile.list, want, entry, lane);
+      if (T) run(T);
+    }
+
+    // 5. The tile's own blocks, o_t .. f_end - 1: the states, coalesced;
+    //    the flag masks, then the flags, 16 positions a lane (2 lanes a
+    //    block, 512 bytes a store).
+    const int i_lo = o_t - f_lo, i_hi = f_end - f_lo;
+#pragma unroll
+    for (int j = 0; j < K7_BPT; ++j) {
+      const int i = lane + 32 * j, dp = nd[j];
+      const uint32_t mp = nm[j];
+      const bool s = (mt[j] & K7_STRAND) != 0, sp = (mp & K7_STRAND) != 0;
+      const bool asg = (mt[j] & K7_ASG) != 0, ap = (mp & K7_ASG) != 0;
+      const bool sw = asg && ap && (d[j] != dp || s != sp);
+      const bool oa = (asg0 >> j) & 1u, os = (str0 >> j) & 1u;
+      const uint32_t m1 =
+          asg ? tile.mask(i, oa, d0[j], os, own[j], d[j], mt[j]) : 0u;
+      const uint32_t m0 =
+          sw ? tile.mask(i, oa, d0[j], os, own[j], dp, mp) : 0u;
+      if (i >= i_lo && i < i_hi) {
+        const size_t o = row + f_lo + i;
+        a.D[o] = d[j];
+        a.S[o] = (uint8_t)s;
+        a.A[o] = (uint8_t)asg;
+        a.Dp[o] = dp;
+        a.Sp[o] = (uint8_t)sp;
+        a.Ap[o] = (uint8_t)ap;
+        a.sw[o] = (uint8_t)sw;
+      }
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int src = 16 * u + (lane >> 1), h = lane & 1;
+        const uint32_t w1 = __shfl_sync(FULL, m1, src);
+        const uint32_t w0 = __shfl_sync(FULL, m0, src);
+        const int ib = 32 * j + src;
+        if (ib < i_lo || ib >= i_hi) continue;
+        const size_t o = (row + f_lo + ib) * FINE + 16 * h;
+        *reinterpret_cast<uint4*>(a.m1 + o) = k7_flags(w1, h);
+        *reinterpret_cast<uint4*>(a.m0 + o) = k7_flags(w0, h);
       }
     }
-  }
-
-  // 4. The tile's own blocks, o_t .. f_end - 1: the state and the previous
-  //    block's (none before block 0), coalesced; their flag masks.
-  const int i_lo = o_t - f_lo, i_hi = f_end - f_lo;
-#pragma unroll
-  for (int j = 0; j < K7_BPT; ++j) {
-    int dp = __shfl_up_sync(FULL, d[j], 1);
-    uint32_t mp = __shfl_up_sync(FULL, mt[j], 1);
-    const int wd = __shfl_sync(FULL, d[(j + K7_BPT - 1) % K7_BPT], 31);
-    const uint32_t wm = __shfl_sync(FULL, mt[(j + K7_BPT - 1) % K7_BPT], 31);
-    if (lane == 0) {
-      dp = j ? wd : 0;
-      mp = j ? wm : 0u;
-    }
-    const int i = lane + 32 * j;
-    if (i < i_lo || i >= i_hi) continue;
-    const int s = (mt[j] & K7_STRAND) != 0, sp = (mp & K7_STRAND) != 0;
-    const bool asg = (mt[j] & K7_ASG) != 0, ap = (mp & K7_ASG) != 0;
-    const bool sw = asg && ap && (d[j] != dp || s != sp);
-    const size_t o = row + f_lo + i;
-    a.D[o] = d[j];
-    a.S[o] = (uint8_t)s;
-    a.A[o] = (uint8_t)asg;
-    a.Dp[o] = dp;
-    a.Sp[o] = (uint8_t)sp;
-    a.Ap[o] = (uint8_t)ap;
-    a.sw[o] = (uint8_t)sw;
-    m1s[i] = asg ? tab[i * Cn + (int)(mt[j] & K7_SRC) - i + E + 1] : 0u;
-    m0s[i] = sw ? tab[i * Cn + (int)(mp & K7_SRC) - i + E + 1] : 0u;
-  }
-  __syncwarp();
-
-  // 5. The flags, 16 positions a lane (2 lanes a block), as bytes.
-  for (int i0 = i_lo; i0 < i_hi; i0 += 16) {
-    const int i = i0 + (lane >> 1), h = lane & 1;
-    if (i >= i_hi) continue;
-    const size_t o = (row + f_lo + i) * FINE + 16 * h;
-    *reinterpret_cast<uint4*>(a.m1 + o) = bits_bytes(m1s[i] >> (16 * h));
-    *reinterpret_cast<uint4*>(a.m0 + o) = bits_bytes(m0s[i] >> (16 * h));
   }
 }
 
@@ -878,13 +1101,14 @@ int k6_front(const int32_t* qsv, const int32_t* qoff, const int32_t* sv_f,
   return (int)cudaGetLastError();
 }
 
-// K7. q: (Gq, NBF * 32) int8 query codes, 16-byte aligned; q_rows, qlens:
-// (N,) int32; r2dov: (Gr, 2 * NRT, 64) int8, 4-byte aligned (the window
-// rows of both strands, each led by an all-pad row; NRT = Lr / 32 + 1);
-// r_rows, rlens: (R,) int32, pair n on row n / K; A0, S0: (N, NBF) bool,
-// D0: (N, NBF) int32, the election. Writes m1, m0: (N, NBF * 32) bool
-// (16-byte aligned) and sw, A, S, Ap, Sp: (N, NBF) bool, D, Dp: (N, NBF)
-// int32. 0 <= iters <= 16, ext_margin >= 0. Returns cudaGetLastError().
+// K7. q: (Gq, NBF * 32) int8 query codes 0-4, 16-byte aligned; q_rows,
+// qlens: (N,) int32; r2dov: (Gr, 2 * NRT, 64) int8 codes 0-4, 16-byte
+// aligned (the window rows of both strands, each led by an all-pad row;
+// NRT = Lr / 32 + 1); r_rows, rlens: (R,) int32, pair n on row n / K; A0,
+// S0: (N, NBF) bool, D0: (N, NBF) int32, the election. Writes m1, m0: (N,
+// NBF * 32) bool (16-byte aligned) and sw, A, S, Ap, Sp: (N, NBF) bool, D,
+// Dp: (N, NBF) int32. 0 <= iters <= 16, ext_margin >= 0. Returns
+// cudaGetLastError().
 int k7_propagate(const int8_t* q, const int32_t* q_rows,
                  const int32_t* qlens, const int8_t* r2dov,
                  const int32_t* r_rows, const int32_t* rlens,
@@ -904,13 +1128,20 @@ int k7_propagate(const int8_t* q, const int32_t* q_rows,
   // iters, or the whole pair if it holds it.
   const int out = K7_TILE - 2 * iters - 1;
   const int tiles = 1 + (max(NBF - K7_TILE, 0) + out - 1) / out;
-  const long long ctas = ((long long)N * tiles + K7_WARPS - 1) / K7_WARPS;
-  if (ctas > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const int smem = K7_WARPS * k7_warp_bytes(iters);
+  int per_sm = 0;
+  rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, propagate_v2_kernel, K7_WARPS * 32, smem);
+  if (rc) return rc;
+  // As many CTAs as are resident at once, each warp taking tiles in turn
+  // (no last wave part full), or fewer where there are fewer tiles.
+  const long long need = ((long long)N * tiles + K7_WARPS - 1) / K7_WARPS;
+  const long long ctas =
+      std::min(need, (long long)std::max(per_sm, 1) * sm_count());
   const V2PropArgs a{q, q_rows, qlens, r2dov, r_rows, rlens, A0, S0, D0,
                      N, K, NBF, Lr, NRT, iters, ext_min, ext_margin, out,
                      tiles, m1, m0, sw, A, S, D, Ap, Sp, Dp};
-  propagate_v2_kernel<<<(int)ctas, K7_WARPS * 32,
-                        K7_WARPS * k7_warp_bytes(iters),
+  propagate_v2_kernel<<<(int)ctas, K7_WARPS * 32, smem,
                         static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }

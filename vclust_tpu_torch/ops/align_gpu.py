@@ -1504,9 +1504,10 @@ _votes_elect_v2.launches = 0
 def _propagate_v2(b, r_rows, rlens, q_rows, qlens, A, S, D, *, Lr):
     """K7 wrapper (see propagate_v2_plain): the plain version for CPU
     tensors, the CUDA kernel for CUDA tensors (or raise). The kernel takes
-    EXT_ITERS (0-16), EXT_MIN and EXT_MARGIN (>= 0) as arguments; it reads
-    the query codes 16 bytes at a time (the arena 16-byte aligned) and the
-    window rows as words."""
+    EXT_ITERS (0-16), EXT_MIN and EXT_MARGIN (>= 0) as arguments and codes
+    0-4 (as `encode` gives them); it reads the query codes and the window
+    rows 16 bytes at a time, so both arenas must be 16-byte aligned (the
+    rows are 32 and 64 bytes long)."""
     dev = A.device
     if dev.type == 'cpu':
         return propagate_v2_plain(b, r_rows, rlens, q_rows, qlens, A, S, D,
@@ -1533,9 +1534,10 @@ def _propagate_v2(b, r_rows, rlens, q_rows, qlens, A, S, D, *, Lr):
     if rows2 % 2 or NRT < Lr // FINE + 1:
         raise ValueError(f'K7: r2dov holds {rows2} rows a genome, fewer '
                          f'than two strands of Lr / 32 + 1 ({Lr})')
-    if b['fwd'].data_ptr() % 16 or b['r2dov'].data_ptr() % 4:
-        raise ValueError('K7 reads the query codes 16 bytes and the window '
-                         'rows 4 at a time: their arenas must be aligned')
+    if b['fwd'].data_ptr() % 16 or b['r2dov'].data_ptr() % 16:
+        raise ValueError('K7 reads the query codes and the window rows 16 '
+                         'bytes at a time: their arenas must be 16-byte '
+                         'aligned')
     if not (0 <= EXT_ITERS <= 16 and EXT_MARGIN >= 0):
         raise ValueError('K7 takes EXT_ITERS 0-16 and EXT_MARGIN >= 0')
     m1, m0 = (torch.empty((R, K, Lq), dtype=torch.bool, device=dev)
