@@ -180,18 +180,18 @@ def time_ms(fn, reps: int) -> float:
 SPIN_CYCLES_PER_MS = 1.98e6
 
 
-def device_ms(fn, reps: int, tries: int = 3):
-    """Device time of `fn`: the mean of `reps` calls after a warm-up, timed
-    by CUDA events on the stream while a spin kernel queued before them
-    (torch.cuda._sleep) holds it busy, so that every launch of the calls is
-    queued before the first one starts and the host's time between launches
-    never enters: the stream's busy time, its kernels, memsets and the gaps
-    between them on the card. Held only where the spin still ran when the
-    last call was queued (the start event not yet reached); else taken again
-    with a spin four times as long, up to `tries` times, and None where none
-    held (fn waits on the device), the reason in device_ms.why. (No
-    torch.profiler sums: a trace can lose a kernel's events or their time;
-    tools/k6_probe.py --trace-check shows them beside this.)"""
+def device_ms(fn, reps: int, tries: int = 3) -> tuple:
+    """(device time of `fn`, None), or (None, the reason). The time is the
+    mean of `reps` calls after a warm-up, timed by CUDA events on the stream
+    while a spin kernel queued before them (torch.cuda._sleep) holds it
+    busy, so that every launch of the calls is queued before the first one
+    starts and the host's time between launches never enters: the stream's
+    busy time, its kernels, memsets and the gaps between them on the card.
+    Held only where the spin still ran when the last call was queued (the
+    start event not yet reached); else taken again with a spin four times as
+    long, up to `tries` times, and None where none held (fn waits on the
+    device). (No torch.profiler sums: a trace can lose a kernel's events or
+    their time; tools/k6_probe.py --trace-check shows them beside this.)"""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -212,35 +212,26 @@ def device_ms(fn, reps: int, tries: int = 3):
         held = not start.query()
         torch.cuda.synchronize()
         if held:
-            device_ms.why = None
-            return start.elapsed_time(end) / reps
+            return start.elapsed_time(end) / reps, None
         spin_ms *= 4
-    device_ms.why = (f'not held: a spin of {spin_ms / 4:.1f} ms ended before '
-                     f'{reps} calls were queued (the calls wait on the '
-                     f'device)')
-    return None
-
-
-device_ms.why = None
+    return None, (f'not held: a spin of {spin_ms / 4:.1f} ms ended before '
+                  f'{reps} calls were queued (the calls wait on the device)')
 
 
 def device_ms_item(fn, reps: int) -> dict:
-    """{'device_ms': device_ms(fn, reps)}, with 'device_ms_why' where it is
-    None."""
-    ms = device_ms(fn, reps)
+    """{'device_ms': device_ms(fn, reps)'s time}, with 'device_ms_why', its
+    reason, where the time is None."""
+    ms, why = device_ms(fn, reps)
     return dict(device_ms=ms) if ms is not None else dict(
-        device_ms=None, device_ms_why=device_ms.why)
+        device_ms=None, device_ms_why=why)
 
 
 def with_shares(d: dict) -> dict:
     """d (with ms, device_ms and bound_ms) with the share of the bound the
-    device time reaches and the wrapper's host time, ms - device_ms; where
-    device_ms is None, why (device_ms.why of the last call)."""
+    device time reaches and the wrapper's host time, ms - device_ms."""
     if d.get('device_ms'):
         d['share_of_bound'] = d['bound_ms'] / d['device_ms']
         d['host_ms'] = d['ms'] - d['device_ms']
-    elif 'device_ms' in d:
-        d['device_ms_why'] = device_ms.why
     return d
 
 
@@ -1229,7 +1220,7 @@ def k4_alone(torch, ag, flat, rl, Lq: int, kw: dict, at: str) -> dict:
         out['records' if alns else 'aggregates'] = with_shares(dict(
             max_abs_err=err, ms=time_ms(lambda: run(ag._blocks_to_measures),
                                         5),
-            device_ms=device_ms(lambda: run(ag._blocks_to_measures), 5),
+            **device_ms_item(lambda: run(ag._blocks_to_measures), 5),
             plain_ms=time_ms(lambda: run(ag.blocks_to_measures_plain), 3),
             **k4_bound(rl.shape[0], Lq, got[1].shape[1] if alns else 0)))
     return out
@@ -1306,7 +1297,7 @@ def k5_alone(torch, ag, el, g3, at: str) -> dict:
         source='vclust_tpu_torch/csrc/align_v3.cu',
         replaces='vclust_tpu/ops/align_tpu.py:1235', design=K5_DESIGN,
         max_abs_err=err, ms=time_ms(lambda: ag._propagate_v3(el, g3), 5),
-        device_ms=device_ms(lambda: ag._propagate_v3(el, g3), 5),
+        **device_ms_item(lambda: ag._propagate_v3(el, g3), 5),
         plain_ms=time_ms(lambda: ag.propagate_v3_plain(el, g3), 3),
         bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by='bytes',
         library_ms=None, library=NO_LIBRARY['_propagate_v3'], at=at,
@@ -1784,7 +1775,7 @@ def v2_alone(torch, name, run, plain, nbytes, slots, at, **extra):
     t_ops = slots / INT32_SLOTS_PER_S * 1e3
     return with_shares(dict(
         name=name, max_abs_err=err, ms=time_ms(run, 5),
-        device_ms=device_ms(run, 5), plain_ms=time_ms(plain, 2),
+        **device_ms_item(run, 5), plain_ms=time_ms(plain, 2),
         bound_ms=max(t_bytes, t_ops),
         bound_by='bytes' if t_bytes >= t_ops else 'operations',
         bound_bytes_ms=t_bytes, bound_ops_ms=t_ops, bytes=nbytes,
@@ -1793,15 +1784,16 @@ def v2_alone(torch, name, run, plain, nbytes, slots, at, **extra):
 
 def k7_least(torch, b, r_rows, q_rows, kb) -> tuple:
     """K7's least bytes and int32 slots on one v2 dispatch: the election
-    read (6 bytes a block), each distinct query's codes and reference's
-    window rows read once, the flags (a byte a query position each) and
-    the states (13 bytes a block) written; the final masks 6 slots a word
-    of 4 positions."""
+    read (6 bytes a block), each distinct query's codes and each distinct
+    reference's bases of both strands read once (32 a window row: row r + 1
+    holds bases [32 r, 32 r + 64), so each row adds 32 to the one before),
+    the flags (a byte a query position each) and the states (13 bytes a
+    block) written; the final masks 6 slots a word of 4 positions."""
     R, K = q_rows.shape
     N, NBF = R * K, kb // 32
     NRT = b['r2dov'].shape[1] // 2
     n_q, n_ref = len(torch.unique(q_rows)), len(torch.unique(r_rows))
-    nbytes = (N * NBF * 6 + n_q * kb + n_ref * 2 * NRT * 64 + 2 * N * kb
+    nbytes = (N * NBF * 6 + n_q * kb + n_ref * 2 * NRT * 32 + 2 * N * kb
               + N * NBF * 13)
     return nbytes, N * NBF * 8 * 6
 
@@ -1903,7 +1895,7 @@ def v2_index_build(torch, ag, b, codes, kb, C) -> dict:
               + b['r2dov'].numel())
     return with_shares(dict(
         genomes=G, bucket=kb, C=C, ms=time_ms(run, 3),
-        device_ms=device_ms(run, 3), bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+        **device_ms_item(run, 3), bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
         bound_by='bytes', bytes=nbytes))
 
 

@@ -120,7 +120,7 @@ def run(name: str, cap, out_dir: pathlib.Path, seed: int,
         res['eq_plain'] = torch.equal(plain, counts)
         del plain
     res['ms'] = [cs.time_ms(call, reps) for _ in range(2)]
-    res['device_ms'] = cs.device_ms(call, reps)
+    res.update(cs.device_ms_item(call, reps))
     res['card'] = torch.cuda.get_device_name(0)
     return res
 

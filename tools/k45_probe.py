@@ -15,8 +15,8 @@ from --seed):
              8,192): K4.
 At each point the kernel's outputs are held against its plain version on
 the same tensors (bit for bit); then, unless --check-only, its CUDA-event
-time (`ms`, the wrapper's host work included), its device time by
-torch.profiler (`device_ms`), their difference (the wrapper's host time)
+time (`ms`, the wrapper's host work included), its device time
+(`device_ms`, chip_smoke.py:device_ms), their difference (the host time)
 and its bound from chip_smoke.py (`k5_bytes`, `k4_bound`) with the share
 of the bound that the device time reaches. K4 runs without and with
 records.
@@ -212,9 +212,9 @@ def timed(cs, fn, reps, check_only):
     if check_only:
         return {}
     ms = cs.time_ms(fn, reps)
-    dms = cs.device_ms(fn, reps)
-    return dict(ms=ms, device_ms=dms,
-                host_ms=None if dms is None else ms - dms)
+    dev = cs.device_ms_item(fn, reps)
+    dms = dev['device_ms']
+    return dict(ms=ms, **dev, host_ms=None if dms is None else ms - dms)
 
 
 def same(got, want, what):
@@ -230,7 +230,7 @@ def cut_times(cs, cuda, ag, cut_libs, kernel, fn, at, reps, **extra):
     out = dict(kernel=kernel, at=at, **extra)
     for name, swap in variants(cuda, ag, cut_libs, kernel):
         swap()
-        out[name] = cs.device_ms(fn, reps)
+        out[name] = cs.device_ms(fn, reps)[0]
     print(json.dumps(out), flush=True)
 
 

@@ -305,17 +305,18 @@ def k6_point(torch, cuda, ag, cs, libs, b, r_rows, q_rows, kb, at, reps):
     vals2 = torch.cat([vals, vals]).contiguous()
     out = dict(kernel='K6', at=at, C=C, pack_bits=b['pack_bits'],
                eq_plain=True, ms=cs.time_ms(run, reps),
-               device_ms=cs.device_ms(run, reps),
+               **cs.device_ms_item(run, reps),
                votes_output_device_ms=cs.device_ms(
                    lambda: ag._votes_elect_v2(b, r_rows, q_rows,
-                                              want_votes=True, **kw), reps),
+                                              want_votes=True, **kw),
+                   reps)[0],
                searchsorted_ms=cs.time_ms(
                    lambda: torch.searchsorted(sv2, vals2, right=True), reps))
     del sv2, vals, vals2
     for name, lib in libs.items():
         if name.startswith(('k6', 'base:')) or name == 'built':
             out[name] = with_lib(cuda, lib,
-                                 lambda: cs.device_ms(run, reps))
+                                 lambda: cs.device_ms(run, reps)[0])
     print(json.dumps(out), flush=True)
 
 
@@ -338,7 +339,7 @@ def k7_point(torch, cuda, ag, cs, libs, b, r_rows, rlens, q_rows, qlens, kb,
     bound = max(nbytes / cs.HBM_BYTES_PER_S, slots / cs.INT32_SLOTS_PER_S) \
         * 1e3
     out = dict(kernel='K7', at=at, eq_plain=True, ext_iters=ag.EXT_ITERS,
-               ms=cs.time_ms(run, reps), device_ms=cs.device_ms(run, reps),
+               ms=cs.time_ms(run, reps), **cs.device_ms_item(run, reps),
                bound_ms=bound, bytes=nbytes,
                **k7_tasks(torch, A, S, D, ag.EXT_ITERS))
     if out['device_ms']:
@@ -346,7 +347,7 @@ def k7_point(torch, cuda, ag, cs, libs, b, r_rows, rlens, q_rows, qlens, kb,
     for name, lib in libs.items():
         if name.startswith(('k7', 'base:')) or name == 'built':
             out[name] = with_lib(cuda, lib,
-                                 lambda: cs.device_ms(run, reps))
+                                 lambda: cs.device_ms(run, reps)[0])
     print(json.dumps(out), flush=True)
     return run
 
@@ -403,7 +404,7 @@ def main():
             for name, fn in fns.items():
                 print(json.dumps(dict(
                     check='profiler', kernel=name, at=at, reps=5,
-                    ms=cs.time_ms(fn, 5), device_ms=cs.device_ms(fn, 5),
+                    ms=cs.time_ms(fn, 5), **cs.device_ms_item(fn, 5),
                     traces=trace_check(torch, fn, 5, args.trace_check))),
                     flush=True)
         del b

@@ -709,21 +709,25 @@ struct K7Tile {
                ? own
                : tab[slot(i, (int)(x & K7_SRC)) * K7_TILE + i];
   }
-  // Whether block i (at state (d, mt), count cc) needs its mask at an
+  // Whether a block (at state (d, mt), count cc) needs its mask at an
   // assigned neighbour's state (nd, nm): not at its own current state,
-  // where the count could not beat its own; and whether the table lacks
-  // it (then its task entry, and the slot marked in done).
+  // where the count could not beat its own.
+  __device__ __forceinline__ static bool needs(bool real, int cc, int d,
+                                               uint32_t mt, int nd,
+                                               uint32_t nm) {
+    return real && (nm & K7_ASG) &&
+           !(cc >= 0 && nd == d && ((nm ^ mt) & K7_STRAND) == 0);
+  }
+  // Whether block i needs that mask and the table lacks it (then its task
+  // entry, and the slot marked in done).
   __device__ __forceinline__ void wanted(int i, bool real, bool own_asg,
                                          int d0, bool s0, int cc, int d,
                                          uint32_t mt, int nd, uint32_t nm,
-                                         uint64_t& done, bool& need,
-                                         bool& want,
+                                         uint64_t& done, bool& want,
                                          uint16_t& entry) const {
-    need = real && (nm & K7_ASG) &&
-           !(cc >= 0 && nd == d && ((nm ^ mt) & K7_STRAND) == 0);
     const int c = slot(i, (int)(nm & K7_SRC));
-    want = need && !own_state(own_asg, d0, s0, nd, nm) &&
-           !((done >> c) & 1ull);
+    want = needs(real, cc, d, mt, nd, nm) &&
+           !own_state(own_asg, d0, s0, nd, nm) && !((done >> c) & 1ull);
     if (want) done |= 1ull << c;
     entry = (uint16_t)(i << 7 | (nm & K7_SRC));
   }
@@ -926,7 +930,7 @@ propagate_v2_kernel(V2PropArgs a) {
     uint32_t nm[K7_BPT];
     for (int step = 0, quiet = 0; step < 2 * E && quiet < 2; ++step) {
       if (!(step & 1)) {     // the block after's states, then the one before's
-        bool need[2 * K7_BPT], want[2 * K7_BPT];
+        bool want[2 * K7_BPT];
         uint16_t entry[2 * K7_BPT];
 #pragma unroll
         for (int side = 0; side < 2; ++side) {
@@ -935,8 +939,8 @@ propagate_v2_kernel(V2PropArgs a) {
           for (int j = 0; j < K7_BPT; ++j)
             tile.wanted(lane + 32 * j, (real >> j) & 1u, (asg0 >> j) & 1u,
                         d0[j], (str0 >> j) & 1u, cc[j], d[j], mt[j], nd[j],
-                        nm[j], done[j], need[side * K7_BPT + j],
-                        want[side * K7_BPT + j], entry[side * K7_BPT + j]);
+                        nm[j], done[j], want[side * K7_BPT + j],
+                        entry[side * K7_BPT + j]);
         }
         const int T = k7_list(tile.list, want, entry, lane);
         if (T) run(T);
@@ -946,9 +950,8 @@ propagate_v2_kernel(V2PropArgs a) {
       bool moved = false;
 #pragma unroll
       for (int j = 0; j < K7_BPT; ++j) {
-        if (!((real >> j) & 1u) || !(nm[j] & K7_ASG) ||
-            (cc[j] >= 0 && nd[j] == d[j] &&
-             ((nm[j] ^ mt[j]) & K7_STRAND) == 0))
+        if (!K7Tile::needs((real >> j) & 1u, cc[j], d[j], mt[j], nd[j],
+                           nm[j]))
           continue;
         const int cn = __popc(tile.mask(lane + 32 * j, (asg0 >> j) & 1u,
                                         d0[j], (str0 >> j) & 1u, own[j],
