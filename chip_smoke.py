@@ -52,10 +52,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
               bit; warm pairs/s, index seconds, peak device memory and a
               profiler breakdown of one warm run; the max |dtANI| against
               the native C++ engine (printed, not held); then K2 and K3
-              alone on one full dispatch at 65,536 and at 4,096, and K5 and
-              K4 (without and with records) alone at 65,536 (each == plain,
-              with ms, device_ms, plain_ms, bound; library_ms for K2), and
-              the time of each stage of the 65,536 dispatch;
+              (stages 2-4, the wide rows read in place: cnt, cnt_best, A,
+              S and D) alone on one full dispatch at 65,536 and at 4,096,
+              and K5 and K4 (without and with records) alone there (each
+              == plain, with ms, device_ms, plain_ms, bound; library_ms for
+              K2), and the time of each stage of the 65,536 dispatch, the
+              row core's time and peak device bytes at this budget's B and
+              at the B = 26 of the budget that held stage 2's windows;
   8. align_hybrid - the engine's default all2all_gpu (v3, then v2 on the
               hard pairs) on the 48 genomes: hard pairs, the dispatches of
               each pipe, warm pairs/s with and without the hybrid, busy
@@ -939,7 +942,7 @@ def align_inputs(corpus):
 # K8 fused in, K7; also the names of their rows in the kernels line) and
 # their plain versions.
 ALIGN_KERNELS = (('stage1_pack', 'stage1_pack_plain'),
-                 ('band_counts', 'band_counts_plain'),
+                 ('_bands_v3', 'bands_v3_plain'),
                  ('_propagate_v3', 'propagate_v3_plain'),
                  ('_blocks_to_measures', 'blocks_to_measures_plain'),
                  ('_votes_elect_v2', 'votes_elect_v2_plain'),
@@ -975,7 +978,7 @@ def check_align_launches(path: str, launches: dict, dispatches: dict):
     K6 (K8 fused in), K7 and K4 once; a path that launched none of its
     kernels fails."""
     v3, v2 = dispatches['v3'], dispatches['v2']
-    want = {'stage1_pack': v3, 'band_counts': v3, '_propagate_v3': v3,
+    want = {'stage1_pack': v3, '_bands_v3': v3, '_propagate_v3': v3,
             '_blocks_to_measures': v3 + v2, '_votes_elect_v2': v2,
             '_propagate_v2': v2}
     if launches != want or not v3 + v2:
@@ -1132,11 +1135,14 @@ K2_DESIGN = ('wgmma m64n256k32 u8 (two consumer warpgroups, a 128 x 256 '
              'half rows 2q and 2q+1 in one thread, so the packed maxes need '
              'no shuffle; persistent CTAs in (row, reference tile, query, '
              'query tile) order; atomicMax epilogue')
-K3_DESIGN = ('bit planes (low, high, is-a-base) built with __ballot_sync, '
-             'one warp a fine block over persistent CTAs in a CTA-uniform '
-             'loop, a lane a shift: funnel shifts, the match mask, __popc; '
-             'bands without N skip the is-a-base planes; the election in a '
-             'register and one __reduce_max_sync; no shared memory')
+K3_DESIGN = ('stages 2-4 in one launch, the wide rows read in place (no '
+             'window tensor): a warp a coarse block, each band\'s row built '
+             'once into bit planes (low, high, is-a-base) with __ballot_sync '
+             'and each fine block\'s window taken from them, a lane a shift: '
+             'funnel shifts, the match mask, __popc; bands without N skip '
+             'the is-a-base planes; the election in registers, one '
+             '__reduce_max_sync a fine block, decoded by lane k (count, '
+             'strand, diagonal, gate and threshold); no shared memory')
 K4_DESIGN = ('positions as bits, 32 a word (a word a fine block); a CTA a '
              'chunk of 512 words of one pair (fewer threads on shorter pairs; '
              'N * ceil(NBF / 512) CTAs, taken in order from an atomic '
@@ -1157,7 +1163,8 @@ K5_DESIGN = ('tiles of 128 blocks of one pair, a warp each (4 a CTA), the '
              'candidates on neighbouring lanes, runs of one state loaded '
              'once); the steps by shuffles, carrying source blocks; then the '
              'flags 4 blocks at a time, 8 lanes a block and a word a lane, '
-             '16 blocks\' loads in flight')
+             'the windows read from the wide rows K3 read, 16 blocks\' '
+             'loads in flight')
 NO_LIBRARY = {
     '_blocks_to_measures': 'none: no PyTorch call computes the segmentation '
                            '(its plain version is some 80 torch ops)',
@@ -1226,34 +1233,103 @@ def k4_alone(torch, ag, flat, rl, Lq: int, kw: dict, at: str) -> dict:
     return out
 
 
-def k5_bytes(torch, ag, el, g3) -> int:
+def band_rows(rlens, g1, g2, NRB) -> list:
+    """Each band's reference block of every coarse block, as K3 and K5 read
+    them: g1 and g2 forward, their mirrors on the reverse strand."""
+    rl = rlens.view(-1, 1, 1)
+
+    def mirror(g):
+        return ((rl - 32 * g - 32) >> 5).clamp(0, NRB - 1)
+    return [g1, mirror(g1), g2, mirror(g2)]
+
+
+def v3_row_bytes(torch, r_rows, rlens, g1, g2, g3) -> int:
+    """Bytes of the distinct wide rows that a dispatch's bands read, each
+    once (forward and reverse strand)."""
+    NRB = g3['NRB']
+    rr = r_rows.long().view(-1, 1, 1) * NRB
+    gs = band_rows(rlens, g1, g2, NRB)
+    return g3['ROWW'] * sum(
+        len(torch.unique(torch.cat([(rr + gs[i]).flatten(),
+                                    (rr + gs[i + 2]).flatten()])))
+        for i in (0, 1))
+
+
+def k3_slots(torch, b, r_rows, rlens, q_rows, g1, g2, g3) -> float:
+    """K3's least int32 issue slots on a dispatch, with bases as bit planes
+    (low bit, high bit, is-a-base), 32 a word, a lane a shift. Each fine
+    block, band and shift: 2 LOP3 give the match mask (a query block's
+    is-a-base plane folds into the first at no cost), a population count
+    (4 slots), and the packed election's pack ((count << 12) + the band's
+    tag and shift, a constant of the lane: 1) and max (1): 8 slots; 1 LOP3
+    more where the reference window holds a code other than 0-3. The
+    funnel shifts that align a window depend only on the row's word k + j
+    and the lane, so each coarse block, band and lane shifts each of its
+    row's 2 FPB + 2 words once a plane: the low and high planes always,
+    the is-a-base plane at the words of the windows that need it. Counts
+    this dispatch's data."""
+    WIN, FPB, NRB, BAND = g3['WIN'], g3['FPB'], g3['NRB'], g3['BAND']
+    R, K, NQB = g1.shape
+    rr = r_rows.long().view(R, 1, 1)
+    words = 2 * FPB + 2
+    k = torch.arange(FPB, device=g1.device)[:, None]
+    c = torch.arange(words, device=g1.device)
+    reach = (c >= k) & (c <= k + FPB + 2)                    # (FPB, words)
+    odd_windows = odd_words = 0
+    for i, g in enumerate(band_rows(rlens, g1, g2, NRB)):
+        rows = b['roww_r' if i & 1 else 'roww_f'][rr, g.long()]
+        bad = (rows < 0) | (rows > 3)
+        odd = torch.stack([bad[..., 16 + 32 * k:16 + 32 * k + WIN].any(-1)
+                           for k in range(FPB)], dim=-1)    # (R, K, NQB, FPB)
+        odd_windows += int(odd.sum())
+        odd_words += int((odd[..., None] & reach).any(-2).sum())
+    windows = 4 * R * K * NQB * FPB
+    return float(BAND * (8 * windows + odd_windows)
+                 + 32 * (2 * words * windows // FPB + odd_words))
+
+
+def k5_bytes(torch, ag, el, args, g3) -> int:
     """The least bytes of stages 5-6 on `el`: the 32-byte sectors its
     gathers need, each read once (a step's count of each block whose
     neighbour differs, at the neighbour's diagonal in the bands of its
-    strand that hold it, and those bands' first diagonals; the query bases
-    and window bytes at each flag's diagonal), the per-block election read
-    once and every output written once. Replays the plain version's steps
-    to find them."""
-    BAND, WIN = g3['BAND'], g3['WIN']
-    nb, R, K, NBF = el['base'].shape
-    N = R * K
-    base = el['base'].reshape(nb, N, NBF)
-    cnt = el['cnt'].reshape(nb, N, NBF, BAND)
+    strand that hold it, and those blocks' candidates g1, g2; the query
+    codes and the row bytes of each flag's window in the bands that hold
+    it), the per-block election read once and every output written once.
+    args: (b, r_rows, rlens, q_rows, g1, g2). Replays the plain version's
+    steps to find them."""
+    _, r_rows, rlens, q_rows, g1, g2 = args
+    BAND, FPB, WQ = g3['BAND'], g3['FPB'], g3['WQ']
+    NRB, ROWW = g3['NRB'], g3['ROWW']
+    R, K, NBF = el['A'].shape
+    N, NQB = R * K, NBF // FPB
+    dev = el['A'].device
+    fc = torch.arange(NBF, device=dev) // FPB
+    gs = [g.reshape(N, NQB)[:, fc].long()
+          for g in band_rows(rlens, g1, g2, NRB)]
+    base = [32 * g - (fc + 1) * WQ - 16 for g in gs]
+    cnt = el['cnt'].reshape(4, N, NBF, BAND)
     A, S, D = (el[k].reshape(N, NBF) for k in ('A', 'S', 'D'))
     cc = torch.where(A, el['cnt_best'].reshape(N, NBF), -1)
-    blk = torch.arange(N * NBF, device=A.device).view(N, NBF)
-    reads = {'cnt': [], 'base': [], 'win': [], 'qb': []}
+    blk = torch.arange(N * NBF, device=dev).view(N, NBF)
+    cblk = (torch.arange(N, device=dev)[:, None] * NQB + fc) * 4 // 32
+    rr = r_rows.long().repeat_interleave(K)[:, None] * NRB
+    in_row = 16 + 32 * (torch.arange(NBF, device=dev) % FPB)
+    reads = {'cnt': [], 'g': [], 'rows_f': [], 'rows_r': [], 'q': []}
 
     def gather(Sx, Dx, need, flags=False):
-        out = torch.full((N, NBF), -1, dtype=torch.int32, device=A.device)
+        out = torch.full((N, NBF), -1, dtype=torch.int32, device=dev)
         for i, is_rc in enumerate(ag._BAND_IS_RC):
             mine = need & (Sx if is_rc else ~Sx)
-            reads['base'].append((i * N * NBF + blk[mine]) * 4 // 32)
+            reads['g'].append((i // 2) * N * NQB * 4 // 32 + cblk[mine])
             tn = Dx - base[i]
             ok = mine & (tn >= 0) & (tn < BAND)
-            at = (i * N * NBF + blk[ok]) * (WIN if flags else BAND) + tn[ok]
-            reads['win' if flags else 'cnt'] += [at // 32] + (
-                [(at + 31) // 32] if flags else [])
+            if flags:
+                at = ((rr + gs[i]) * ROWW + in_row + tn)[ok]
+                reads['rows_r' if is_rc else 'rows_f'] += [at // 32,
+                                                           (at + 31) // 32]
+            else:
+                at = (i * N * NBF + blk[ok]) * BAND + tn[ok]
+                reads['cnt'].append(at // 32)
             cv = torch.gather(cnt[i], -1, tn.clamp(0, BAND - 1).long()[
                 ..., None])[..., 0].int()
             out = torch.maximum(out, torch.where(ok, cv, -1))
@@ -1274,34 +1350,38 @@ def k5_bytes(torch, ag, el, g3) -> int:
     sw = A & Ap & ((D != Dp) | (S != Sp))
     gather(S, D, A, flags=True)
     gather(Sp, Dp, sw, flags=True)
-    reads['qb'].append(blk[A | sw])
+    # A block's query codes are one aligned sector of its query's row.
+    qsec = q_rows.long().reshape(N, 1) * NBF + torch.arange(NBF, device=dev)
+    reads['q'].append(qsec[A | sw])
     sectors = sum(len(torch.unique(torch.cat(v))) for v in reads.values()
                   if v)
     blocks = N * NBF
     return 32 * sectors + 10 * blocks + 2 * blocks * 32 + 13 * blocks
 
 
-def k5_alone(torch, ag, el, g3, at: str) -> dict:
+def k5_alone(torch, ag, el, args, g3, at: str) -> dict:
     """K5 alone on one dispatch's stage-4 results, against its plain
-    version on the same tensors: error, ms, device_ms, plain_ms, bound."""
-    got, want = ag._propagate_v3(el, g3), ag.propagate_v3_plain(el, g3)
+    version on the same tensors: error, ms, device_ms, plain_ms, bound.
+    args: (b, r_rows, rlens, q_rows, g1, g2)."""
+    def run(fn):
+        return fn(el, *args, g3)
+    got, want = run(ag._propagate_v3), run(ag.propagate_v3_plain)
     torch.cuda.synchronize()
     err = max(int((g.int() - w.int()).abs().max()) for g, w in zip(got, want))
     if err or any(g.dtype != w.dtype for g, w in zip(got, want)):
         fail(f'K5 != plain at {at} (max abs err {err})')
-    nbytes = k5_bytes(torch, ag, el, g3)
-    # All the band counts and windows, as the old bound read them.
-    whole = (el['cnt'].numel() + el['win'].numel()) / HBM_BYTES_PER_S * 1e3
+    del got, want
+    nbytes = k5_bytes(torch, ag, el, args, g3)
     return with_shares(dict(
         name='_propagate_v3', route='cuda',
         source='vclust_tpu_torch/csrc/align_v3.cu',
         replaces='vclust_tpu/ops/align_tpu.py:1235', design=K5_DESIGN,
-        max_abs_err=err, ms=time_ms(lambda: ag._propagate_v3(el, g3), 5),
-        **device_ms_item(lambda: ag._propagate_v3(el, g3), 5),
-        plain_ms=time_ms(lambda: ag.propagate_v3_plain(el, g3), 3),
+        max_abs_err=err, ms=time_ms(lambda: run(ag._propagate_v3), 5),
+        **device_ms_item(lambda: run(ag._propagate_v3), 5),
+        plain_ms=time_ms(lambda: run(ag.propagate_v3_plain), 3),
         bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by='bytes',
         library_ms=None, library=NO_LIBRARY['_propagate_v3'], at=at,
-        bytes=nbytes, bound_all_counts_and_windows_ms=whole))
+        bytes=nbytes))
 
 
 def k2_k3_alone(torch, dev, ag, b, codes, seed: int, kb: int):
@@ -1359,41 +1439,44 @@ def k2_k3_alone(torch, dev, ag, b, codes, seed: int, kb: int):
               at=f'bucket {kb}: B={B} rows x K={K}, 2*NQB={M2}, NRB={NRB}, '
                  f'H={H}', int8_ops=ops)
 
-    # K3, on the windows stage 2 builds for this dispatch.
-    win, _ = ag._band_windows(b, r_rows, rlens, g1, g2, g3)
-    wins = win.view(len(ag.BAND_TAGS), -1, g3['WIN'])
-    qb = b['fwd'][q_rows.long()].view(-1, ag.FINE)
-    got = ag.band_counts(wins, qb)
-    want = ag.band_counts_plain(wins, qb)
+    # K3: stages 2-4 on the rows in place, against bands_v3_plain (stage 2's
+    # windows, the band counts, the election).
+    k3_args = (b, r_rows, rlens, q_rows, cnt1, g1, cnt2, g2, ag.V3_TBAND,
+               ag.V3_SMIN, g3)
+    got = ag._bands_v3(*k3_args)
+    want = ag.bands_v3_plain(*k3_args)
     torch.cuda.synchronize()
-    k3_err = max(int((got[0].int() - want[0].int()).abs().max()),
-                 int((got[1] - want[1]).abs().max()))
-    if k3_err:
+    outs = ('cnt', 'cnt_best', 'A', 'S', 'D')
+    k3_err = max(int((got[k].int() - want[k].int()).abs().max())
+                 for k in outs)
+    if k3_err or any(got[k].dtype != want[k].dtype for k in outs):
         fail(f'K3 != plain at bucket {kb} (max abs err {k3_err})')
-    k3_ms = time_ms(lambda: ag.band_counts(wins, qb), 5)
-    k3_dev = device_ms_item(lambda: ag.band_counts(wins, qb), 5)
-    k3_plain = time_ms(lambda: ag.band_counts_plain(wins, qb), 1)
-    n = qb.shape[0]
+    del got, want
+    k3_ms = time_ms(lambda: ag._bands_v3(*k3_args), 5)
+    k3_dev = device_ms_item(lambda: ag._bands_v3(*k3_args), 5)
+    k3_plain = time_ms(lambda: ag.bands_v3_plain(*k3_args), 1)
+    n = tasks * (kb // ag.FINE)
     band = g3['BAND']
-    # The cheapest sequence: bases as bit planes (low bit, high bit,
-    # valid), 32 a word, so one word a fine block, band and shift: 3
-    # funnel shifts align the window's planes, 3 LOP3 give the valid
-    # matches, a population count (4 slots) and 3 for the packed election
-    # max; 13 int32 slots. The windows and query bases read once, counts
-    # and election written.
-    ops = 13.0 * len(ag.BAND_TAGS) * n * band
-    nbytes = wins.numel() + qb.numel() + len(ag.BAND_TAGS) * n * band + 4 * n
+    # Operations: k3_slots. Bytes: the distinct wide rows and the queries'
+    # codes read once, stage 1's four (tasks, NQB) int32 read, the counts
+    # and the election (cnt_best, D, A, S: 10 bytes a fine block) written.
+    ops = k3_slots(torch, b, r_rows, rlens, q_rows, g1, g2, g3)
+    nbytes = (v3_row_bytes(torch, r_rows, rlens, g1, g2, g3)
+              + len(torch.unique(q_rows)) * kb + 16 * tasks * g3['NQB']
+              + len(ag.BAND_TAGS) * n * band + 10 * n)
     t_ops = ops / INT32_SLOTS_PER_S * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    k3 = dict(name='band_counts', route='cuda',
-              source='vclust_tpu_torch/csrc/align_v3.cu',
-              replaces='vclust_tpu/ops/align_tpu.py:1175', design=K3_DESIGN,
-              max_abs_err=k3_err, ms=k3_ms, **k3_dev,
-              plain_ms=k3_plain, bound_ms=max(t_ops, t_bytes),
-              bound_by='operations' if t_ops >= t_bytes else 'bytes',
-              library_ms=None,
-              at=f'bucket {kb}: {n} fine blocks x 4 bands x {band} shifts',
-              int32_slots=ops)
+    k3 = with_shares(dict(
+        name='_bands_v3', route='cuda',
+        source='vclust_tpu_torch/csrc/align_v3.cu',
+        replaces='vclust_tpu/ops/align_tpu.py:1162', design=K3_DESIGN,
+        max_abs_err=k3_err, ms=k3_ms, **k3_dev, plain_ms=k3_plain,
+        bound_ms=max(t_ops, t_bytes),
+        bound_by='operations' if t_ops >= t_bytes else 'bytes',
+        library_ms=None,
+        at=f'bucket {kb}: B={B} rows x K={K}, {n} fine blocks x 4 bands x '
+           f'{band} shifts',
+        int32_slots=ops, bytes=nbytes, bound_bytes_ms=t_bytes))
     return k2, k3, (s1, rlens, (cnt1, g1, cnt2, g2), B, K, g3)
 
 
@@ -1408,9 +1491,10 @@ def k5_k4_alone(torch, ag, b, inputs, kb: int):
     p = ag.AlignParams()
     el = ag._bands_v3(b, r_rows, rlens, q_rows, cnt1, g1, cnt2, g2,
                       ag.V3_TBAND, ag.V3_SMIN, g3)
-    k5 = k5_alone(torch, ag, el, g3, at)
+    args = (b, r_rows, rlens, q_rows, g1, g2)
+    k5 = k5_alone(torch, ag, el, args, g3, at)
     flat = [x.reshape((N,) + x.shape[2:])
-            for x in ag._propagate_v3(el, g3)]
+            for x in ag._propagate_v3(el, *args, g3)]
     del el
     rl = rlens[:, None].expand(B, K).reshape(N)
     k4 = k4_alone(torch, ag, flat, rl, kb,
@@ -1418,11 +1502,23 @@ def k5_k4_alone(torch, ag, b, inputs, kb: int):
     return k5, k4
 
 
+def peak_bytes(torch, fn) -> int:
+    """Device bytes one call of fn holds at its peak above those allocated
+    before it (torch.cuda.max_memory_allocated)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
 def align_v3_dispatch(torch, dev, ag, idx, codes, seed: int, kb=65536):
     """K2 and K3 alone on one full dispatch at bucket `kb` (k2_k3_alone);
     K5 alone on its stage-4 results and K4 alone on its stage-5-6 results
     (without and with records), each against its plain version
-    (k5_k4_alone); then the time of each stage of that dispatch."""
+    (k5_k4_alone); then the time of each stage of that dispatch, and the
+    row core's time and peak bytes."""
     b = idx.bucket[(kb, 'v3')]
     k2, k3, inputs = k2_k3_alone(torch, dev, ag, b, codes, seed, kb)
     s1, rlens, (cnt1, g1, cnt2, g2), B, K, g3 = inputs
@@ -1432,6 +1528,11 @@ def align_v3_dispatch(torch, dev, ag, idx, codes, seed: int, kb=65536):
     p = ag.AlignParams()
     kw = dict(mqd=p.mqd, mrd=p.mrd, reg=p.reg)
     tb, sm = ag.V3_TBAND, ag.V3_SMIN
+
+    def row_core(**extra):
+        return lambda: ag._row_core_v3(b, r_rows, rlens, q_rows, tb, sm,
+                                       Lq=kb, Lr=kb, K=K, **kw, **extra)
+
     stages = dict(
         stage1_ms=time_ms(lambda: ag._stage1_v3(*s1), 3),
         bands_ms=time_ms(lambda: ag._bands_v3(
@@ -1441,14 +1542,11 @@ def align_v3_dispatch(torch, dev, ag, idx, codes, seed: int, kb=65536):
         back_half_records_ms=k4['records']['ms'],
         back_half_plain_ms=k4['aggregates']['plain_ms'],
         back_half_records_plain_ms=k4['records']['plain_ms'],
-        row_core_ms=time_ms(lambda: ag._row_core_v3(
-            b, r_rows, rlens, q_rows, tb, sm, Lq=kb, Lr=kb, K=K, **kw), 3),
-        row_core_records_ms=time_ms(lambda: ag._row_core_v3(
-            b, r_rows, rlens, q_rows, tb, sm, Lq=kb, Lr=kb, K=K,
-            with_alns=True, **kw), 3))
+        row_core_ms=time_ms(row_core(), 3),
+        row_core_records_ms=time_ms(row_core(with_alns=True), 3),
+        row_core_peak_bytes=peak_bytes(torch, row_core()))
     with plain_kernels(ag):
-        stages['row_core_plain_ms'] = time_ms(lambda: ag._row_core_v3(
-            b, r_rows, rlens, q_rows, tb, sm, Lq=kb, Lr=kb, K=K, **kw), 3)
+        stages['row_core_plain_ms'] = time_ms(row_core(), 3)
     emit(dict(phase='align_v3_dispatch', bucket=kb, rows=B, K=K,
               k2=k2, k3=k3, k4=k4, k5=k5, stages=stages))
     k4_row = dict(

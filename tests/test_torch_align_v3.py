@@ -274,6 +274,25 @@ def test_dispatch_rows_follow_the_bytes_each_device_holds():
     assert ag._dispatch_rows(4096, 8, CPU, False) > cpu
 
 
+@pytest.mark.parametrize('L,alns,rows', [(65536, False, 34),
+                                         (65536, True, 23),
+                                         (4096, False, 546)])
+def test_dispatch_rows_hold_no_windows_on_the_card(L, alns, rows):
+    """On the card a v3 query holds the four bands' counts and no windows
+    (K3 and K5 read the wide rows in place): B = 34 at 65,536 (23 with
+    records; 26 and 20 while the windows were live) and 546 at 4,096. The
+    CPU's plain versions build the windows, and its budget counts them."""
+    g3 = ag._v3_geom(L, L)
+    per_pos = ag._BYTES_PER_POS_RECORDS if alns else ag._BYTES_PER_POS
+    counts = 4 * (L // 32) * g3['BAND']
+    B = ag._dispatch_rows(L, 8, torch.device('cuda'), alns)
+    assert B == ag._LIVE_BYTES // (8 * (counts + L * per_pos)) == rows
+    windows = 4 * (L // 32) * g3['WIN']
+    operand = 2 * g3['NQB'] * ag.V3_H * 4
+    assert ag._dispatch_rows(L, 8, CPU, alns) == ag._LIVE_BYTES // (
+        8 * (counts + windows + operand + L * per_pos))
+
+
 def test_record_cap_warns_only_when_it_overflows(monkeypatch):
     codes = _row_genomes(4096)
     pairs = _all_pairs(len(codes))

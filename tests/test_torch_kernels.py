@@ -17,9 +17,10 @@ import torch
 
 sys.path.insert(0, '.')
 
-from back_half_cases import (CASES, PARAMS, back_half_case,  # noqa: E402
-                             chain_case, last_chunk_case, long_segment_case,
-                             propagate_case, sparse_cap_case)
+from back_half_cases import (CASES, K3_ARGS, K5_ARGS,  # noqa: E402
+                             PARAMS, back_half_case, bands_case, chain_case,
+                             last_chunk_case, long_segment_case,
+                             propagate_case, sparse_cap_case, torch_args)
 from v2_cases import (CRAFTED, chain_election, clipped_election,  # noqa
                       crafted_case, distinct_election, election_case,
                       random_election, relay_election, v2_arena, v2_genomes,
@@ -405,49 +406,98 @@ def test_k2_wrapper_rejects_what_tma_cannot_read(cuda_device):
     assert tav.stage1_pack.launches == before
 
 
-def _band_inputs(seed, n, win, ties=False, clean=False):
-    """K3 inputs: windows of four bands over codes 0-4 (N runs in both),
-    and query blocks copied from the windows at random shifts. ties: the
-    four bands hold the same window, of period 4, so counts tie across
-    bands and shifts. clean: N only in one band of every 16th block and in
-    every 16th query, as in genomes (most bands take the kernel's path
-    without "is a base" planes)."""
-    rng = np.random.default_rng(seed)
-    wins = rng.integers(0, 4, (4, n, win)).astype(np.int8)
-    wins[:, ::16 if clean else 1, 40:47] = 4
-    if ties:
-        wins[:] = np.tile(rng.integers(0, 4, (1, n, 4)), (1, 1, win // 4))
-    shift = rng.integers(0, win - 32, n)
-    qb = wins[rng.integers(0, 4, (n, 1)), np.arange(n)[:, None],
-              shift[:, None] + np.arange(32)]
-    sub = rng.random(qb.shape) < 0.15
-    qb[sub] = rng.integers(0, 4 if clean else 5, sub.sum())
-    qb[::16 if clean else 7, 3:9] = 4
-    return torch.from_numpy(np.ascontiguousarray(wins)), torch.from_numpy(
-        np.ascontiguousarray(qb))
+def _k3_matches(device, case, tband=None, smin=None):
+    """K3 == bands_v3_plain on `case`'s arena on `device`, every output, in
+    one launch. Returns K3's outputs, the arena and the other arguments."""
+    tband = tav.V3_TBAND if tband is None else tband
+    smin = tav.V3_SMIN if smin is None else smin
+    b, args = torch_args(torch, case, K3_ARGS, device)
+    before = tav._bands_v3.launches
+    got = tav._bands_v3(b, *args, tband, smin, case['g3'])
+    want = tav.bands_v3_plain(b, *args, tband, smin, case['g3'])
+    torch.cuda.synchronize()
+    assert tav._bands_v3.launches == before + 1
+    assert set(got) == set(want)
+    for k, w in want.items():
+        assert got[k].dtype == w.dtype and torch.equal(got[k], w), k
+    return got, b, args
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize('n,win,ties', [
-    (5000, 256, False), (777, 128, False), (300, 544, False),
-    (1000, 256, True),
-    # n not a multiple of a CTA's 8 warps; WIN of the smallest WQ (64); a
-    # band of 8 shifts, less than a warp's 32
-    (1, 256, False), (4097, 256, False), (2000, 192, False),
-    (3000, 40, False),
+@pytest.mark.parametrize('wq,R,K,NQB,mode', [
+    (128, 25, 8, 25, None), (64, 3, 8, 16, None), (416, 2, 4, 6, None),
+    (128, 4, 8, 8, 'ties'),
+    # one coarse block (a warp in a CTA of 8); 525 warps, not a multiple
+    # of a CTA's 8; 3 and 6 fine blocks a coarse block
+    (128, 1, 1, 1, None), (128, 5, 7, 15, None), (96, 2, 8, 11, None),
+    (192, 7, 3, 10, None),
     # N runs as rare as in genomes
-    (3001, 256, 'clean'), (500, 544, 'clean')])
-def test_k3_kernel_matches_plain(cuda_device, n, win, ties):
-    wins, qb = (a.to(cuda_device) for a in _band_inputs(
-        n + win, n, win, ties is True, clean=ties == 'clean'))
-    before = tav.band_counts.launches
-    cnt, bb = tav.band_counts(wins, qb)
-    want_cnt, want_bb = tav.band_counts_plain(wins, qb)
+    (128, 6, 8, 30, 'clean'), (416, 3, 8, 4, 'clean')])
+def test_k3_kernel_matches_plain(cuda_device, wq, R, K, NQB, mode):
+    """Stages 2-4's kernel (the rows read in place, the election decoded)
+    == bands_v3_plain on seeded arenas: codes 4 in rows and queries,
+    candidates at blocks 0 and NRB - 1, references whose lengths are not
+    multiples of 32, V3_WQ 64-416."""
+    got, _, _ = _k3_matches(cuda_device, bands_case(
+        wq * R + NQB, R, K, NQB, wq, ties=mode == 'ties',
+        clean=mode == 'clean'))
+    if mode == 'ties':     # every band ties: candidate 1 forward wins
+        assert not got['S'].any()
+
+
+@pytest.mark.gpu
+def test_k3_kernel_thresholds(cuda_device):
+    """tband below the threshold's floor of 4 (the min wins) and smin // 2
+    below 3 (candidate 2's gate is 3)."""
+    _k3_matches(cuda_device, bands_case(11, 3, 8, 9, 96), tband=3, smin=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('bucket,B', [(65536, 26), (4096, None)])
+def test_k3_k5_kernels_at_dispatch_shapes(cuda_device, bucket, B):
+    """K3 and then K5 on K3's election, each == its plain version, at a
+    full dispatch of K = 8 queries: bucket 65,536 at the parent's B = 26
+    (NQB = 512, NRB = 2,048) and 4,096 at this budget's B (NQB = 32)."""
+    B = B or tav._dispatch_rows(bucket, 8, cuda_device, False)
+    case = bands_case(bucket, B, 8, bucket // 128, 128, clean=True,
+                      nrb=bucket // 32)
+    el, b, args = _k3_matches(cuda_device, case)
+    r_rows, rlens, q_rows, _, g1, _, g2 = args
+    k5 = (el, b, r_rows, rlens, q_rows, g1, g2, case['g3'])
+    before = tav._propagate_v3.launches
+    got = tav._propagate_v3(*k5)
+    want = tav.propagate_v3_plain(*k5)
     torch.cuda.synchronize()
-    assert tav.band_counts.launches == before + 1
-    assert torch.equal(cnt, want_cnt) and torch.equal(bb, want_bb)
-    if ties is True:
-        assert ((bb & 3072) == 3072).all()
+    assert tav._propagate_v3.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert got[0].any()
+
+
+@pytest.mark.gpu
+def test_k3_k5_on_a_misaligned_arena(cuda_device):
+    """K3 reads the rows and query codes a byte at a time, so an arena at an
+    odd address is read as any other (== plain); K5 reads them as words
+    and raises on it, without a launch."""
+    case = bands_case(5, 2, 3, 4, 128)
+    b, args = torch_args(torch, case, K3_ARGS, cuda_device)
+    odd = {}
+    for k, v in b.items():
+        odd[k] = torch.empty(v.numel() + 1, dtype=torch.int8,
+                             device=cuda_device)[1:].view(v.shape)
+        odd[k].copy_(v)
+        assert odd[k].is_contiguous() and odd[k].data_ptr() % 4
+    tb, sm, g3 = tav.V3_TBAND, tav.V3_SMIN, case['g3']
+    got = tav._bands_v3(odd, *args, tb, sm, g3)
+    want = tav.bands_v3_plain(b, *args, tb, sm, g3)
+    torch.cuda.synchronize()
+    for k, w in want.items():
+        assert torch.equal(got[k], w), k
+    r_rows, rlens, q_rows, _, g1, _, g2 = args
+    before = tav._propagate_v3.launches
+    with pytest.raises(ValueError, match='4-byte aligned'):
+        tav._propagate_v3(got, odd, r_rows, rlens, q_rows, g1, g2, g3)
+    assert tav._propagate_v3.launches == before
 
 
 def _k4_both(device, case, Lq, params, with_alns):
@@ -495,23 +545,15 @@ def test_k4_kernel_matches_plain(cuda_device, Lq, case, params):
 def test_k5_kernel_matches_plain(cuda_device, monkeypatch, R, K, NBF, band,
                                  ties, knobs):
     """Stages 5-6's kernel == its plain version on crafted band counts and
-    windows (with ties across the bands), every output."""
+    arenas (with ties across the bands), every output."""
     if knobs:
         for name, v in zip(('EXT_ITERS', 'EXT_MIN', 'EXT_MARGIN',
                             'V3_CONT'), knobs):
             monkeypatch.setattr(tav, name, v)
-    el = {k: torch.from_numpy(v).to(cuda_device)
-          for k, v in propagate_case(NBF + R, R, K, NBF, band, ties).items()}
-    g3 = dict(BAND=band, WIN=band + 32)
-    before = tav._propagate_v3.launches
-    got = tav._propagate_v3(el, g3)
-    want = tav.propagate_v3_plain(el, g3)
-    torch.cuda.synchronize()
-    assert tav._propagate_v3.launches == before + 1
-    for g, w in zip(got, want):
-        assert g.dtype == w.dtype and torch.equal(g, w)
-    if not knobs or knobs[0]:
-        assert not torch.equal(got[5], el['D'])     # something was adopted
+    case = propagate_case(NBF + R, R, K, NBF, band, ties)
+    got = _k5_matches(cuda_device, case)
+    if not knobs or knobs[0]:     # something was adopted
+        assert not np.array_equal(got[5].cpu().numpy(), case['el']['D'])
 
 
 def _k4_arrays_match(device, x, Lq, params):
@@ -588,12 +630,15 @@ def test_k4_one_row_stride0_rlen(cuda_device):
         assert torch.equal(g, w)
 
 
-def _k5_matches(device, el, g3):
-    el = {k: torch.from_numpy(v).to(device) for k, v in el.items()
-          if k != 'chain'}
+def _k5_matches(device, case):
+    """K5 == propagate_v3_plain on a `propagate_case`, every output, in one
+    launch: the election, the arena's rows and query codes, r_rows, rlens,
+    q_rows, g1, g2."""
+    el = {k: torch.from_numpy(v).to(device) for k, v in case['el'].items()}
+    b, args = torch_args(torch, case, K5_ARGS, device)
     before = tav._propagate_v3.launches
-    got = tav._propagate_v3(el, g3)
-    want = tav.propagate_v3_plain(el, g3)
+    got = tav._propagate_v3(el, b, *args, case['g3'])
+    want = tav.propagate_v3_plain(el, b, *args, case['g3'])
     torch.cuda.synchronize()
     assert tav._propagate_v3.launches == before + 1
     for g, w in zip(got, want):
@@ -615,8 +660,8 @@ def test_k5_tile_edges(cuda_device, monkeypatch, R, K, NBF, iters, ties):
     128 - 2 EXT_ITERS - 1: 121 at EXT_ITERS = 3, 95 at 16) at ragged block
     counts, one block and EXT_ITERS 0 and 16."""
     monkeypatch.setattr(tav, 'EXT_ITERS', iters)
-    el = propagate_case(NBF + iters, R, K, NBF, 224, ties)
-    _k5_matches(cuda_device, el, dict(BAND=224, WIN=256))
+    _k5_matches(cuda_device, propagate_case(NBF + iters, R, K, NBF, 224,
+                                            ties))
 
 
 @pytest.mark.gpu
@@ -626,9 +671,9 @@ def test_k5_chain_across_tile_edge(cuda_device, monkeypatch, c0, iters):
     """A state handed on block by block across the edge between two tiles
     (at 125 and 246 at EXT_ITERS = 3, at 112 and 207 at 16)."""
     monkeypatch.setattr(tav, 'EXT_ITERS', iters)
-    el = chain_case(c0, 1, 2, 400, 224, c0, iters)
-    got = _k5_matches(cuda_device, el, dict(BAND=224, WIN=256))
-    lo, hi = el['chain']
+    case = chain_case(c0, 1, 2, 400, 224, c0, iters)
+    got = _k5_matches(cuda_device, case)
+    lo, hi = case['chain']
     assert got[3][..., lo:hi].all() and int(got[3].sum()) == 2 * (hi - lo)
 
 
@@ -662,15 +707,18 @@ def test_cpu_tensors_take_the_plain_version():
 def test_cpu_tensors_take_the_plain_k2_and_k3():
     """K2 and K3 wrappers answer CPU tensors with their plain versions,
     without a launch."""
-    before = (tav.stage1_pack.launches, tav.band_counts.launches)
+    before = (tav.stage1_pack.launches, tav._bands_v3.launches)
     args = _stage1_inputs(3, 4, 80, 300, 256, ties=True)
     for g, w in zip(tav.stage1_pack(*args), tav.stage1_pack_plain(*args)):
         assert torch.equal(g, w)
-    wins, qb = _band_inputs(4, 200, 256)
-    for g, w in zip(tav.band_counts(wins, qb),
-                    tav.band_counts_plain(wins, qb)):
-        assert torch.equal(g, w)
-    assert (tav.stage1_pack.launches, tav.band_counts.launches) == before
+    case = bands_case(4, 2, 2, 4, 128)
+    b, args = torch_args(torch, case, K3_ARGS)
+    got = tav._bands_v3(b, *args, 17, 5, case['g3'])
+    want = tav.bands_v3_plain(b, *args, 17, 5, case['g3'])
+    assert set(got) == set(want)
+    for k, w in want.items():
+        assert torch.equal(got[k], w), k
+    assert (tav.stage1_pack.launches, tav._bands_v3.launches) == before
 
 
 def test_cpu_tensors_take_the_plain_k4_and_k5():
@@ -682,11 +730,11 @@ def test_cpu_tensors_take_the_plain_k4_and_k5():
     for g, w in zip(tav._blocks_to_measures(*x, **kw),
                     tav.blocks_to_measures_plain(*x, **kw)):
         assert torch.equal(g, w)
-    el = {k: torch.from_numpy(v)
-          for k, v in propagate_case(6, 2, 2, 64, 224).items()}
-    g3 = dict(BAND=224, WIN=256)
-    for g, w in zip(tav._propagate_v3(el, g3),
-                    tav.propagate_v3_plain(el, g3)):
+    case = propagate_case(6, 2, 2, 64, 224)
+    el = {k: torch.from_numpy(v) for k, v in case['el'].items()}
+    b, args = torch_args(torch, case, K5_ARGS)
+    for g, w in zip(tav._propagate_v3(el, b, *args, case['g3']),
+                    tav.propagate_v3_plain(el, b, *args, case['g3'])):
         assert torch.equal(g, w)
     assert (tav._blocks_to_measures.launches,
             tav._propagate_v3.launches) == before
@@ -1041,7 +1089,7 @@ def test_all2all_gpu_card_matches_cpu(cuda_device, monkeypatch, pipe):
     n = len(codes)
     pairs = np.array([(i, j) for i in range(n) for j in range(i + 1, n)],
                      np.int32)
-    counters = (tav.stage1_pack, tav.band_counts, tav._propagate_v3,
+    counters = (tav.stage1_pack, tav._bands_v3, tav._propagate_v3,
                 tav._blocks_to_measures)
     before = [c.launches for c in counters]
     got = tav.all2all_gpu(codes, pairs, keep_alignments=True,

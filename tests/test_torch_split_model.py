@@ -1,5 +1,18 @@
-"""Models, in numpy, of how kernels K5 and K4 cut their work across the
-card, held against the plain versions on the CPU.
+"""Models, in numpy, of how kernels K3, K5 and K4 cut their work across
+the card, held against the plain versions on the CPU.
+
+K3 (csrc/align_v3.cu, `bands_kernel`): a warp takes a coarse block of
+one task and reads each band's wide row in place (the candidate's block
+on the forward strand, its mirror, clamped, on the reverse): it builds the
+row's plane words (low bit, high bit, "is a base") once, 2 FPB + 3 words
+from byte 16 on, and fine block k's window is words k .., so a shift is a
+funnel shift of two of them; a band without codes above 3 in its row and
+query skips the "is a base" planes. The election's packed max is reduced
+over the warp and decoded by lane k: count, strand, diagonal (the band's
+first, 32 g - (q + 1) WQ - 16, plus the shift), and the gate and
+threshold. The model forms the same words and shifts, on seeded arenas at
+V3_WQ 64 to 416, with codes 4 in rows and queries, candidates at blocks 0
+and NRB - 1, and rows whose lengths are not multiples of 32.
 
 K5 (csrc/align_v3.cu, `propagate_kernel`): a warp takes a tile of T
 blocks of one pair, EXT_ITERS + 1 blocks of halo on its left and
@@ -8,7 +21,10 @@ states its cone can hand it are gathered before the first step (the
 candidate table; only initially assigned candidates), and the steps carry
 each block's source index. The model runs the same tiles (here of 8 to 128
 blocks, so that edges occur) and asserts that every source a step reads
-lies in the table and was assigned from the start.
+lies in the table and was assigned from the start. Its bands' first
+diagonals come from g1 and g2 (K3's rule), and its flags read each
+band's window from the band's row: bytes 16 + 32 (f % FPB) + shift of
+row (first diagonal + (f / FPB + 1) WQ + 16) / 32.
 
 K4 (csrc/back_half.cu, `back_half_kernel`): a CTA takes a chunk of CW
 words (one word a fine block) of one pair. From its own words it forms a
@@ -25,8 +41,9 @@ fills the unused record rows with -1. The model runs chunks of 3 to 512
 words, and its look-back finds each predecessor's inclusive state or only
 its summary at random (from a seed), as the kernel may.
 
-Inputs from tests/back_half_cases.py (seeded numpy); every output is an
-integer or a flag, so the tolerance is 0. No JAX program runs here.
+Inputs from tests/back_half_cases.py (seeded numpy; K3's and K5's on
+crafted arenas of wide rows and query codes); every output is an integer
+or a flag, so the tolerance is 0. No JAX program runs here.
 """
 
 import sys
@@ -37,9 +54,10 @@ import torch
 
 sys.path.insert(0, '.')
 
-from back_half_cases import (CASES, PARAMS, back_half_case,  # noqa: E402
+from back_half_cases import (CASES, K3_ARGS, K5_ARGS,  # noqa: E402
+                             PARAMS, back_half_case, band_rows, bands_case,
                              chain_case, last_chunk_case, long_segment_case,
-                             propagate_case)
+                             propagate_case, torch_args)
 from vclust_tpu_torch.ops import align_gpu as ag  # noqa: E402
 
 torch.set_num_threads(1)
@@ -48,20 +66,152 @@ FINE = 32
 M32 = 0xffffffff
 
 # --------------------------------------------------------------------------
+# K3
+# --------------------------------------------------------------------------
+
+_POPC8 = np.array([bin(i).count('1') for i in range(256)], np.int64)
+_LANES = np.arange(32, dtype=np.uint64)
+
+
+def _popc_words(x):
+    """Population count of 32-bit words held in uint64."""
+    return sum(_POPC8[(x >> np.uint64(8 * i)) & np.uint64(255)]
+               for i in range(4))
+
+
+def _planes(codes):
+    """Codes (..., 32) -> the words of the three planes (low bit, high bit,
+    code in 0-3), bit p = code p, as uint64."""
+    bit = np.uint64(1) << _LANES
+    c = codes.astype(np.int64)
+    return tuple(((x != 0).astype(np.uint64) * bit).sum(-1, dtype=np.uint64)
+                 for x in (c & 1, c & 2, (c >= 0) & (c < 4)))
+
+
+def _shift(w, c):
+    """Each lane's word: bits lane .. lane + 31 of words c and c + 1 (the
+    kernel's funnel shift), (..., 32)."""
+    pair = (w[..., c + 1, None] << np.uint64(32)) | w[..., c, None]
+    return (pair >> _LANES) & np.uint64(M32)
+
+
+def k3_model(case, tband, smin):
+    """K3's outputs as its warps form them: cnt (4, R, K, NBF, BAND) and
+    cnt_best, A, S, D (R, K, NBF)."""
+    g3 = case['g3']
+    FPB, WQ, BAND = g3['FPB'], g3['WQ'], g3['BAND']
+    NW = 2 * FPB + 3
+    R, K, NQB = case['g1'].shape
+    N, NBF = R * K, NQB * FPB
+    gs = band_rows(case).reshape(4, N, NQB)
+    rr = np.repeat(case['r_rows'], K)[:, None]
+    # One plane build a coarse block and band: word c is the row's bytes
+    # 16 + 32 c .. 47 + 32 c, read in place.
+    x = np.stack([case['b']['roww_r' if b & 1 else 'roww_f'][rr, gs[b]]
+                  for b in range(4)])[..., 16:16 + 32 * NW]
+    x = x.reshape(4, N, NQB, NW, 32)
+    wl, wh, wv = _planes(x)
+    bases = ((x >= 0) & (x < 4)).all(axis=(-2, -1))          # (4, N, NQB)
+    wv = np.where(bases[..., None], np.uint64(M32), wv)
+    qc = case['b']['fwd'][case['q_rows'].reshape(N)].reshape(N, NQB, FPB,
+                                                              32)
+    ql, qh, qv = _planes(qc)                                 # (N, NQB, FPB)
+    cnt = np.zeros((4, N, NQB, FPB, FPB + 3, 32), np.int8)
+    best = np.full((N, NQB, FPB), -1, np.int64)
+    t_lane = _LANES.astype(np.int64)
+    for b in range(4):
+        tag = (2048 if b < 2 else 0) | (0 if b & 1 else 1024)
+        for k in range(FPB):
+            # Without codes above 3 in the row and the query block, the
+            # "is a base" planes are left out.
+            fast = bases[b] & (qv[..., k] == M32)
+            q_l, q_h, q_v = (p[..., k, None] for p in (ql, qh, qv))
+            for j in range(FPB + 3):
+                m = ~((q_l ^ _shift(wl[b], k + j))
+                      | (q_h ^ _shift(wh[b], k + j))) & np.uint64(M32)
+                m = np.where(fast[..., None], m,
+                             m & _shift(wv[b], k + j) & q_v)
+                c = _popc_words(m)
+                cnt[b, :, :, k, j] = c
+                best[..., k] = np.maximum(best[..., k], (
+                    (c << 12) | tag | (32 * j + t_lane)).max(-1))
+    # The decode, lane k of the warp.
+    cb = best >> 12
+    c1 = (best & 2048) != 0
+    rev = (best & 1024) == 0
+    g = np.take_along_axis(gs[..., None], (np.where(c1, 0, 2) + rev)[None],
+                           0)[0]
+    q = np.arange(NQB)[:, None]
+    D = 32 * g - (q + 1) * WQ - 16 + (best & 511)
+    c1n, c2n = (case[k].reshape(N, NQB)[..., None] for k in ('cnt1',
+                                                             'cnt2'))
+    gate = np.where(c1, c1n >= smin, c2n >= max(smin // 2, 3))
+    tb = np.minimum(np.maximum((_popc_words(qv) * tband) >> 5, 4), tband)
+    A = (cb >= tb) & gate
+    shape = (R, K, NBF)
+    return dict(cnt=cnt.reshape(4, R, K, NBF, BAND),
+                cnt_best=cb.reshape(shape).astype(np.int32),
+                A=A.reshape(shape), S=rev.reshape(shape),
+                D=D.reshape(shape).astype(np.int32))
+
+
+def _bands_plain(case, tband, smin):
+    b, args = torch_args(torch, case, K3_ARGS)
+    return ag.bands_v3_plain(b, *args, tband, smin, case['g3'])
+
+
+@pytest.mark.parametrize('wq,R,K,NQB,mode,tband,smin', [
+    (64, 2, 3, 8, None, 17, 5),
+    (128, 3, 2, 6, None, 17, 5),
+    (128, 2, 2, 4, 'clean', 17, 5),
+    (416, 1, 2, 3, None, 17, 5),
+    (128, 2, 2, 4, 'ties', 17, 5),
+    # tband below the threshold's floor of 4 (the min wins), smin // 2
+    # below 3
+    (96, 2, 2, 5, None, 3, 1),
+    (128, 5, 1, 1, None, 17, 9)])        # one coarse block a task
+def test_k3_model_matches_plain(wq, R, K, NQB, mode, tband, smin):
+    """K3's rows in place, one plane build a coarse block and band, the
+    mirror at its clamps and the decode == bands_v3_plain (stages 2-4 on
+    the windows of `_band_windows`), every output."""
+    case = bands_case(wq + R + NQB, R, K, NQB, wq, ties=mode == 'ties',
+                      clean=mode == 'clean')
+    want = _bands_plain(case, tband, smin)
+    got = k3_model(case, tband, smin)
+    for k, w in want.items():
+        assert got[k].shape == tuple(w.shape)
+        assert np.array_equal(got[k], w.numpy()), k
+    gs = band_rows(case)
+    assert (gs[0] == 0).any() and (gs[0] == case['g3']['NRB'] - 1).any()
+    if R >= 5:     # the 100-base reference: every mirror clamps to 0
+        assert (gs[1::2, 4] == 0).all()
+    if mode == 'ties':    # every band ties: candidate 1 forward wins
+        assert not got['S'].any()
+    else:
+        assert got['A'].any() and not got['A'].all()
+
+
+# --------------------------------------------------------------------------
 # K5
 # --------------------------------------------------------------------------
 
 
-def k5_model(el, band, iters, ext_min, ext_margin, cont, tile):
+def k5_model(case, iters, ext_min, ext_margin, cont, tile):
     """K5's outputs as its tiles form them: m1, m0 (R, K, Lq) and sw, A,
     S, D, Ap, Sp, Dp (R, K, NBF)."""
-    cnt, base, qb = el['cnt'], el['base'], el['qb']
+    el, g3 = case['el'], case['g3']
+    band, FPB, WQ = g3['BAND'], g3['FPB'], g3['WQ']
     R, K, NBF = el['A'].shape
     N = R * K
-    cnt = cnt.reshape(4, N, NBF, band)
-    win = el['win'].reshape(4, N, NBF, band + FINE)
-    base = base.reshape(4, N, NBF)
-    qb = qb.reshape(N, NBF, FINE)
+    cnt = el['cnt'].reshape(4, N, NBF, band)
+    # The four bands' first diagonals from the coarse blocks' candidates.
+    fcs = np.arange(NBF) // FPB
+    base = 32 * band_rows(case).reshape(4, N, -1)[..., fcs] \
+        - (fcs + 1) * WQ - 16
+    rows = np.stack([case['b']['roww_f'], case['b']['roww_r']])
+    rr = np.repeat(case['r_rows'], K)
+    qrow = case['q_rows'].reshape(N)
+    fwd = case['b']['fwd']
     A0, S0, D0, best = (el[k].reshape(N, NBF) for k in
                         ('A', 'S', 'D', 'cnt_best'))
     E = iters
@@ -137,17 +287,23 @@ def k5_model(el, band, iters, ext_min, ext_margin, cont, tile):
                            ('Ap', ap), ('Sp', sp), ('Dp', dp), ('sw', sw)):
                 res[key][n, fo] = v
             # The flags: the window at the final state (m1) and at the
-            # block before's (m0), each band of the strand read once.
-            q = qb[n, fo]
+            # block before's (m0), each band of the strand read once, from
+            # the band's row; the query bases from the query's codes.
+            q = fwd[qrow[n], 32 * fo[:, None] + np.arange(FINE)]
+            fco = fo // FPB
             for flags, on, ss, dd in ((m1, a[o], s[o], d[o]),
                                       (m0, sw, sp, dp)):
                 hit = np.zeros((len(o), FINE), bool)
                 for k in range(2):
                     b = ss.astype(int) + 2 * k
-                    tn = dd - bs[b, o]
+                    first = bs[b, o]
+                    tn = dd - first
                     ok = on & (tn >= 0) & (tn < band)
-                    at = np.clip(tn, 0, band - 1)[:, None] + np.arange(FINE)
-                    w = win[b[:, None], n, fo[:, None], at]
+                    g = (first + (fco + 1) * WQ + 16) >> 5
+                    at = 16 + 32 * (fo - fco * FPB) + np.clip(tn, 0,
+                                                              band - 1)
+                    w = rows[(b & 1)[:, None], rr[n], g[:, None],
+                             at[:, None] + np.arange(FINE)]
                     hit |= ok[:, None] & (w == q)
                 flags[n, fo] = hit & (q < 4)
     shape = (R, K, NBF)
@@ -156,14 +312,14 @@ def k5_model(el, band, iters, ext_min, ext_margin, cont, tile):
                                               'Sp', 'Dp')))
 
 
-def _k5_check(el, band, knobs, tile, monkeypatch):
+def _k5_check(case, knobs, tile, monkeypatch):
     names = ('EXT_ITERS', 'EXT_MIN', 'EXT_MARGIN', 'V3_CONT')
     for name, v in zip(names, knobs):
         monkeypatch.setattr(ag, name, v)
-    g3 = dict(BAND=band, WIN=band + FINE)
-    want = ag.propagate_v3_plain({k: torch.from_numpy(v) for k, v in
-                                  el.items() if k != 'chain'}, g3)
-    got = k5_model(el, band, *knobs, tile)
+    b, args = torch_args(torch, case, K5_ARGS)
+    el = {k: torch.from_numpy(v) for k, v in case['el'].items()}
+    want = ag.propagate_v3_plain(el, b, *args, case['g3'])
+    got = k5_model(case, *knobs, tile)
     for g, w in zip(got, want):
         assert np.array_equal(g, w.numpy())
     return got
@@ -181,12 +337,14 @@ def _k5_check(el, band, knobs, tile, monkeypatch):
     (2, 3, 121, 224, False, (5, 20, 8, 0), 32)])
 def test_k5_tiles_match_plain(monkeypatch, R, K, NBF, band, ties, knobs,
                               tile):
-    """K5's tiles with halos and candidate tables == propagate_v3_plain,
-    every output, at tile sizes that put edges all over the pairs."""
-    el = propagate_case(NBF + R + K, R, K, NBF, band, ties)
-    got = _k5_check(el, band, knobs, tile, monkeypatch)
+    """K5's tiles with halos and candidate tables, and its windows read
+    from the rows, == propagate_v3_plain, every output, at tile sizes that
+    put edges all over the pairs."""
+    case = propagate_case(NBF + R + K, R, K, NBF, band, ties)
+    got = _k5_check(case, knobs, tile, monkeypatch)
     if knobs[0] and NBF > 1:
-        assert not np.array_equal(got[5], el['D'])   # something adopted
+        assert not np.array_equal(got[5], case['el']['D'])   # adopted
+    assert got[0].any() and got[1].any() or NBF == 1
 
 
 @pytest.mark.parametrize('c0,tile', [(12, 16), (13, 16), (124, 128),
@@ -195,13 +353,24 @@ def test_k5_chain_across_tile_edge(monkeypatch, c0, tile):
     """A state handed on block by block across a tile's edge (K5's tile t
     >= 1 writes from T - EXT_ITERS + (t - 1) (T - 2 EXT_ITERS - 1))."""
     iters = 3
-    el = chain_case(c0, 1, 2, 300, 224, c0, iters)
-    got = _k5_check(el, 224, (iters, 17, 4, 6), tile, monkeypatch)
-    lo, hi = el['chain']
+    case = chain_case(c0, 1, 2, 300, 224, c0, iters)
+    got = _k5_check(case, (iters, 17, 4, 6), tile, monkeypatch)
+    lo, hi = case['chain']
     A = got[3]
     assert A[..., lo:hi].all() and A.sum() == 2 * (hi - lo)
     out = tile - 2 * iters - 1
     assert any(lo < tile - iters + k * out < hi for k in range(300 // out))
+
+
+@pytest.mark.parametrize('wq,NQB', [(128, 8), (64, 12), (416, 2)])
+def test_k5_model_on_k3_output(monkeypatch, wq, NQB):
+    """K5 on stage 4's election of a seeded arena (bands_v3_plain), with
+    its windows read from the same rows K3 read, == propagate_v3_plain."""
+    case = bands_case(wq + NQB, 2, 3, NQB, wq)
+    case['el'] = {k: v.numpy() for k, v in _bands_plain(
+        case, ag.V3_TBAND, ag.V3_SMIN).items()}
+    got = _k5_check(case, (3, 17, 4, 6), 128, monkeypatch)
+    assert got[0].any() and got[3].any()
 
 
 # --------------------------------------------------------------------------

@@ -15,10 +15,13 @@ cut out of the source:
   K3 no_stores     the counts are not stored (the election is).
 K2's inputs: 26 reference rows x 8 queries over arenas of 48 rows of
 2*NQB = 1,024 query half-blocks and NRB = 2,048 reference blocks, H =
-2,048 buckets at 3% occupancy. K3's: 425,984 fine blocks of four 256-base
-windows over codes 0-3, N runs of 7 in 3% of the first band's windows and
-of 4 in 1% of the queries. Only the built kernels' results are checked
-(against the plain versions). Each variant is built by nvcc into
+2,048 buckets at 3% occupancy. K3's (stages 2-4, the wide rows read in
+place): the same 26 x 8 tasks over arenas of 48 rows of wide rows (NRB =
+2,048 rows of 384 codes a strand at V3_WQ = 128) and query codes (65,536),
+codes 0-3 with N runs of 7 in 3% of the rows and of 4 in 1% of the query
+blocks, and candidates g1, g2 drawn at random: 425,984 fine blocks. Only
+the built kernels' results are checked (against the plain versions).
+Each variant is built by nvcc into
 vclust_tpu_torch/_build/probe/ and run in its own process with a time
 limit. Needs one CUDA card:
 
@@ -57,17 +60,17 @@ CUTS = {
         '    for (int c8 = 0; c8 < BN / 8; ++c8) {\n',
         '    for (int c8 = 0; c8 < 0; ++c8) {\n')],
     'k3_three_planes': [(
-        'if (qv == FULL && __all_sync(FULL, (unsigned)o < 4u))',
-        'if (false)')],
+        'if (bases && qv[k] == FULL)', 'if (false)')],
     'k3_no_stores': [(
-        '      out[tt] = (int8_t)c;\n', '')],
+        '    out[t] = (int8_t)c;\n', '')],
 }
 # The kernel each variant is timed for.
 KERNELS = {'base': ('k2', 'k3')}
 KERNELS.update({name: (name[:2],) for name in CUTS if name != 'base'})
 
 H, M2, NRB, G, ROWS, K = 2048, 1024, 2048, 48, 26, 8
-N_FINE, WIN = 425984, 256
+LQ = 65536
+N_FINE = ROWS * K * (LQ // 32)
 
 
 def build(out_dir: pathlib.Path) -> None:
@@ -102,11 +105,25 @@ def k2_inputs(torch, dev, rng):
 
 
 def k3_inputs(torch, dev, rng):
-    wins = rng.integers(0, 4, (4, N_FINE, WIN)).astype(np.int8)
-    wins[0, rng.random(N_FINE) < 0.03, 100:107] = 4
-    qb = rng.integers(0, 4, (N_FINE, 32)).astype(np.int8)
-    qb[rng.random(N_FINE) < 0.01, 5:9] = 4
-    return [torch.from_numpy(a).to(dev) for a in (wins, qb)]
+    """The arena (wide rows of both strands, query codes), r_rows, rlens,
+    q_rows and stage 1's cnt1, g1, cnt2, g2 of K3 at bucket 65,536."""
+    from vclust_tpu_torch.ops import align_gpu as ag
+    g3 = ag._v3_geom(LQ, LQ)
+    rows = rng.integers(0, 4, (2, G, NRB, g3['ROWW'])).astype(np.int8)
+    hit = rng.random((2, G, NRB)) < 0.03
+    rows[hit, 100:107] = 4
+    fwd = rng.integers(0, 4, (G, LQ)).astype(np.int8)
+    blk = fwd.reshape(G, LQ // 32, 32)
+    blk[rng.random((G, LQ // 32)) < 0.01, 5:9] = 4
+    shape = (ROWS, K, g3['NQB'])
+    b = {k: torch.from_numpy(a).to(dev) for k, a in (
+        ('roww_f', rows[0]), ('roww_r', rows[1]), ('fwd', fwd))}
+    args = [torch.from_numpy(a.astype(np.int32)).to(dev) for a in (
+        rng.integers(0, G, ROWS), rng.integers(LQ // 2, LQ + 1, ROWS),
+        rng.integers(0, G, (ROWS, K)), rng.integers(0, 12, shape),
+        rng.integers(0, NRB, shape), rng.integers(0, 8, shape),
+        rng.integers(0, NRB, shape))]
+    return b, args, g3
 
 
 def run(name: str, out_dir: pathlib.Path, seed: int, reps: int) -> list:
@@ -145,23 +162,35 @@ def run(name: str, out_dir: pathlib.Path, seed: int, reps: int) -> list:
         out.append(res)
         del qocc, rocc, p
     if 'k3' in KERNELS[name]:
-        wins, qb = k3_inputs(torch, dev, rng)
-        cnt = torch.empty((4, N_FINE, WIN - 32), dtype=torch.int8,
+        b, args, g3 = k3_inputs(torch, dev, rng)
+        NBF = LQ // 32
+        cnt = torch.empty((4, ROWS, K, NBF, g3['BAND']), dtype=torch.int8,
                           device=dev)
-        bb = torch.empty(N_FINE, dtype=torch.int32, device=dev)
+        best, D = (torch.empty((ROWS, K, NBF), dtype=torch.int32,
+                               device=dev) for _ in range(2))
+        A, S = (torch.empty((ROWS, K, NBF), dtype=torch.bool, device=dev)
+                for _ in range(2))
+        tband, smin = ag.V3_TBAND, ag.V3_SMIN
 
         def call():
-            rc = lib.k3_bands(cuda.ptr(wins), cuda.ptr(qb), N_FINE, WIN,
-                              cuda.ptr(cnt), cuda.ptr(bb), cuda.stream(bb))
+            rc = lib.k3_row_bands(
+                *(cuda.ptr(t) for t in (b['roww_f'], b['roww_r'], b['fwd'],
+                                        *args)),
+                ROWS * K, K, g3['NQB'], NRB, g3['FPB'], tband, smin,
+                max(smin // 2, 3),
+                *(cuda.ptr(t) for t in (cnt, best, A, S, D)),
+                cuda.stream(cnt))
             if rc:
                 raise RuntimeError(f'{name}: CUDA error {rc}')
 
         call()
         res = {'variant': name, 'kernel': 'K3'}
         if name == 'base':
-            want = ag.band_counts_plain(wins, qb)
-            res['eq_plain'] = (torch.equal(cnt, want[0])
-                               and torch.equal(bb, want[1]))
+            want = ag.bands_v3_plain(b, *args, tband, smin, g3)
+            res['eq_plain'] = all(torch.equal(x, want[k]) for k, x in (
+                ('cnt', cnt), ('cnt_best', best), ('A', A), ('S', S),
+                ('D', D)))
+            del want
         res['ms'] = [cs.time_ms(call, reps) for _ in range(2)]
         out.append(res)
     for res in out:

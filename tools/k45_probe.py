@@ -6,9 +6,9 @@ align paths that chip_smoke.py drives.
 Points (inputs built from the corpora of chip_smoke.py, query rows drawn
 from --seed):
   v3 65536   the 48 genomes at bucket 65,536: B rows x K = 8 queries
-             (B = 26 on an 80 GB card, NBF = 2,048), K5 and then K4 on
-             K5's outputs;
-  v3 4096    contigs128 at bucket 4,096 (B = 431, NBF = 128), the same;
+             (B = 34, NBF = 2,048), K5 (its windows read from the wide
+             rows) and then K4 on K5's outputs;
+  v3 4096    contigs128 at bucket 4,096 (B = 546, NBF = 128), the same;
   v2 65536   the 48 genomes' v2 dispatch at 65,536 (B = 45): K4 on the
              v2 front end's flags;
   v2 262144  the v2 corpus of chip_smoke.py at 262,144 (B = 11, NBF =
@@ -37,7 +37,7 @@ Run it from the root of a checkout (it imports that checkout's
 chip_smoke.py and vclust_tpu_torch), with one CUDA card:
 
     python3 tools/k45_probe.py [--seed N] [--reps N] [--check-only]
-                               [--cuts]
+                               [--cuts] [--rows B65536,B4096]
 
 Prints one JSON line a point and kernel (and variant), then the card's
 name and power limit (nvidia-smi).
@@ -137,9 +137,10 @@ def variants(cuda, ag, cut_libs, kernel):
     use(built)()
 
 
-def v3_inputs(torch, dev, ag, cs, corpus, kb, seed):
+def v3_inputs(torch, dev, ag, cs, corpus, kb, seed, rows=None):
     """One full v3 dispatch at bucket kb: K5's inputs (the `_bands_v3`
-    dict and geometry) and the rows' reference lengths."""
+    dict; the arena, r_rows, rlens, q_rows, g1, g2; the geometry) and the
+    rows' reference lengths."""
     import numpy as np
     codes, pairs = cs.align_inputs(corpus)
     lens = [len(c) for c in codes]
@@ -149,7 +150,7 @@ def v3_inputs(torch, dev, ag, cs, corpus, kb, seed):
     b = ag.GenomeIndex(codes, device=dev).ensure_v3(kb, gids)
     g3 = ag._v3_geom(kb, kb)
     K = ag.K_QUERIES
-    B = ag._dispatch_rows(kb, K, dev, False)
+    B = rows or ag._dispatch_rows(kb, K, dev, False)
     rng = np.random.default_rng(seed)
     long_ = [g for g in b['rows'] if ag._pad_bucket(len(codes[g])) == kb]
     refs = [long_[w % len(long_)] for w in range(B)]
@@ -162,8 +163,9 @@ def v3_inputs(torch, dev, ag, cs, corpus, kb, seed):
     s1 = ag._stage1_v3(b['qocc'], b['rocc'], r_rows, q_rows)
     el = ag._bands_v3(b, r_rows, rlens, q_rows, *s1, ag.V3_TBAND,
                       ag.V3_SMIN, g3)
+    args = (b, r_rows, rlens, q_rows, s1[1], s1[3])
     rl = rlens[:, None].expand(B, K).reshape(B * K)
-    return el, g3, rl, f'v3 bucket {kb}: B={B} x K={K}, NBF={kb // 32}'
+    return el, args, g3, rl, f'v3 bucket {kb}: B={B} x K={K}, NBF={kb // 32}'
 
 
 def v2_dispatch(torch, dev, ag, cs, corpus, kb, seed):
@@ -234,14 +236,14 @@ def cut_times(cs, cuda, ag, cut_libs, kernel, fn, at, reps, **extra):
     print(json.dumps(out), flush=True)
 
 
-def k5_point(torch, ag, cs, el, g3, at, reps, check_only):
-    got = ag._propagate_v3(el, g3)
-    same(got, ag.propagate_v3_plain(el, g3), f'K5 at {at}')
+def k5_point(torch, ag, cs, el, args, g3, at, reps, check_only):
+    got = ag._propagate_v3(el, *args, g3)
+    same(got, ag.propagate_v3_plain(el, *args, g3), f'K5 at {at}')
     out = dict(kernel='K5', at=at, eq_plain=True,
-               **timed(cs, lambda: ag._propagate_v3(el, g3), reps,
+               **timed(cs, lambda: ag._propagate_v3(el, *args, g3), reps,
                        check_only))
     if not check_only:
-        out['bound_ms'] = cs.k5_bytes(torch, ag, el, g3) \
+        out['bound_ms'] = cs.k5_bytes(torch, ag, el, args, g3) \
             / cs.HBM_BYTES_PER_S * 1e3
         if out['device_ms']:
             out['share_of_bound'] = out['bound_ms'] / out['device_ms']
@@ -278,6 +280,9 @@ def main():
                     help='compare with the plain versions, time nothing')
     ap.add_argument('--cuts', action='store_true',
                     help='time the variants with a part cut out')
+    ap.add_argument('--rows', default='',
+                    help='B at 65,536 and at 4,096, as "B1,B2" (default: '
+                         'the live-bytes budget\'s)')
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -304,17 +309,19 @@ def main():
                 ag._blocks_to_measures(*flat, rl, Lq=kb, with_alns=alns,
                                        **kw)), at, reps, records=alns)
 
-    for corpus, kb in ((cs.mutant_corpus(), 65536),
-                       (cs.contig_corpus(), 4096)):
-        el, g3, rl, at = v3_inputs(torch, dev, ag, cs, corpus, kb, args.seed)
-        outs = k5_point(torch, ag, cs, el, g3, at, reps,
+    rows = [int(x) for x in args.rows.split(',')] if args.rows else [0, 0]
+    for (corpus, kb), B in zip(((cs.mutant_corpus(), 65536),
+                                (cs.contig_corpus(), 4096)), rows):
+        el, k5_args, g3, rl, at = v3_inputs(torch, dev, ag, cs, corpus, kb,
+                                            args.seed, B)
+        outs = k5_point(torch, ag, cs, el, k5_args, g3, at, reps,
                         chk or cut_libs is not None)
         if cut_libs is not None:
             cut_times(cs, cuda, ag, cut_libs, 'K5',
-                      lambda: ag._propagate_v3(el, g3), at, reps)
+                      lambda: ag._propagate_v3(el, *k5_args, g3), at, reps)
         N = rl.shape[0]
         flat = [x.reshape((N,) + x.shape[2:]) for x in outs]
-        del el, outs
+        del el, outs, k5_args
         k4(flat, rl, kb, at)
         del flat
         torch.cuda.empty_cache()

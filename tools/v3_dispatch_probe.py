@@ -9,8 +9,8 @@ contigs, made in the run):
           device bytes above those allocated before it
           (torch.cuda.max_memory_allocated), their slope per query, and the
           bytes a query position that slope implies once the four bands'
-          windows and counts are taken off (the measured counterpart of
-          `_BYTES_PER_POS`);
+          counts are taken off (K3 and K5 read the windows from the wide
+          rows in place; the measured counterpart of `_BYTES_PER_POS`);
   sweep   `_all2all_single(..., pipe='v3')` over each corpus with the live-bytes budget
           `_LIVE_BYTES` at 0.5, 1, 2, 4 and 8 GiB, the budgets interleaved
           in every repetition: B at each bucket, K2 launches, warm pairs/s
@@ -81,7 +81,7 @@ def dispatch_memory(torch, dev, ag, idx, codes, kb=65536, K=8, seed=0):
             peaks.append(torch.cuda.max_memory_allocated() - base)
             del out
         slope = (peaks[-1] - peaks[0]) / ((ROWS[-1] - ROWS[0]) * K)
-        bands = 4 * (kb // ag.FINE) * (g3['WIN'] + g3['BAND'])
+        bands = 4 * (kb // ag.FINE) * g3['BAND']
         res['records' if with_alns else 'aggregates'] = dict(
             peak_bytes_by_rows=dict(zip(ROWS, peaks)),
             bytes_per_query=slope, band_bytes_per_query=bands,

@@ -3,11 +3,11 @@
 //
 // Replace the XLA device programs of the JAX package's `_row_core_v3` (its
 // ops/align_tpu.py): stage 1, the occupancy product with its packed maxes
-// (:1108-1157), stages 3-4, the band counts and their election
-// (:1175-1212), and stages 5-6, the neighbour propagation and the final
-// flags (:1235-1290). All are bit-exact with the plain torch versions
-// beside their wrappers in ops/align_gpu.py (`stage1_pack_plain`,
-// `band_counts_plain`, `propagate_v3_plain`).
+// (:1108-1157), stages 2-4, the window gather, the band counts and their
+// election (:1162-1230), and stages 5-6, the neighbour propagation and the
+// final flags (:1235-1290). All are bit-exact with the plain torch
+// versions beside their wrappers in ops/align_gpu.py (`stage1_pack_plain`,
+// `bands_v3_plain`, `propagate_v3_plain`).
 //
 // K2 (k2_stage1). For every task (dispatch row x query) it forms
 // M = qocc . rocc^T, (2*NQB) query half-blocks x NRB reference blocks over
@@ -47,16 +47,22 @@
 //     kernel with one consumer warpgroup on a 64 x 128 tile, two CTAs an
 //     SM, so no product runs on rows that are all padding.
 //
-// K3 (k3_bands). For every fine block f (32 query bases) and each of the
-// four bands (candidate 1 and 2, forward and reverse), the count of valid
-// query bases equal to the window base at each of BAND = WIN-32 shifts,
-// written as int8 (stages 5-6 read them), and the election: the max over
-// bands and shifts of (count << 12) | tag | shift, tags 3072 (candidate 1,
-// forward), 2048 (candidate 1, reverse), 1024 (candidate 2, forward), 0
-// (candidate 2, reverse), so ties go to candidate 1, then the forward
-// strand, then the larger shift. Code contract: a code is a base only in
-// 0-3 (the path's codes are 0-4, N and the window pads being 4), which is
-// what makes the bit planes below equal to the plain byte compares.
+// K3 (k3_row_bands). Stages 2-4 in one launch. For every fine block f (32
+// query bases) and each of the four bands (candidate 1 and 2, forward at
+// the candidate's reference block g and reverse at its mirror block), the
+// count of valid query bases equal to the window base at each of BAND =
+// WQ + 96 shifts, written as int8 (stages 5-6 read them), and the
+// election, decoded: the max over bands and shifts of (count << 12) | tag
+// | shift, tags 3072 (candidate 1, forward), 2048 (candidate 1, reverse),
+// 1024 (candidate 2, forward), 0 (candidate 2, reverse), so ties go to
+// candidate 1, then the forward strand, then the larger shift; then its
+// count, strand and diagonal, and whether it passes the candidate's gate
+// and the block's threshold. The windows are read in place: band i's
+// window of fine block f is bytes 16 + 32 (f % FPB) .. + WIN of row g_i of
+// the wide rows `roww_f` (bands 0, 2) or `roww_r` (1, 3); no window tensor
+// exists. Code contract: a code is a base only in 0-3 (the path's codes
+// are 0-4, N and the row pads being 4), which is what makes the bit
+// planes below equal to the plain byte compares.
 // What bounds it, and what the design does about it:
 //   * Operations: a base is three bits (low, high, "is a base"), so a fine
 //     block's 32 compares at one shift are one word each of three planes:
@@ -64,20 +70,23 @@
 //     give ~(ql ^ wl) & ~(qh ^ wh) & qv & wv, a population count (4 issue
 //     slots) and 3 for the packed max: 13 int32 issue slots a fine block,
 //     band and shift against 64 slots an SM and clock.
-//   * Bytes: the windows read once and the counts written once (at the B =
-//     26 dispatch 436 and 382 MB), nearly as long as the operations.
-//   * Design: one warp a fine block, persistent CTAs in a grid stride. A
-//     lane loads one byte of each 32-byte chunk of the four windows (all
-//     loads issued before the first use) and __ballot_sync turns a chunk
-//     into one word of each plane, the same in every lane; lanes then take
-//     the shifts, so a warp's byte stores of a count row are contiguous;
-//     the election stays in a register until one __reduce_max_sync. No
-//     shared memory, no __syncthreads. A band whose window and query hold
+//   * Bytes: the counts written once (382 MB at the B = 26 dispatch at
+//     65,536), the distinct wide rows and the query codes read (41 and 14
+//     MB there), the election written: under half the operations' time.
+//   * Design: one warp a coarse block (FPB fine blocks), the bands one
+//     after the other. The FPB windows of a band lie in one row and overlap
+//     by WIN - 32 bytes, so a lane loads one byte of each of the row's
+//     2 FPB + 3 words and __ballot_sync builds each plane word once a
+//     coarse block and band (11 words at V3_WQ = 128, against 32 when
+//     each fine block built its window's own); fine block k's
+//     window starts at word k, so a lane's shift is one funnel shift of two
+//     of the row's words. Lanes take the shifts, so a warp's byte stores
+//     of a count row are contiguous; the election stays in registers until
+//     one __reduce_max_sync a fine block, and lane k decodes block k. No
+//     shared memory, no __syncthreads. A band whose row and query hold
 //     only codes 0-3 (most of them: N runs and pads are rare) skips the
-//     "is a base" planes: 2 votes a chunk, 2 funnel shifts and 1 logic op
-//     a shift. The loop is uniform across the CTA (a warp past the last
-//     block recounts it and stores the same bytes), so the votes compile
-//     without reconvergence code.
+//     "is a base" planes: 2 funnel shifts and 1 logic op a shift.
+//     Templated on FPB (2-13), so every array index is a constant.
 //
 // K5 (k5_propagate). Per fine block of a directed pair, EXT_ITERS rounds of
 // neighbour adoption (from the block before, then from the block after),
@@ -90,10 +99,13 @@
 // What bounds it, and what the design does about it:
 //   * Bytes, in 32-byte sectors: the count a step gathers for a block whose
 //     neighbour differs (one sector each), the query bases and the window
-//     bytes of the bands that hold a flag's diagonal (one or two sectors),
-//     the per-block state read once and the flags written once. The band
-//     counts and windows are read only where a gather needs them (a few
-//     percent of the 436 and 382 MB of the B = 26 dispatch).
+//     bytes of the bands that hold a flag's diagonal (one or two sectors of
+//     the wide rows K3 read: a window of block f in band i is bytes 16 +
+//     32 (f % FPB) .. of row g_i, the band's first diagonal 32 g_i -
+//     (f / FPB + 1) WQ - 16), the candidates g1, g2 and the per-block
+//     state read once and the flags written once. The band counts and rows
+//     are read only where a gather needs them (a few percent of the 382 MB
+//     of counts of the B = 26 dispatch).
 //   * Latency and the L1's wavefronts: a gather that first waits on the
 //     load of its band's first diagonal, a warp that walks its blocks one
 //     load at a time, or a load instruction whose 32 lanes read 32
@@ -415,111 +427,181 @@ stage1_kernel(const __grid_constant__ CUtensorMap q_map,
 }
 
 // ---- K3 ----------------------------------------------------------------
-constexpr int K3_WARPS = 8;  // warps a CTA, one fine block each at a time
+constexpr int K3_WARPS = 8;  // warps a CTA, a coarse block each
 constexpr int NBANDS = 4;
 constexpr int FINE = 32;
-constexpr int MAX_CHUNKS = (512 + FINE) / 32;  // BAND <= 512 (9 bits)
+constexpr int K3_MIN_FPB = 2, K3_MAX_FPB = 13;  // V3_WQ 64-416
+constexpr int T_BITS = 9;  // the election's shift (BAND <= 512)
+
+struct BandArgs {
+  const int8_t *roww_f, *roww_r, *fwd;
+  const int32_t *r_rows, *rlens, *q_rows, *cnt1, *g1, *cnt2, *g2;
+  int N, K, NQB, NRB, tband, smin, smin2;
+  int8_t* cnt;
+  int32_t* best;
+  uint8_t *A, *S;
+  int32_t* D;
+};
 
 __device__ __forceinline__ int band_tag(int b) {
   return (b < 2 ? 2048 : 0) | ((b & 1) ? 0 : 1024);
 }
 
-// One band's counts at every shift and its running election max. Lane
-// `lane` takes shift t = 32 j + lane: window bases t .. t + 31 are bits
-// lane .. lane + 31 of plane words j and j + 1. VALID: the window or the
-// query has codes other than 0-3, so the "is a base" planes take part.
-template <int NC, bool VALID>
-__device__ __forceinline__ void band_shifts(const int (&x)[NC], uint32_t ql,
-                                            uint32_t qh, uint32_t qv,
-                                            int lane, int band, int tag,
+// The mirror of reference block g on the reverse strand of a reference of
+// rlen bases, floor((rlen - 32 g - 32) / 32) clamped to [0, NRB - 1]: an
+// int, so that >> is an arithmetic shift where the difference is negative.
+__device__ __forceinline__ int mirror_block(int rlen, int g, int NRB) {
+  return min(max((rlen - 32 * g - 32) >> 5, 0), NRB - 1);
+}
+
+// The wide row of band b (0, 2: candidates 1, 2 forward; 1, 3: their
+// mirrors on the reverse strand) of a coarse block with candidates g1, g2.
+__device__ __forceinline__ int band_row(int b, int g1, int g2, int rlen,
+                                        int NRB) {
+  const int g = b < 2 ? g1 : g2;
+  return (b & 1) ? mirror_block(rlen, g, NRB) : g;
+}
+
+// Fine block k's counts in one band at every shift, and its running
+// election max. Word c of a plane holds the row's bytes 16 + 32 c .. 47 +
+// 32 c, so fine block k's window (row bytes 16 + 32 k ..) is words k ..,
+// and lane `lane` takes shift t = 32 j + lane from bits lane .. lane + 31
+// of words k + j and k + j + 1. VALID: the row or the query has codes
+// other than 0-3, so the "is a base" planes take part.
+template <int FPB, bool VALID>
+__device__ __forceinline__ void fine_shifts(const uint32_t (&wl)[2 * FPB + 3],
+                                            const uint32_t (&wh)[2 * FPB + 3],
+                                            const uint32_t (&wv)[2 * FPB + 3],
+                                            int k, uint32_t ql, uint32_t qh,
+                                            uint32_t qv, int lane, int tag,
                                             int8_t* out, int& best) {
-  uint32_t wl[NC], wh[NC], wv[NC];
 #pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    wl[c] = __ballot_sync(FULL, x[c] & 1);
-    wh[c] = __ballot_sync(FULL, x[c] & 2);
-    if (VALID) wv[c] = __ballot_sync(FULL, (unsigned)x[c] < 4u);
-  }
-#pragma unroll
-  for (int j = 0; j + 1 < NC; ++j) {
-    const int tt = 32 * j + lane;
-    uint32_t m = ~((ql ^ __funnelshift_r(wl[j], wl[j + 1], lane)) |
-                   (qh ^ __funnelshift_r(wh[j], wh[j + 1], lane)));
-    if (VALID) m &= __funnelshift_r(wv[j], wv[j + 1], lane) & qv;
+  for (int j = 0; j < FPB + 3; ++j) {
+    uint32_t m = ~((ql ^ __funnelshift_r(wl[k + j], wl[k + j + 1], lane)) |
+                   (qh ^ __funnelshift_r(wh[k + j], wh[k + j + 1], lane)));
+    if (VALID) m &= __funnelshift_r(wv[k + j], wv[k + j + 1], lane) & qv;
     const int c = __popc(m);
-    if (tt < band) {
-      out[tt] = (int8_t)c;
-      best = max(best, (c << 12) | tag | tt);
-    }
+    const int t = 32 * j + lane;
+    out[t] = (int8_t)c;
+    best = max(best, (c << 12) | tag | t);
   }
 }
 
-// NC: 32-byte chunks of a window, WIN <= 32 * NC < WIN + 32.
-template <int NC>
+// A warp a coarse block q of task n (FPB fine blocks), the four bands one
+// after the other. WQ = 32 FPB, BAND = WQ + 96 = 32 (FPB + 3) shifts, the
+// windows WIN = BAND + 32 bytes, a row ROWW = 32 (2 FPB + 4) bytes: the
+// 2 FPB + 3 plane words of a row hold every window of the coarse block.
+template <int FPB>
 __global__ void __launch_bounds__(K3_WARPS * 32)
-band_kernel(const int8_t* __restrict__ wins, const int8_t* __restrict__ q,
-            int n, int win, int8_t* __restrict__ cnt,
-            int32_t* __restrict__ bb) {
-  const int band = win - FINE;
+bands_kernel(BandArgs a) {
+  constexpr int WQ = FINE * FPB, BAND = WQ + 96, NW = 2 * FPB + 3;
+  constexpr int ROWW = FINE * (2 * FPB + 4);
   const int lane = threadIdx.x & 31;
-  // The loop and every branch around the warp votes are uniform across
-  // the CTA, so the votes need no reconvergence code: a warp past n
-  // recounts block n - 1 and stores the same bytes as the warp it shares
-  // the block with.
-  for (int f0 = blockIdx.x * K3_WARPS; f0 < n; f0 += gridDim.x * K3_WARPS) {
-    const int f = min(f0 + (int)(threadIdx.x >> 5), n - 1);
-    // Byte `lane` of every chunk of the four windows, and the query base;
-    // past WIN an invalid code.
-    int x[NBANDS][NC];
+  const long long unit =
+      (long long)blockIdx.x * K3_WARPS + (threadIdx.x >> 5);
+  if (unit >= (long long)a.N * a.NQB) return;   // the whole warp leaves
+  const int n = (int)(unit / a.NQB), q = (int)(unit % a.NQB);
+  const int NBF = a.NQB * FPB;
+  const int r = __ldg(a.r_rows + n / a.K), rlen = __ldg(a.rlens + n / a.K);
+  const size_t o = (size_t)n * a.NQB + q;
+  const int g1 = __ldg(a.g1 + o), g2 = __ldg(a.g2 + o);
+
+  // The query's planes, a word a fine block (bit p: base p of the block).
+  const int8_t* qp = a.fwd + (size_t)__ldg(a.q_rows + n) * NBF * FINE +
+                     (size_t)q * WQ;
+  int qc[FPB];
 #pragma unroll
-    for (int b = 0; b < NBANDS; ++b) {
-      const int8_t* w = wins + ((size_t)b * n + f) * win;
+  for (int k = 0; k < FPB; ++k) qc[k] = __ldg(qp + FINE * k + lane);
+  uint32_t ql[FPB], qh[FPB], qv[FPB];
 #pragma unroll
-      for (int c = 0; c < NC; ++c)
-        x[b][c] = 32 * c + lane < win ? __ldg(w + 32 * c + lane) : 4;
+  for (int k = 0; k < FPB; ++k) {
+    ql[k] = __ballot_sync(FULL, qc[k] & 1);
+    qh[k] = __ballot_sync(FULL, qc[k] & 2);
+    qv[k] = __ballot_sync(FULL, (unsigned)qc[k] < 4u);
+  }
+  int best[FPB];
+#pragma unroll
+  for (int k = 0; k < FPB; ++k) best[k] = -1;
+
+#pragma unroll 1
+  for (int b = 0; b < NBANDS; ++b) {
+    // The band's row, read in place: lane p loads byte p of each word.
+    const int8_t* rp =
+        ((b & 1) ? a.roww_r : a.roww_f) +
+        ((size_t)r * a.NRB + band_row(b, g1, g2, rlen, a.NRB)) * ROWW + 16;
+    int x[NW], any = 0;
+#pragma unroll
+    for (int c = 0; c < NW; ++c) {
+      x[c] = __ldg(rp + FINE * c + lane);
+      any |= x[c];
     }
-    const int qc = __ldg(q + (size_t)f * FINE + lane);
-    // Planes: bit p of a word is base p of the chunk.
-    const uint32_t ql = __ballot_sync(FULL, qc & 1);
-    const uint32_t qh = __ballot_sync(FULL, qc & 2);
-    const uint32_t qv = __ballot_sync(FULL, (unsigned)qc < 4u);
-    int best = -1;
+    uint32_t wl[NW], wh[NW], wv[NW];
 #pragma unroll
-    for (int b = 0; b < NBANDS; ++b) {
-      int8_t* out = cnt + ((size_t)b * n + f) * band;
-      const int tag = band_tag(b);
-      // Codes all in 0-3 (any other code sets a bit above bit 1): no
-      // "is a base" planes needed.
-      int o = 0;
+    for (int c = 0; c < NW; ++c) {
+      wl[c] = __ballot_sync(FULL, x[c] & 1);
+      wh[c] = __ballot_sync(FULL, x[c] & 2);
+    }
+    // Codes all in 0-3 (any other code sets a bit above bit 1): the
+    // row's "is a base" plane is all ones.
+    const bool bases = __all_sync(FULL, (unsigned)any < 4u);
+    if (bases) {
 #pragma unroll
-      for (int c = 0; c < NC; ++c) o |= x[b][c];
-      if (qv == FULL && __all_sync(FULL, (unsigned)o < 4u))
-        band_shifts<NC, false>(x[b], ql, qh, qv, lane, band, tag, out, best);
+      for (int c = 0; c < NW; ++c) wv[c] = FULL;
+    } else {
+#pragma unroll
+      for (int c = 0; c < NW; ++c)
+        wv[c] = __ballot_sync(FULL, (unsigned)x[c] < 4u);
+    }
+    const int tag = band_tag(b);
+    int8_t* out =
+        a.cnt + (((size_t)b * a.N + n) * NBF + (size_t)q * FPB) * BAND;
+#pragma unroll
+    for (int k = 0; k < FPB; ++k) {
+      if (bases && qv[k] == FULL)
+        fine_shifts<FPB, false>(wl, wh, wv, k, ql[k], qh[k], qv[k], lane,
+                                tag, out + k * BAND, best[k]);
       else
-        band_shifts<NC, true>(x[b], ql, qh, qv, lane, band, tag, out, best);
+        fine_shifts<FPB, true>(wl, wh, wv, k, ql[k], qh[k], qv[k], lane,
+                               tag, out + k * BAND, best[k]);
     }
-    best = __reduce_max_sync(FULL, best);
-    if (lane == 0) bb[f] = best;
+  }
+
+  // The election of each fine block, decoded by lane k: the count, the
+  // strand, the diagonal (the band's first, 32 g - (q + 1) WQ - 16, plus
+  // the shift) and whether it is assigned.
+#pragma unroll
+  for (int k = 0; k < FPB; ++k) best[k] = __reduce_max_sync(FULL, best[k]);
+  if (lane < FPB) {
+    int bb = best[0];
+    uint32_t v = qv[0];
+#pragma unroll
+    for (int k = 1; k < FPB; ++k)
+      if (lane == k) {
+        bb = best[k];
+        v = qv[k];
+      }
+    const int cb = bb >> 12;
+    const bool c1 = (bb & 2048) != 0, rev = (bb & 1024) == 0;
+    const int g = band_row((c1 ? 0 : 2) + rev, g1, g2, rlen, a.NRB);
+    // Candidate 2 carries half-block counts: its gate is smin2.
+    const bool gate = c1 ? __ldg(a.cnt1 + o) >= a.smin
+                         : __ldg(a.cnt2 + o) >= a.smin2;
+    // The threshold scales down on blocks with fewer valid query bases.
+    const int tb = min(max((__popc(v) * a.tband) >> 5, 4), a.tband);
+    const size_t f = (size_t)n * NBF + (size_t)q * FPB + lane;
+    a.best[f] = cb;
+    a.A[f] = (uint8_t)(cb >= tb && gate);
+    a.S[f] = (uint8_t)rev;
+    a.D[f] = 32 * g - (q + 1) * WQ - 16 + (bb & ((1 << T_BITS) - 1));
   }
 }
 
-template <int NC>
-int launch_bands(const int8_t* wins, const int8_t* qb, int n, int win,
-                 int8_t* cnt, int32_t* bb, cudaStream_t s) {
-  static int per_sm_of[MAX_DEVICES] = {};
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-  int& per_sm = per_sm_of[dev];
-  if (!per_sm) {
-    cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, band_kernel<NC>, K3_WARPS * 32, 0);
-    if (err != cudaSuccess) return (int)err;
-  }
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int need = (n + K3_WARPS - 1) / K3_WARPS;  // CTAs with a block
-  const int blocks = need < sms * per_sm ? need : sms * per_sm;
-  band_kernel<NC><<<blocks, K3_WARPS * 32, 0, s>>>(wins, qb, n, win, cnt, bb);
+template <int FPB>
+int launch_bands(const BandArgs& a, cudaStream_t s) {
+  const long long warps = (long long)a.N * a.NQB;
+  const long long ctas = (warps + K3_WARPS - 1) / K3_WARPS;
+  if (ctas > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  bands_kernel<FPB><<<(int)ctas, K3_WARPS * 32, 0, s>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -533,12 +615,14 @@ constexpr int K5_UNROLL = 4;              // 4-block groups whose flags load at 
 constexpr int K5_GATHER = 8;              // candidate tasks a lane loads at once
 
 struct PropArgs {
-  const int8_t *cnt, *win;
-  const int32_t* base;
-  const int8_t* qb;
+  const int8_t* cnt;
   const uint8_t *A0, *S0;
   const int32_t *D0, *best;
-  int N, NBF, band, win_w, iters, ext_min, ext_margin, cont, out, tiles;
+  const int8_t *roww_f, *roww_r, *fwd;
+  const int32_t *r_rows, *rlens, *q_rows, *g1, *g2;
+  int N, K, NBF, FPB, NRB, roww, band, iters, ext_min, ext_margin, cont, out,
+      tiles;
+  unsigned long long fpb_magic;   // ceil(2^32 / FPB): f / FPB as a product
   uint8_t *m1, *m0, *sw, *A, *S;
   int32_t* D;
   uint8_t *Ap, *Sp;
@@ -546,12 +630,12 @@ struct PropArgs {
 };
 
 // Shared memory of a warp, by tile index: the four bands' first diagonals,
-// the initial diagonals, the windows the flags read (4 x int16: band << 10
-// | shift, or -1; m1's two bands, then m0's), the initial strands (bit 0;
-// bit 1 marks a block outside the pair, bit 2 an assigned one) and the
-// candidate table.
+// the initial diagonals, the windows the flags read (4 x int32: strand <<
+// 30 | the window's byte in its reference's rows of that strand, or -1;
+// m1's two bands, then m0's), the initial strands (bit 0; bit 1 marks a
+// block outside the pair, bit 2 an assigned one) and the candidate table.
 constexpr int K5_AT_D0 = 16 * K5_TILE, K5_AT_FP = 20 * K5_TILE,
-              K5_AT_S0 = 28 * K5_TILE, K5_AT_CAND = 29 * K5_TILE;
+              K5_AT_S0 = 36 * K5_TILE, K5_AT_CAND = 37 * K5_TILE;
 __host__ __device__ constexpr int k5_warp_bytes(int iters) {
   return (K5_AT_CAND + K5_TILE * (2 * iters + 1) + 15) / 16 * 16;
 }
@@ -560,13 +644,22 @@ __host__ __device__ constexpr int k5_warp_bytes(int iters) {
 // 0-7), strand (bit 8), assigned (bit 9); the diagonal beside it.
 constexpr uint32_t K5_SRC = 255u, K5_STRAND = 256u, K5_ASG = 512u;
 
+// f / FPB for 0 <= f < 2^28, with magic = ceil(2^32 / FPB) (FPB <= 13).
+__device__ __forceinline__ int coarse_of(int f, unsigned long long magic) {
+  return (int)(((unsigned long long)(unsigned)f * magic) >> 32);
+}
+
 // The window of one flag array of a block in band b (strand s: bands s
-// and s + 2) holding diagonal d, as band << 10 | shift, or -1.
-__device__ __forceinline__ int16_t k5_window(const int32_t* bs, int i, int b,
-                                             int d, int band) {
-  const int tn = d - bs[b * K5_TILE + i];
-  return (unsigned)tn < (unsigned)band ? (int16_t)(b << 10 | tn)
-                                       : (int16_t)-1;
+// and s + 2) holding diagonal d: strand << 30 | its byte at that shift in
+// the reference's rows of the strand, row (first + lead) / 32 (lead = (fc
+// + 1) WQ + 16) at byte `at` (16 + 32 (f % FPB)) plus the shift; or -1.
+__device__ __forceinline__ int k5_window(const int32_t* bs, int i, int b,
+                                         int d, int band, int lead, int at,
+                                         int roww) {
+  const int first = bs[b * K5_TILE + i], tn = d - first;
+  return (unsigned)tn < (unsigned)band
+             ? (b & 1) << 30 | (((first + lead) >> 5) * roww + at + tn)
+             : -1;
 }
 
 __global__ void __launch_bounds__(K5_WARPS * 32)
@@ -579,7 +672,7 @@ propagate_kernel(PropArgs a) {
   uint8_t* mine = k5_smem + warp * k5_warp_bytes(E);
   int32_t* bs = reinterpret_cast<int32_t*>(mine);   // [4][K5_TILE]
   int32_t* d0s = reinterpret_cast<int32_t*>(mine + K5_AT_D0);
-  short4* fp = reinterpret_cast<short4*>(mine + K5_AT_FP);
+  int4* fp = reinterpret_cast<int4*>(mine + K5_AT_FP);
   uint8_t* s0s = mine + K5_AT_S0;
   int8_t* cand = reinterpret_cast<int8_t*>(mine + K5_AT_CAND);
   const int n = (int)(unit / a.tiles), t = (int)(unit % a.tiles);
@@ -593,11 +686,14 @@ propagate_kernel(PropArgs a) {
   const int f_end = f_lo + K5_TILE >= a.NBF ? a.NBF : f_lo + K5_TILE - E;
   const size_t row = (size_t)n * a.NBF;
   const size_t plane = (size_t)a.N * a.NBF;   // a band's blocks
+  const int NQB = a.NBF / a.FPB, WQ = FINE * a.FPB;
+  const int r = __ldg(a.r_rows + n / a.K), rlen = __ldg(a.rlens + n / a.K);
 
   // 1. The tile's blocks, lane + 32 j in lane j: state, count, the four
-  //    bands' first diagonals (every load coalesced, all issued before the
-  //    first use). Blocks outside the pair are unassigned at (forward, 0),
-  //    as the plain version's shifts fill them, and adopt nothing.
+  //    bands' first diagonals from the coarse block's candidates, 32 g -
+  //    (fc + 1) WQ - 16 (every load coalesced, all issued before the first
+  //    use). Blocks outside the pair are unassigned at (forward, 0), as the
+  //    plain version's shifts fill them, and adopt nothing.
   int d[K5_BPT], cc[K5_BPT], bsj[K5_BPT][4];
   uint32_t mt[K5_BPT];
   uint8_t s0[K5_BPT], a0[K5_BPT];
@@ -607,14 +703,19 @@ propagate_kernel(PropArgs a) {
     const int f = f_lo + lane + 32 * j;
     const bool in = f >= 0 && f < a.NBF;
     const size_t o = row + (in ? f : 0);
+    const int fc = in ? coarse_of(f, a.fpb_magic) : 0;
+    const size_t oc = (size_t)n * NQB + fc;
     real |= (unsigned)in << j;
     d[j] = in ? __ldg(a.D0 + o) : 0;
     s0[j] = in ? __ldg(a.S0 + o) : 0;
     a0[j] = in ? __ldg(a.A0 + o) : 0;
     cc[j] = in ? __ldg(a.best + o) : -1;
+    const int g1 = in ? __ldg(a.g1 + oc) : 0, g2 = in ? __ldg(a.g2 + oc) : 0;
 #pragma unroll
     for (int b = 0; b < 4; ++b)
-      bsj[j][b] = in ? __ldg(a.base + b * plane + o) : 0;
+      bsj[j][b] = in ? 32 * band_row(b, g1, g2, rlen, a.NRB) -
+                           (fc + 1) * WQ - 16
+                     : 0;
   }
 #pragma unroll
   for (int j = 0; j < K5_BPT; ++j) {
@@ -769,14 +870,17 @@ propagate_kernel(PropArgs a) {
     a.Sp[o] = (uint8_t)sp;
     a.Ap[o] = (uint8_t)ap;
     a.sw[o] = (uint8_t)sw;
-    short4 w = make_short4(-1, -1, -1, -1);
+    const int fc = coarse_of(f_lo + i, a.fpb_magic);
+    const int lead = (fc + 1) * WQ + 16;
+    const int at = 16 + FINE * (f_lo + i - fc * a.FPB);
+    int4 w = make_int4(-1, -1, -1, -1);
     if (asg) {
-      w.x = k5_window(bs, i, s, d[j], a.band);
-      w.y = k5_window(bs, i, s + 2, d[j], a.band);
+      w.x = k5_window(bs, i, s, d[j], a.band, lead, at, a.roww);
+      w.y = k5_window(bs, i, s + 2, d[j], a.band, lead, at, a.roww);
     }
     if (sw) {
-      w.z = k5_window(bs, i, sp, dp, a.band);
-      w.w = k5_window(bs, i, sp + 2, dp, a.band);
+      w.z = k5_window(bs, i, sp, dp, a.band, lead, at, a.roww);
+      w.w = k5_window(bs, i, sp + 2, dp, a.band, lead, at, a.roww);
     }
     fp[i] = w;
   }
@@ -786,8 +890,15 @@ propagate_kernel(PropArgs a) {
   //    4 positions a lane: the query bases and each band's window are read
   //    as words (a window's two aligned words funnel-shifted to its shift)
   //    and compared 4 bytes at a time; each lane writes a word of each flag
-  //    row. K5_UNROLL such groups' loads are in flight at once.
+  //    row. K5_UNROLL such groups' loads are in flight at once. Band b's
+  //    window of block f is bytes 16 + 32 (f % FPB) .. of its row g, whose
+  //    first diagonal is 32 g - (f / FPB + 1) WQ - 16 (step 4 put the byte
+  //    at the shift in the table); the query bases are the query's codes
+  //    32 f .. 32 f + 31.
   const int gi = lane >> 3, gk = lane & 7;
+  const int8_t* qrow = a.fwd + (size_t)__ldg(a.q_rows + n) * a.NBF * FINE;
+  const size_t ref = (size_t)r * a.NRB * a.roww;
+  const int8_t *rows_f = a.roww_f + ref, *rows_r = a.roww_r + ref;
   for (int i0 = i_lo; i0 < i_hi; i0 += 4 * K5_UNROLL) {
     uint32_t q[K5_UNROLL], lo[K5_UNROLL][4], hi[K5_UNROLL][4];
 #pragma unroll
@@ -797,19 +908,19 @@ propagate_kernel(PropArgs a) {
 #pragma unroll
       for (int k = 0; k < 4; ++k) lo[u][k] = hi[u][k] = 0xffffffffu;
       if (i >= i_hi) continue;
-      const short4 wp = fp[i];
-      const size_t o = row + f_lo + i;
-      const int16_t ws[4] = {wp.x, wp.y, wp.z, wp.w};
+      const int4 wp = fp[i];
+      const int ws[4] = {wp.x, wp.y, wp.z, wp.w};
       if ((ws[0] & ws[1] & ws[2] & ws[3]) >= 0)   // a window is used
-        q[u] = __ldg(reinterpret_cast<const uint32_t*>(a.qb + o * FINE) + gk);
+        q[u] = __ldg(reinterpret_cast<const uint32_t*>(
+                         qrow + (size_t)(f_lo + i) * FINE) + gk);
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         if (ws[k] < 0) continue;
-        const int tn = ws[k] & 1023;
+        const int at = ws[k] & ((1 << 30) - 1);
         const uint32_t* p = reinterpret_cast<const uint32_t*>(
-            a.win + ((ws[k] >> 10) * plane + o) * a.win_w + (tn & ~3)) + gk;
+            ((ws[k] >> 30) ? rows_r : rows_f) + (at & ~3)) + gk;
         lo[u][k] = __ldg(p);
-        if (tn & 3) hi[u][k] = __ldg(p + 1);
+        if (at & 3) hi[u][k] = __ldg(p + 1);
       }
     }
 #pragma unroll
@@ -817,8 +928,8 @@ propagate_kernel(PropArgs a) {
       const int i = i0 + 4 * u + gi;
       if (i >= i_hi) continue;
       const size_t o = (row + f_lo + i) * FINE;
-      const short4 wp = fp[i];
-      const int16_t ws[4] = {wp.x, wp.y, wp.z, wp.w};
+      const int4 wp = fp[i];
+      const int ws[4] = {wp.x, wp.y, wp.z, wp.w};
       uint32_t w[4];
 #pragma unroll
       for (int k = 0; k < 4; ++k)   // an unused window stays 0xffffffff
@@ -975,52 +1086,75 @@ int k2_stage1(const uint8_t* qocc, const uint8_t* rocc, const int32_t* r_rows,
                                M2, NRB, H, p_sum, p_a, p_b, s);
 }
 
-// K3. wins: (4, n, win) int8; qb: (n, 32) int8; codes 0-4 (a base is 0-3);
-// cnt: (4, n, win - 32) int8; bb: (n,) int32. 32 < win <= 544. Returns
-// cudaGetLastError().
-int k3_bands(const int8_t* wins, const int8_t* qb, int n, int win,
-             int8_t* cnt, int32_t* bb, void* stream) {
+// K3. roww_f, roww_r: (Gr, NRB, 32 (2 FPB + 4)) int8, the wide rows of
+// both strands; fwd: (Gq, NQB * 32 FPB) int8, the query codes; codes 0-4
+// (a base is 0-3); r_rows, rlens: (N / K,) int32; q_rows: (N,) int32;
+// cnt1, g1, cnt2, g2: (N, NQB) int32, stage 1's candidates (g1, g2 in
+// [0, NRB)); 2 <= FPB <= 13. Writes cnt: (4, N, NQB * FPB, 32 (FPB + 3))
+// int8, the band counts, and the decoded election best, D: (N, NQB * FPB)
+// int32, A, S: (N, NQB * FPB) bool. Returns cudaGetLastError().
+int k3_row_bands(const int8_t* roww_f, const int8_t* roww_r,
+                 const int8_t* fwd, const int32_t* r_rows,
+                 const int32_t* rlens, const int32_t* q_rows,
+                 const int32_t* cnt1, const int32_t* g1, const int32_t* cnt2,
+                 const int32_t* g2, int N, int K, int NQB, int NRB, int FPB,
+                 int tband, int smin, int smin2, int8_t* cnt, int32_t* best,
+                 uint8_t* A, uint8_t* S, int32_t* D, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n < 1 || win <= FINE || win > 32 * MAX_CHUNKS)
+  if (N < 1 || K < 1 || N % K || NQB < 1 || NRB < 1 || FPB < K3_MIN_FPB ||
+      FPB > K3_MAX_FPB)
     return (int)cudaErrorInvalidValue;
-  switch ((win + 31) / 32) {
-#define K3_CASE(nc) \
-  case nc:          \
-    return launch_bands<nc>(wins, qb, n, win, cnt, bb, s);
+  const BandArgs a{roww_f, roww_r, fwd, r_rows, rlens, q_rows, cnt1, g1,
+                   cnt2,   g2,     N,   K,      NQB,   NRB,    tband, smin,
+                   smin2,  cnt,    best, A,     S,     D};
+  switch (FPB) {
+#define K3_CASE(fpb) \
+  case fpb:          \
+    return launch_bands<fpb>(a, s);
     K3_CASE(2) K3_CASE(3) K3_CASE(4) K3_CASE(5) K3_CASE(6) K3_CASE(7)
     K3_CASE(8) K3_CASE(9) K3_CASE(10) K3_CASE(11) K3_CASE(12) K3_CASE(13)
-    K3_CASE(14) K3_CASE(15) K3_CASE(16) K3_CASE(17)
 #undef K3_CASE
   }
   return (int)cudaErrorInvalidValue;
 }
 
-// K5. cnt: (4, N, NBF, band) int8 and win: (4, N, NBF, win_w) int8, the
-// band counts and windows of K3 (win_w = band + 32, band a multiple of 4,
-// win 4-byte aligned); base: (4, N, NBF) int32, each band's first
-// diagonal; qb: (N, NBF, 32) int8, 4-byte aligned; A0, S0: (N, NBF) bool,
-// D0, best: (N, NBF) int32, the election. Writes m1, m0: (N, NBF * 32)
-// bool (4-byte aligned) and sw, A, S, Ap, Sp: (N, NBF) bool, D, Dp: (N,
-// NBF) int32. NBF <= 8192, 0 <= iters <= 16, ext_min >= 1, ext_margin >= 0 (a
+// K5. cnt: (4, N, NBF, band) int8, K3's band counts (band a multiple of 4);
+// A0, S0: (N, NBF) bool, D0, best: (N, NBF) int32, the election; roww_f,
+// roww_r: (Gr, NRB, roww) int8, the wide rows K3 read, and fwd: (Gq, NBF *
+// 32) int8, the query codes, each 4-byte aligned (roww a multiple of 32, at
+// least 32 FPB - 16 + band + 32: a window never leaves its row); r_rows,
+// rlens: (N / K,) int32; q_rows: (N,) int32; g1, g2: (N, NBF / FPB) int32,
+// stage 1's candidates in [0, NRB). Writes m1, m0: (N, NBF * 32) bool
+// (4-byte aligned) and sw, A, S, Ap, Sp: (N, NBF) bool, D, Dp: (N, NBF)
+// int32. NBF <= 8192, 0 <= iters <= 16, ext_min >= 1, ext_margin >= 0 (a
 // block that reads no count adopts nothing). Returns cudaGetLastError().
-int k5_propagate(const int8_t* cnt, const int8_t* win, const int32_t* base,
-                 const int8_t* qb, const uint8_t* A0, const uint8_t* S0,
-                 const int32_t* D0, const int32_t* best, int N, int NBF,
-                 int band, int win_w, int iters, int ext_min, int ext_margin,
-                 int cont, uint8_t* m1, uint8_t* m0, uint8_t* sw, uint8_t* A,
+int k5_propagate(const int8_t* cnt, const uint8_t* A0, const uint8_t* S0,
+                 const int32_t* D0, const int32_t* best, const int8_t* roww_f,
+                 const int8_t* roww_r, const int8_t* fwd,
+                 const int32_t* r_rows, const int32_t* rlens,
+                 const int32_t* q_rows, const int32_t* g1, const int32_t* g2,
+                 int N, int K, int NBF, int FPB, int NRB, int roww, int band,
+                 int iters, int ext_min, int ext_margin, int cont,
+                 uint8_t* m1, uint8_t* m0, uint8_t* sw, uint8_t* A,
                  uint8_t* S, int32_t* D, uint8_t* Ap, uint8_t* Sp,
                  int32_t* Dp, void* stream) {
-  if (N < 1 || NBF < 1 || NBF > K5_MAX_NBF || band < 4 || band > 1024 ||
-      band % 4 || win_w != band + FINE || iters < 0 ||
-      iters > K5_MAX_ITERS || ext_min < 1 || ext_margin < 0)
+  if (N < 1 || K < 1 || N % K || NBF < 1 || NBF > K5_MAX_NBF || FPB < 1 ||
+      FPB > 64 || NBF % FPB || NRB < 1 || roww % 32 ||
+      (long long)NRB * roww >= 1 << 30 ||
+      roww < FINE * FPB - 16 + band + FINE || band < 4 || band > 1024 ||
+      band % 4 || iters < 0 || iters > K5_MAX_ITERS || ext_min < 1 ||
+      ext_margin < 0)
     return (int)cudaErrorInvalidValue;
   // Blocks a tile after the first writes; the first writes K5_TILE -
   // iters, or the whole pair if it holds it.
   const int out = K5_TILE - 2 * iters - 1;
   const int tiles = 1 + (max(NBF - K5_TILE, 0) + out - 1) / out;
-  const PropArgs a{cnt, win, base, qb, A0, S0, D0, best, N, NBF, band, win_w,
-                   iters, ext_min, ext_margin, cont, out, tiles, m1, m0, sw,
-                   A, S, D, Ap, Sp, Dp};
+  const unsigned long long magic = ((1ull << 32) + FPB - 1) / FPB;
+  const PropArgs a{cnt,    A0,     S0,     D0,     best,   roww_f, roww_r,
+                   fwd,    r_rows, rlens,  q_rows, g1,     g2,     N,
+                   K,      NBF,    FPB,    NRB,    roww,   band,   iters,
+                   ext_min, ext_margin, cont, out, tiles, magic, m1, m0, sw,
+                   A,      S,      D,      Ap,     Sp,     Dp};
   return launch_propagate(a, static_cast<cudaStream_t>(stream));
 }
 

@@ -15,11 +15,12 @@ bit for bit. The default front end, v3:
    blocks per query block.
 3. **Stages 2-4** (`_bands_v3`, kernel K3): around each candidate, on both
    strands, the match counts of every fine block of 32 query bases at
-   BAND diagonal shifts, and the election of the best (count, candidate,
-   strand, shift) per fine block.
+   BAND diagonal shifts against windows read from the wide rows in place,
+   and the election of the best (count, candidate, strand, shift) per fine
+   block.
 4. **Stages 5-6** (`_propagate_v3`, kernel K5 in csrc/align_v3.cu):
    neighbour propagation read from the band counts, then the final match
-   flags from the windows.
+   flags from the windows, read from the same rows.
 5. **Back half** (`_blocks_to_measures`, kernel K4 in csrc/back_half.cu,
    shared by both front ends): single-switch refinement, breaks,
    anchored-match chaining, segmentation, aggregates and, with_alns, the
@@ -51,10 +52,10 @@ mechanisms are kept in semantics only: the hierarchical cummax is
 sort is an inverse permutation, and the dispatch size comes from a bound
 on live device bytes (`_dispatch_rows`, `_dispatch_rows_v2`).
 
-`stage1_pack` (K2), `band_counts` (K3), `_propagate_v3` (K5),
+`stage1_pack` (K2), `_bands_v3` (K3), `_propagate_v3` (K5),
 `_blocks_to_measures` (K4), `_votes_elect_v2` (K6, K8 fused in) and
 `_propagate_v2` (K7) are the kernel wrappers: CPU tensors take
-`stage1_pack_plain`, `band_counts_plain`, `propagate_v3_plain`,
+`stage1_pack_plain`, `bands_v3_plain`, `propagate_v3_plain`,
 `blocks_to_measures_plain`, `votes_elect_v2_plain` and
 `propagate_v2_plain`, CUDA tensors launch the kernel or raise. Each
 wrapper's `launches` counts its kernel launches. Entry points:
@@ -177,7 +178,7 @@ _BAND_IS_RC = (False, True, False, True)
 _LIVE_BYTES = 2 << 30
 # Bytes a query position of a row holds live in stages 5-6 and the back
 # half, without and with records (the int64 sort of the keys): the peak
-# of one dispatch at bucket 65,536 less the bands' windows and counts is
+# of one dispatch at bucket 65,536 less the bands' windows and counts was
 # 91.6 and 143.8 bytes a position on an H100 (tools/v3_dispatch_probe.py),
 # measured while both stages ran as torch ops; kernels K5 and K4 hold
 # less, so these bounds now leave room.
@@ -908,11 +909,11 @@ def _stage1_v3(qocc, rocc, r_rows, q_rows):
 
 
 # --------------------------------------------------------------------------
-# K3: band counts and election
+# K3: stages 2-4, the windows, band counts and election
 # --------------------------------------------------------------------------
 
 def band_counts_plain(wins, qb):
-    """Plain torch version of K3 on any device: the 32-step
+    """Stage 3 of `bands_v3_plain` on any device: the 32-step
     shift-compare-accumulate. wins: (4, N, WIN) int8 windows of the four
     bands (tags BAND_TAGS); qb: (N, FINE) int8 query bases. Returns the
     band counts (4, N, BAND) int8 of valid query bases (code < 4) equal
@@ -933,43 +934,9 @@ def band_counts_plain(wins, qb):
     return acc, bb.amax(dim=0)
 
 
-def band_counts(wins, qb):
-    """K3 wrapper (see band_counts_plain): the plain version for CPU
-    tensors, the CUDA kernel for CUDA tensors (or raise). Codes are 0-4
-    (core/seq.py fills N with 4, the window pads are 4): the kernel counts
-    a base only in 0-3, which equals the plain compare on such codes."""
-    dev = wins.device
-    cuda.require(wins, 'wins', torch.int8, 3, dev)
-    cuda.require(qb, 'qb', torch.int8, 2, dev)
-    n, win = wins.shape[1:]
-    if wins.shape[0] != len(BAND_TAGS) or qb.shape != (n, FINE):
-        raise ValueError('band counts: wins (4, N, WIN) and qb (N, 32) '
-                         'do not fit')
-    if not FINE < win <= (1 << _T_BITS) + FINE:
-        raise ValueError(f'band counts: WIN={win} gives more than 512 or '
-                         f'no shifts')
-    if dev.type == 'cpu':
-        return band_counts_plain(wins, qb)
-    if dev.type != 'cuda':
-        raise ValueError(f'unsupported device {dev}')
-    cnt = torch.empty((len(BAND_TAGS), n, win - FINE), dtype=torch.int8,
-                      device=dev)
-    bb = torch.empty(n, dtype=torch.int32, device=dev)
-    if n:
-        lib = cuda.library('align_v3', cuda.ALIGN_V3_SIGNATURES)
-        with torch.cuda.device(dev):
-            rc = lib.k3_bands(cuda.ptr(wins), cuda.ptr(qb), n, win,
-                              cuda.ptr(cnt), cuda.ptr(bb), cuda.stream(wins))
-        cuda.check(lib, rc, 'k3_bands')
-        band_counts.launches += 1
-    return cnt, bb
-
-
-band_counts.launches = 0
-
-
 def _band_windows(b, r_rows, rlens, g1, g2, g3):
-    """Stage 2: the windows of the four bands (candidate 1 and 2, each
+    """Stage 2, for the plain versions only (K3 and K5 read the wide rows
+    in place): the windows of the four bands (candidate 1 and 2, each
     forward at its block and reverse at its mirror block) for every fine
     block, (4, R, K, NBF, WIN) int8, and each band's first diagonal,
     (4, R, K, NBF) int32."""
@@ -995,21 +962,32 @@ def _band_windows(b, r_rows, rlens, g1, g2, g3):
     return torch.stack(wins), torch.stack(bases)
 
 
-def _bands_v3(b, r_rows, rlens, q_rows, cnt1, g1, cnt2, g2, tband, smin,
-              g3):
-    """Stages 2-4: windows, band counts (K3) and the election. Returns a
-    dict: win and cnt (4, R, K, NBF, WIN / BAND) int8, base (4, R, K, NBF)
-    int32, qb (R, K, NBF, FINE) int8, qok, and the elected cnt_best, A, S
-    (True = reverse strand) and D, each (R, K, NBF)."""
-    BAND, WIN, FPB = g3['BAND'], g3['WIN'], g3['FPB']
+def _query_bases(b, q_rows, NBF):
+    """The queries' codes a fine block, (R, K, NBF, FINE) int8."""
+    R, K = q_rows.shape
+    return b['fwd'][q_rows.to(torch.int64)].view(R, K, NBF, FINE)
+
+
+def bands_v3_plain(b, r_rows, rlens, q_rows, cnt1, g1, cnt2, g2, tband,
+                   smin, g3, windows=None):
+    """Plain torch version of K3 on any device, stages 2-4: the windows
+    (`_band_windows`), the band counts (`band_counts_plain`) and the
+    election. b: the bucket dict (roww_f, roww_r, fwd); r_rows, rlens:
+    (R,) int32; q_rows: (R, K) int32; cnt1, g1, cnt2, g2: stage 1's (R, K,
+    NQB) int32; tband, smin: the thresholds (ints); windows: what
+    `_band_windows` returns on these arguments, if the caller built it.
+    Returns a dict: cnt (4, R, K, NBF, BAND) int8 and the elected
+    cnt_best, A, S (True = reverse strand) and D, each (R, K, NBF)."""
+    BAND, FPB = g3['BAND'], g3['FPB']
     R, K, NQB = g1.shape
     NBF = NQB * FPB
     dev = g1.device
-    win, base = _band_windows(b, r_rows, rlens, g1, g2, g3)
-    qb = b['fwd'][q_rows.to(torch.int64)].view(R, K, NBF, FINE)
+    win, base = windows or _band_windows(b, r_rows, rlens, g1, g2, g3)
+    qb = _query_bases(b, q_rows, NBF)
     qok = qb < 4
-    cnt, bb = band_counts(win.view(len(BAND_TAGS), -1, WIN),
-                          qb.reshape(-1, FINE))
+    cnt, bb = band_counts_plain(win.view(len(BAND_TAGS), -1, g3['WIN']),
+                                qb.reshape(-1, FINE))
+    del win
     cnt = cnt.view(len(BAND_TAGS), R, K, NBF, BAND)
     bb = bb.view(R, K, NBF)
     cnt_best = bb >> 12
@@ -1027,21 +1005,99 @@ def _bands_v3(b, r_rows, rlens, q_rows, cnt1, g1, cnt2, g2, tband, smin,
     vq = qok.sum(dim=-1, dtype=torch.int32)
     tband_b = torch.clamp((vq * tband) // FINE, min=4).clamp(max=tband)
     A = (cnt_best >= tband_b) & gate_ok
-    return dict(win=win, cnt=cnt, base=base, qb=qb, qok=qok,
-                cnt_best=cnt_best, A=A, S=S, D=D)
+    return dict(cnt=cnt, cnt_best=cnt_best, A=A, S=S, D=D)
 
 
-def propagate_v3_plain(el, g3):
+def _check_rows(b, r_rows, rlens, q_rows, per_block, g3, what):
+    """The arguments K3 and K5 read in place, checked: the wide rows
+    roww_f, roww_r (Gr, NRB, ROWW) int8 with ROWW a multiple of 32 that
+    holds every window of a coarse block (WQ - 16 + WIN bytes), the query
+    codes fwd (Gq, NBF * FINE) int8, r_rows and rlens (R,) and q_rows (R,
+    K) int32, and per_block's (name, tensor) (R, K, NQB) int32. Returns
+    (R, K, NQB, NBF)."""
+    dev = r_rows.device
+    cuda.require(q_rows, 'q_rows', torch.int32, 2, dev)
+    R, K = q_rows.shape
+    _check(r_rows, 'r_rows', torch.int32, (R,), dev)
+    _check(rlens, 'rlens', torch.int32, (R,), dev)
+    NQB = per_block[0][1].shape[-1]
+    for name, t in per_block:
+        _check(t, name, torch.int32, (R, K, NQB), dev)
+    WQ, WIN, FPB = g3['WQ'], g3['WIN'], g3['FPB']
+    NRB, ROWW = g3['NRB'], g3['ROWW']
+    if WQ != FINE * FPB or ROWW % 32 or ROWW < WQ - 16 + WIN:
+        raise ValueError(f'{what}: geometry {g3} puts a window outside its '
+                         f'row')
+    Gr = b['roww_f'].shape[0]
+    for name in ('roww_f', 'roww_r'):
+        _check(b[name], name, torch.int8, (Gr, NRB, ROWW), dev)
+    NBF = NQB * FPB
+    _check(b['fwd'], 'fwd', torch.int8, (b['fwd'].shape[0], NBF * FINE), dev)
+    return R, K, NQB, NBF
+
+
+def _bands_v3(b, r_rows, rlens, q_rows, cnt1, g1, cnt2, g2, tband, smin,
+              g3):
+    """K3 wrapper (see bands_v3_plain): the plain version for CPU tensors,
+    the CUDA kernel for CUDA tensors (or raise). The kernel reads the wide
+    rows (roww_f, roww_r) and the query codes (fwd) in place, so no window
+    tensor exists on the card; it takes the geometry of `_v3_geom` with 2-13
+    fine blocks a coarse block (V3_WQ 64-416), codes 0-4 (it counts a base
+    only in 0-3, which equals the plain compare on such codes; the rows'
+    pads are 4) and g1, g2 in [0, NRB), as stage 1 gives them."""
+    dev = g1.device
+    if dev.type == 'cpu':
+        return bands_v3_plain(b, r_rows, rlens, q_rows, cnt1, g1, cnt2, g2,
+                              tband, smin, g3)
+    if dev.type != 'cuda':
+        raise ValueError(f'unsupported device {dev}')
+    R, K, NQB, NBF = _check_rows(b, r_rows, rlens, q_rows, (
+        ('cnt1', cnt1), ('g1', g1), ('cnt2', cnt2), ('g2', g2)), g3, 'K3')
+    FPB, BAND = g3['FPB'], g3['BAND']
+    if not 2 <= FPB <= 13 or BAND != g3['WQ'] + 96 \
+            or g3['ROWW'] != FINE * (2 * FPB + 4):
+        raise ValueError(f'K3 takes the geometry of V3_WQ 64-416; got {g3}')
+    cnt = torch.empty((len(BAND_TAGS), R, K, NBF, BAND), dtype=torch.int8,
+                      device=dev)
+    cnt_best, D = (torch.empty((R, K, NBF), dtype=torch.int32, device=dev)
+                   for _ in range(2))
+    A, S = (torch.empty((R, K, NBF), dtype=torch.bool, device=dev)
+            for _ in range(2))
+    if R and K:
+        lib = cuda.library('align_v3', cuda.ALIGN_V3_SIGNATURES)
+        with torch.cuda.device(dev):
+            rc = lib.k3_row_bands(
+                *(cuda.ptr(t) for t in (b['roww_f'], b['roww_r'], b['fwd'],
+                                        r_rows, rlens, q_rows, cnt1, g1,
+                                        cnt2, g2)),
+                R * K, K, NQB, g3['NRB'], FPB, tband, smin,
+                max(smin // 2, 3),
+                *(cuda.ptr(t) for t in (cnt, cnt_best, A, S, D)),
+                cuda.stream(g1))
+        cuda.check(lib, rc, 'k3_row_bands')
+        _bands_v3.launches += 1
+    return dict(cnt=cnt, cnt_best=cnt_best, A=A, S=S, D=D)
+
+
+_bands_v3.launches = 0
+
+
+def propagate_v3_plain(el, b, r_rows, rlens, q_rows, g1, g2, g3,
+                       windows=None):
     """Plain torch version of K5 on any device, stages 5-6: neighbour
     propagation read from the band counts, then the final flags from the
     windows (bands holding the same (strand, diagonal) show the same
     reference bases, so OR-ing across containing bands is exact). el: the
-    dict of `_bands_v3`. Returns m1, m0 (R, K, Lq) bool and switchable, A,
-    S, D, Ap, Sp, Dp (R, K, NBF)."""
+    dict of `_bands_v3`; the windows and query bases come from the bucket
+    dict b through r_rows, rlens, q_rows and stage 1's g1, g2, as
+    `bands_v3_plain` builds them (or `windows`, as there). Returns m1, m0
+    (R, K, Lq) bool and switchable, A, S, D, Ap, Sp, Dp (R, K, NBF)."""
     BAND = g3['BAND']
-    cnt, win, base = el['cnt'], el['win'], el['base']
-    qb, qok = el['qb'], el['qok']
+    cnt = el['cnt']
     A, S, D = el['A'], el['S'], el['D']
+    win, base = windows or _band_windows(b, r_rows, rlens, g1, g2, g3)
+    qb = _query_bases(b, q_rows, A.shape[-1])
+    qok = qb < 4
 
     def count_at(Sx, Dx):
         out = None
@@ -1091,59 +1147,59 @@ def propagate_v3_plain(el, g3):
     return m1, m0, switchable, A, S, D, Ap, Sp, Dp
 
 
-def _propagate_v3(el, g3):
+def _propagate_v3(el, b, r_rows, rlens, q_rows, g1, g2, g3):
     """K5 wrapper (see propagate_v3_plain): the plain version for CPU
-    tensors, the CUDA kernel for CUDA tensors (or raise). The kernel takes
-    EXT_ITERS (0-16), EXT_MIN (>= 1), EXT_MARGIN (>= 0) and V3_CONT as
-    arguments and at most 2^13 blocks a pair (the stage-1 pack's bound,
-    `_v3_geom`); it reads the windows and query bases as words (BAND a
-    multiple of 4, as `_v3_geom` makes it)."""
+    tensors, the CUDA kernel for CUDA tensors (or raise). The kernel reads
+    its flag windows from the wide rows and the query bases from fwd in
+    place, as K3 does, and words of both, so roww_f, roww_r and fwd must
+    be 4-byte aligned (a sliced or offset arena may not be: it raises).
+    It takes EXT_ITERS (0-16), EXT_MIN (>= 1), EXT_MARGIN (>= 0) and
+    V3_CONT as arguments, at most 2^13 blocks a pair (the stage-1 pack's
+    bound, `_v3_geom`) and BAND a multiple of 4 (as `_v3_geom` makes
+    it)."""
     A = el['A']
     dev = A.device
     if dev.type == 'cpu':
-        return propagate_v3_plain(el, g3)
+        return propagate_v3_plain(el, b, r_rows, rlens, q_rows, g1, g2, g3)
     if dev.type != 'cuda':
         raise ValueError(f'unsupported device {dev}')
-    BAND, WIN = g3['BAND'], g3['WIN']
-    if A.dim() != 3:
-        raise ValueError('stages 5-6: A must be (R, K, NBF)')
-    R, K, NBF = A.shape
+    R, K, NQB, NBF = _check_rows(b, r_rows, rlens, q_rows,
+                                 (('g1', g1), ('g2', g2)), g3, 'K5')
+    BAND = g3['BAND']
     nb = len(BAND_TAGS)
     for name, dt, shape in (
             ('cnt', torch.int8, (nb, R, K, NBF, BAND)),
-            ('win', torch.int8, (nb, R, K, NBF, WIN)),
-            ('base', torch.int32, (nb, R, K, NBF)),
-            ('qb', torch.int8, (R, K, NBF, FINE)),
             ('A', torch.bool, (R, K, NBF)), ('S', torch.bool, (R, K, NBF)),
             ('D', torch.int32, (R, K, NBF)),
             ('cnt_best', torch.int32, (R, K, NBF))):
-        cuda.require(el[name], name, dt, len(shape), dev)
-        if el[name].shape != shape:
-            raise ValueError(f'stages 5-6: {name} must be {shape}')
+        _check(el[name], name, dt, shape, dev)
     if NBF > 1 << _RB_BITS:
         raise ValueError(f'K5 holds at most {1 << _RB_BITS} blocks a pair; '
                          f'got {NBF}')
     if not (0 <= EXT_ITERS <= 16 and EXT_MIN >= 1 and EXT_MARGIN >= 0):
         raise ValueError('K5 takes EXT_ITERS 0-16, EXT_MIN >= 1 and '
                          'EXT_MARGIN >= 0')
-    if BAND % 4 or el['win'].data_ptr() % 4 or el['qb'].data_ptr() % 4:
-        raise ValueError('K5 reads the windows and query bases as words: '
-                         'BAND must be a multiple of 4 and win and qb 4-byte '
-                         'aligned')
-    N = R * K
+    if BAND % 4 or any(b[k].data_ptr() % 4 for k in ('roww_f', 'roww_r',
+                                                     'fwd')):
+        raise ValueError('K5 reads the rows and query codes as words: BAND '
+                         'must be a multiple of 4 and roww_f, roww_r and fwd '
+                         '4-byte aligned')
     m1, m0 = (torch.empty((R, K, NBF * FINE), dtype=torch.bool, device=dev)
               for _ in range(2))
     sw, A1, S1, Ap, Sp = (torch.empty((R, K, NBF), dtype=torch.bool,
                                       device=dev) for _ in range(5))
     D1, Dp = (torch.empty((R, K, NBF), dtype=torch.int32, device=dev)
               for _ in range(2))
-    if N and NBF:
+    if R and K and NBF:
         lib = cuda.library('align_v3', cuda.ALIGN_V3_SIGNATURES)
         with torch.cuda.device(dev):
             rc = lib.k5_propagate(
-                *(cuda.ptr(el[k]) for k in ('cnt', 'win', 'base', 'qb', 'A',
-                                            'S', 'D', 'cnt_best')),
-                N, NBF, BAND, WIN, EXT_ITERS, EXT_MIN, EXT_MARGIN, V3_CONT,
+                *(cuda.ptr(el[k]) for k in ('cnt', 'A', 'S', 'D',
+                                            'cnt_best')),
+                *(cuda.ptr(t) for t in (b['roww_f'], b['roww_r'], b['fwd'],
+                                        r_rows, rlens, q_rows, g1, g2)),
+                R * K, K, NBF, g3['FPB'], g3['NRB'], g3['ROWW'], BAND,
+                EXT_ITERS, EXT_MIN, EXT_MARGIN, V3_CONT,
                 *(cuda.ptr(t) for t in (m1, m0, sw, A1, S1, D1, Ap, Sp, Dp)),
                 cuda.stream(A))
         cuda.check(lib, rc, 'k5_propagate')
@@ -1171,9 +1227,18 @@ def _row_core_v3(b, r_rows, rlens, q_rows, tband, smin,
     if q_rows.shape != (R, K):
         raise ValueError(f'q_rows must be ({R}, {K})')
     cnt1, g1, cnt2, g2 = _stage1_v3(b['qocc'], b['rocc'], r_rows, q_rows)
-    el = _bands_v3(b, r_rows, rlens, q_rows, cnt1, g1, cnt2, g2, tband,
-                   smin, g3)
-    m1, m0, switchable, A, S, D, Ap, Sp, Dp = _propagate_v3(el, g3)
+    args = (b, r_rows, rlens, q_rows)
+    if r_rows.device.type == 'cpu':
+        # The plain versions of K3 and K5 share one build of the windows.
+        wb = _band_windows(b, r_rows, rlens, g1, g2, g3)
+        el = bands_v3_plain(*args, cnt1, g1, cnt2, g2, tband, smin, g3,
+                            windows=wb)
+        props = propagate_v3_plain(el, *args, g1, g2, g3, windows=wb)
+        del wb
+    else:
+        el = _bands_v3(*args, cnt1, g1, cnt2, g2, tband, smin, g3)
+        props = _propagate_v3(el, *args, g1, g2, g3)
+    m1, m0, switchable, A, S, D, Ap, Sp, Dp = props
     N = R * K
 
     def flat(x):
@@ -1609,16 +1674,18 @@ def _dispatch_rows(L: int, K: int, device: torch.device,
                    with_alns: bool) -> int:
     """v3 dispatch rows B at bucket L with K queries a row: as many as keep
     the live bytes of one dispatch on `device` under _LIVE_BYTES. A query
-    holds the windows and counts of four bands (4*NBF*(WIN+BAND) bytes)
-    and _BYTES_PER_POS (_BYTES_PER_POS_RECORDS with records) a query
-    position for stages 5-6 and the back half; on the CPU also the plain
-    stage 1's float32 operand (2*NQB*H*4 bytes; K2 reads the int8 arena in
-    place). Results do not depend on B."""
+    holds the counts of four bands (4*NBF*BAND bytes; K3 and K5 read the
+    windows from the wide rows in place, so no window tensor is live) and
+    _BYTES_PER_POS (_BYTES_PER_POS_RECORDS with records) a query position
+    for stages 5-6 and the back half; on the CPU also what the plain
+    versions hold: stage 1's float32 operand (2*NQB*H*4 bytes; K2 reads
+    the int8 arena in place) and the windows of `_band_windows`
+    (4*NBF*WIN bytes). Results do not depend on B."""
     g3 = _v3_geom(L, L)
     per_pos = _BYTES_PER_POS_RECORDS if with_alns else _BYTES_PER_POS
-    per_query = 4 * (L // FINE) * (g3['WIN'] + g3['BAND']) + L * per_pos
+    per_query = 4 * (L // FINE) * g3['BAND'] + L * per_pos
     if device.type == 'cpu':
-        per_query += 2 * g3['NQB'] * V3_H * 4
+        per_query += 2 * g3['NQB'] * V3_H * 4 + 4 * (L // FINE) * g3['WIN']
     return max(1, _LIVE_BYTES // (K * per_query))
 
 

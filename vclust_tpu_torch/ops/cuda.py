@@ -29,11 +29,13 @@ ALIGN_V3_SIGNATURES = {
     # qocc, rocc, r_rows, q_rows, tasks, K, Gq, Gr, M2, NRB, H, p_sum, p_a,
     # p_b, stream
     'k2_stage1': [_P] * 4 + [_I] * 7 + [_P] * 4,
-    # wins, qb, n, win, cnt, bb, stream
-    'k3_bands': [_P, _P, _I, _I, _P, _P, _P],
-    # cnt, win, base, qb, A0, S0, D0, best, N, NBF, band, win_w, iters,
-    # ext_min, ext_margin, cont, m1, m0, sw, A, S, D, Ap, Sp, Dp, stream
-    'k5_propagate': [_P] * 8 + [_I] * 8 + [_P] * 10,
+    # roww_f, roww_r, fwd, r_rows, rlens, q_rows, cnt1, g1, cnt2, g2, N, K,
+    # NQB, NRB, FPB, tband, smin, smin2, cnt, best, A, S, D, stream
+    'k3_row_bands': [_P] * 10 + [_I] * 8 + [_P] * 6,
+    # cnt, A0, S0, D0, best, roww_f, roww_r, fwd, r_rows, rlens, q_rows, g1,
+    # g2, N, K, NBF, FPB, NRB, roww, band, iters, ext_min, ext_margin, cont,
+    # m1, m0, sw, A, S, D, Ap, Sp, Dp, stream
+    'k5_propagate': [_P] * 13 + [_I] * 11 + [_P] * 10,
 }
 # csrc/back_half.cu, kernel K4, the back half both align pipes share.
 BACK_HALF_SIGNATURES = {
