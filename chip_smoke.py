@@ -47,9 +47,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
   7. align_v3 - the v3 align pipe (ops/align_gpu.py:_all2all_single(...,
               pipe='v3')) on bench.py's 48-genome corpus (1,128 pairs,
               buckets 49,152 and 65,536) and its contig corpus (128 x 3,500
-              bases, 8,128 pairs, bucket 4,096): aggregates and records ==
-              the same function with the plain K2, K3, K5 and K4, bit for
-              bit; warm pairs/s, index seconds, peak device memory and a
+              bases, 8,128 pairs, bucket 4,096): the arenas built by K9
+              (the v3 index, csrc/index.cu; once a chunk of genomes) ==
+              index_block_v3_plain on the same codes, key by key, K9
+              alone on each (ms, device_ms, plain_ms, bytes bound), the
+              index seconds split into the host's padding, reverse
+              complements and uploads and K9's device ms; aggregates and
+              records == the same function with the plain K2, K3, K5 and
+              K4, bit for bit; warm pairs/s, peak device memory and a
               profiler breakdown of one warm run; the max |dtANI| against
               the native C++ engine (printed, not held); then K2 and K3
               (stages 2-4, the wide rows read in place: cnt, cnt_best, A,
@@ -70,15 +75,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
               versions (ms, device_ms, host_ms, bound, share_of_bound;
               library_ms for K6 and K8, torch.searchsorted of the same
               seeds in the same call), each stage's time, the row core's
-              with the plain kernels, and the v2 index build of the
-              bucket (`_index_block`) with its bytes bound;
+              with the plain kernels, and K10 (the v2 index build,
+              csrc/index.cu) on the bucket's arena == index_block_plain,
+              with its bytes bound and torch.sort(stable=True) of the
+              same rows' keys;
   9. align_v2 - the v2 pipe alone above V3_MAX_BUCKET: 4 genomes of
               158-249 kb concatenated from example genomes plus a 5% mutant
               each (buckets 196,608 and 262,144, 64-bit packs), all 28
               pairs with records: == the all-plain run, and == the port on
               the CPU for two pairs; pairs/s, peak bytes, B, each stage's
-              time on one dispatch (K6, K7 and K4 alone against plain, the
-              index build), and the live
+              time on one dispatch (K6, K7 and K4 alone against plain, K10
+              against plain at C = 16 and 8), and the live
               bytes a query position holds (peaks at 1 and 2 rows, C = 16
               and 8) against `_dispatch_rows_v2`'s constants;
  10. mesh   - the port's mesh paths (vclust_tpu_torch/parallel/) on the
@@ -100,13 +107,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
               vclust_tpu_torch.parallel.worker`) both print MULTIHOST_OK;
               `entry()` == the int product; and `dryrun_multichip` on every
               visible card, or on 2 shards of cuda:0 when one is visible;
- 11. the `kernels` line: every kernel (KX, K1, K2, K3, K4, K5, K8, K6,
-     K7) with its launches on its path, error against its plain version,
-     times and bound; K8 is fused into K6 (one launch: row k8 is its votes
-     output, row k6 its election).
-On every align path (phases 6-10) K2, K3, K5, K4, K6 and K7 are counted
-from 0 around the run: each v3 dispatch launches K2, K3, K5 and K4 once,
-each v2 dispatch K6, K7 and K4 once, and any other count fails.
+ 11. the `kernels` line: every kernel (KX, K1, K9, K10, K2, K3, K4, K5,
+     K8, K6, K7) with its launches on its path, error against its plain
+     version, times and bound; K8 is fused into K6 (one launch: row k8 is
+     its votes output, row k6 its election).
+On every align path (phases 6-10) K9, K10, K2, K3, K5, K4, K6 and K7 are
+counted from 0 around the run: each chunk of genomes of a v3 or v2 arena
+the path builds launches K9 or K10 once, each v3 dispatch K2, K3, K5 and
+K4 once, each v2 dispatch K6, K7 and K4 once, and any other count fails;
+the plain versions launch none.
 The card's name and power limit (nvidia-smi) precede the last line, which
 is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -964,26 +973,46 @@ def plain_kernels(ag):
             setattr(ag, k, fn)
 
 
+# The index builds' wrappers (K9, K10; rows index_v3 and index_v2 of the
+# kernels line) and their plain versions.
+INDEX_KERNELS = (('_index_block_v3', 'index_block_v3_plain'),
+                 ('_index_block', 'index_block_plain'))
+
+
 def zero_align_launches(ag) -> None:
-    for k, _ in ALIGN_KERNELS:
+    for k, _ in ALIGN_KERNELS + INDEX_KERNELS:
         getattr(ag, k).launches = 0
 
 
 def align_launches(ag) -> dict:
-    return {k: getattr(ag, k).launches for k, _ in ALIGN_KERNELS}
+    return {k: getattr(ag, k).launches
+            for k, _ in ALIGN_KERNELS + INDEX_KERNELS}
 
 
-def check_align_launches(path: str, launches: dict, dispatches: dict):
+def check_align_launches(path: str, launches: dict, st: dict,
+                         index_only: bool = False):
     """Each v3 dispatch launches K2, K3, K5 and K4 once, each v2 dispatch
-    K6 (K8 fused in), K7 and K4 once; a path that launched none of its
-    kernels fails."""
-    v3, v2 = dispatches['v3'], dispatches['v2']
+    K6 (K8 fused in), K7 and K4 once, each chunk of genomes of a v3 or v2
+    arena build (st from pipe_timer) K9 or K10 once; a path that launched
+    none of its kernels fails (index_only: none of K9 and K10)."""
+    v3, v2 = st['v3']['dispatches'], st['v2']['dispatches']
+    c3, c2 = st['v3']['index_chunks'], st['v2']['index_chunks']
     want = {'stage1_pack': v3, '_bands_v3': v3, '_propagate_v3': v3,
             '_blocks_to_measures': v3 + v2, '_votes_elect_v2': v2,
-            '_propagate_v2': v2}
-    if launches != want or not v3 + v2:
+            '_propagate_v2': v2, '_index_block_v3': c3, '_index_block': c2}
+    if launches != want or not (c3 + c2 if index_only else v3 + v2):
         fail(f'{path}: launches {launches} for {v3} v3 and {v2} v2 '
-             f'dispatches (want {want})')
+             f'dispatches and {c3} v3 and {c2} v2 index chunks (want '
+             f'{want})')
+
+
+@contextlib.contextmanager
+def no_launches(ag, what: str):
+    """Inside: plain versions run; no align or index kernel may launch."""
+    before = align_launches(ag)
+    yield
+    if align_launches(ag) != before:
+        fail(f'{what}: a kernel launched while the plain version ran')
 
 
 def same_records(path: str, got, want) -> None:
@@ -1016,6 +1045,67 @@ def profile_breakdown(torch, fn, top: int = 10) -> dict:
                      for e in ka[:top]])
 
 
+def arena_rc(torch, b, codes, kb):
+    """The reverse-complement codes (G, kb) of arena b's genomes on its
+    device, as GenomeIndex._build lays them out (the arena keeps only the
+    forward codes)."""
+    import numpy as np
+    from vclust_tpu_torch.core.seq import revcomp_codes
+    rc = np.full(tuple(b['fwd'].shape), 4, np.int8)
+    for g, row in b['rows'].items():
+        rc[row, :len(codes[g])] = revcomp_codes(codes[g])
+    return torch.from_numpy(rc).to(b['fwd'].device)
+
+
+def same_arena(path, got, want, keys) -> None:
+    """Arrays equal key by key (dtype, shape, values), or fail."""
+    import torch
+    torch.cuda.synchronize()
+    for key, g, w in zip(keys, got, want):
+        if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(g, w):
+            fail(f'{path}: {key} != the plain version')
+
+
+K9_DESIGN = ('a warp a coarse block of V3_WQ positions: a lane the hashes '
+             'of positions 32 f + lane from one coalesced load of a block '
+             'of 32 and the next, the k-mer\'s later codes by shuffles; an '
+             'H-byte row a warp in shared memory, zero between rows: the '
+             'lanes set their hashes\' bytes, the warp stores the row in '
+             'lane-owned 16-byte chunks, the lanes clear the bytes; FPB '
+             'rocc rows and 2 qocc rows from the lane\'s FPB hashes; the '
+             'wide rows as 16-byte copies of codes or pads; one wave of '
+             'CTAs, warps taking coarse blocks in turn')
+
+
+def k9_alone(torch, ag, b, codes, kb) -> dict:
+    """K9 on arena b's genomes (its codes; bucket kb) == the arena (built
+    by K9 through GenomeIndex) == index_block_v3_plain on the same codes,
+    key by key (the plain version launching nothing); K9's ms, device_ms,
+    plain_ms and bytes bound (both strands' codes read once, the
+    occupancies and window rows written once)."""
+    fwd = b['fwd']
+    rc = arena_rc(torch, b, codes, kb)
+    at = f'v3 index, bucket {kb}: {fwd.shape[0]} genomes'
+
+    def run():
+        return ag._index_block_v3(fwd, rc, ag.SEED_K, kb)
+
+    def plain():
+        return ag.index_block_v3_plain(fwd, rc, ag.SEED_K, kb)
+
+    keys = ag._V3_KEYS
+    same_arena(at, run(), [b[k] for k in keys], keys)
+    with no_launches(ag, at):
+        same_arena(at, [b[k] for k in keys], plain(), keys)
+        plain_ms = time_ms(plain, 2)
+    nbytes = 2 * fwd.numel() + sum(b[k].numel() for k in keys)
+    return with_shares(dict(
+        genomes=int(fwd.shape[0]), bucket=kb, max_abs_err=0,
+        ms=time_ms(run, 5), **device_ms_item(run, 5), plain_ms=plain_ms,
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by='bytes',
+        bytes=nbytes, at=at))
+
+
 def align_v3_corpus(torch, dev, name, corpus, ag, reps: int = 3):
     import numpy as np
     codes, pairs = align_inputs(corpus)
@@ -1024,17 +1114,26 @@ def align_v3_corpus(torch, dev, name, corpus, ag, reps: int = 3):
     for i, j in pairs.tolist():
         kb = max(ag._pad_bucket(lens[i]), ag._pad_bucket(lens[j]))
         members.setdefault(kb, set()).update((i, j))
-    t0 = time.perf_counter()
-    idx = ag.GenomeIndex(codes, device=dev)
-    for kb, gids in sorted(members.items()):
-        idx.ensure_v3(kb, gids)
-    torch.cuda.synchronize()
-    index_s = time.perf_counter() - t0
+    # The index build (K9 a chunk of genomes), counted from 0.
+    zero_align_launches(ag)
+    with pipe_timer(ag) as bst:
+        t0 = time.perf_counter()
+        idx = ag.GenomeIndex(codes, device=dev)
+        for kb, gids in sorted(members.items()):
+            idx.ensure_v3(kb, gids)
+        torch.cuda.synchronize()
+        index_s = time.perf_counter() - t0
+    index_launches = align_launches(ag)
+    check_align_launches(f'align_v3 {name}: the index', index_launches, bst,
+                         index_only=True)
     # The index's least bytes: both strands' codes read once, the padded
     # codes, occupancies and window rows written once.
     index_bytes = sum(idx.bucket[(kb, 'v3')][k].numel() for kb in members
                       for k in ('fwd', 'qocc', 'rocc', 'roww_f', 'roww_r')) \
         + sum(2 * kb * len(g) for kb, g in members.items())
+    # K9 against its plain version on each bucket's arena, and alone.
+    k9 = {kb: k9_alone(torch, ag, idx.bucket[(kb, 'v3')], codes, kb)
+          for kb in sorted(members)}
 
     # The path, counted from 0.
     torch.cuda.reset_peak_memory_stats()
@@ -1047,7 +1146,7 @@ def align_v3_corpus(torch, dev, name, corpus, ag, reps: int = 3):
     launches = align_launches(ag)
     peak = torch.cuda.max_memory_allocated()
     dispatches = {p: st[p]['dispatches'] for p in st}
-    check_align_launches(f'align_v3 {name}', launches, dispatches)
+    check_align_launches(f'align_v3 {name}', launches, st)
 
     # The same function with the plain K2, K3, K5 and K4.
     with plain_kernels(ag):
@@ -1070,8 +1169,12 @@ def align_v3_corpus(torch, dev, name, corpus, ag, reps: int = 3):
                                           pipe='v3'))
     return dict(phase='align_v3', corpus=name, genomes=len(codes),
                 pairs=int(len(pairs)), buckets=sorted(members),
-                index_s=index_s,
+                index_s=index_s, index_prep_s=idx.prep_s,
+                index_k9_device_ms=sum(r['device_ms'] or 0
+                                       for r in k9.values()),
+                index_launches=index_launches,
                 index_bound_ms=index_bytes / HBM_BYTES_PER_S * 1e3,
+                k9=k9,
                 first_run_s=first_s, warm_s=walls,
                 pairs_per_s=len(pairs) / min(walls), path_launches=launches,
                 dispatches=dispatches, peak_mem_gib=peak / 2 ** 30,
@@ -1609,11 +1712,11 @@ def k2_library_ms(torch, qocc, rocc, r_rows, q_rows) -> float:
 
 
 def phase_align_v3(torch, dev, seed: int, engine: dict):
-    """Phases align_v3 and align_hybrid. The `launches` of K2, K3, K5, K4,
-    K8 (fused into K6: K6's), K6 and K7 are those of the CLI engine path
-    (phase align_engine); the other paths' are beside them. Returns their
-    seven rows (K8, K6 and K7 timed on the hybrid's v2 dispatch at
-    65,536)."""
+    """Phases align_v3 and align_hybrid. The `launches` of K9, K10, K2, K3,
+    K5, K4, K8 (fused into K6: K6's), K6 and K7 are those of the CLI engine
+    path (phase align_engine); the other paths' are beside them. Returns
+    their nine rows (K9 on genomes48's arena of 65,536; K10, K8, K6 and K7
+    timed on the hybrid's v2 dispatch at 65,536)."""
     from vclust_tpu_torch.ops import align_gpu as ag
     res48, codes, pairs, idx, out = align_v3_corpus(
         torch, dev, 'genomes48', mutant_corpus(), ag)
@@ -1652,14 +1755,33 @@ def phase_align_v3(torch, dev, seed: int, engine: dict):
         ('k8', ('vclust_tpu/ops/align_tpu.py:296', K8_DESIGN)),
         ('k6', ('vclust_tpu/ops/align_tpu.py:355', K6_DESIGN)),
         ('k7', ('vclust_tpu/ops/align_tpu.py:653', K7_DESIGN))))
-    rows = (k2, k3, k5, k4) + v2_rows
+    # K9 alone on genomes48's arena of 65,536; its other arenas beside.
+    k9 = dict(res48['k9'][65536], name='index_v3',
+              wrapper='_index_block_v3', route='cuda',
+              source='vclust_tpu_torch/csrc/index.cu',
+              replaces='vclust_tpu/ops/align_tpu.py:1040', design=K9_DESIGN,
+              library_ms=None,
+              library='none: no PyTorch call builds the occupancies (the '
+                      'plain version is a zero fill, an index_put of one '
+                      'byte a position and unfold copies)')
+    k9['other_arenas'] = {r['at']: {key: r.get(key) for key in keys}
+                          for res in (res48, res_c)
+                          for kb, r in res['k9'].items()
+                          if res is res_c or kb != 65536}
+    k10 = dict(v2d['index'], route='cuda',
+               source='vclust_tpu_torch/csrc/index.cu',
+               replaces='vclust_tpu/ops/align_tpu.py:748',
+               design=K10_DESIGN)
+    rows = (k9, k10, k2, k3, k5, k4) + v2_rows
     for row in rows:
         key = row.get('wrapper', row['name'])
         row['launches'] = engine['path_launches'][key]
         row['launches_by_path'] = {
             'align --engine gpu (example, 66 pairs)':
                 engine['path_launches'][key],
+            'align_v3 genomes48 (index)': res48['index_launches'][key],
             'align_v3 genomes48': res48['path_launches'][key],
+            'align_v3 contigs128 (index)': res_c['index_launches'][key],
             'align_v3 contigs128': res_c['path_launches'][key],
             'align_hybrid genomes48': hybrid['path_launches'][key]}
     return rows
@@ -1686,12 +1808,31 @@ TRUE_TANI = {
 def pipe_timer(ag):
     """Inside: every `_all2all_single` call (each returns host arrays, so
     its wall time holds its device work) adds its seconds, calls and pairs
-    to the yielded {'v3': ..., 'v2': ...} by pipe, and every row core call
-    one dispatch to its pipe."""
-    stats = {p: dict(s=0.0, calls=0, pairs=0, dispatches=0)
-             for p in ('v3', 'v2')}
+    to the yielded {'v3': ..., 'v2': ...} by pipe, every row core call one
+    dispatch to its pipe, and every chunk of genomes an arena build of
+    the pipe writes (`GenomeIndex._build`) one index chunk, each build
+    that wrote any its seconds to index_s (to the card's end: the
+    wrapper synchronises after it)."""
+    import torch
+    stats = {p: dict(s=0.0, calls=0, pairs=0, dispatches=0,
+                     index_chunks=0, index_s=0.0) for p in ('v3', 'v2')}
     real = ag._all2all_single
     cores = {'v3': ag._row_core_v3, 'v2': ag._row_core}
+    real_build = ag.GenomeIndex._build
+
+    def build(self, key, gids, cache, names, index_fn, empty_fn):
+        pipe = 'v3' if key[1] == 'v3' else 'v2'
+
+        def chunk(*args, **kw):
+            stats[pipe]['index_chunks'] += 1
+            return index_fn(*args, **kw)
+        chunks = stats[pipe]['index_chunks']
+        t0 = time.perf_counter()
+        d = real_build(self, key, gids, cache, names, chunk, empty_fn)
+        if stats[pipe]['index_chunks'] > chunks:
+            torch.cuda.synchronize()
+            stats[pipe]['index_s'] += time.perf_counter() - t0
+        return d
 
     def counted(pipe):
         def core(*args, **kw):
@@ -1712,11 +1853,13 @@ def pipe_timer(ag):
 
     ag._all2all_single = timed
     ag._row_core_v3, ag._row_core = counted('v3'), counted('v2')
+    ag.GenomeIndex._build = build
     try:
         yield stats
     finally:
         ag._all2all_single = real
         ag._row_core_v3, ag._row_core = cores['v3'], cores['v2']
+        ag.GenomeIndex._build = real_build
 
 
 def engine_run(ag, out: pathlib.Path, *extra):
@@ -1733,14 +1876,19 @@ def engine_run(ag, out: pathlib.Path, *extra):
             out / 'ani.tsv', '--engine', 'gpu', '-v', '0', *extra)
         wall = time.perf_counter() - t0
     launches = align_launches(ag)
-    check_align_launches('align --engine gpu', launches,
-                         {p: st[p]['dispatches'] for p in st})
+    check_align_launches('align --engine gpu', launches, st)
+    if not st['v3']['index_chunks'] or \
+            bool(st['v2']['dispatches']) != bool(st['v2']['index_chunks']):
+        fail(f'align --engine gpu: index chunks {st} (each pipe that ran '
+             f'builds its arenas)')
     return wall, launches, st
 
 
 def split_seconds(wall, st) -> dict:
     v3, v2 = st['v3']['s'], st['v2']['s']
     return dict(wall_s=wall, v3_s=v3, v2_s=v2, host_s=wall - v3 - v2,
+                v3_index_s=st['v3']['index_s'],
+                v2_index_s=st['v2']['index_s'],
                 v2_pairs=st['v2']['pairs'],
                 dispatches={p: st[p]['dispatches'] for p in st})
 
@@ -1967,34 +2115,68 @@ def v2_front_end_alone(torch, ag, b, r_rows, rlens, q_rows, qlens, kb, C,
     return k8, k6, k7
 
 
+K10_DESIGN = ('(genome, strand) rows a group at a time: a warp a fine '
+              'block, its (hash, offset) keys sorted by a bitonic network '
+              'over the warp, lanes r < C writing slot r; the valid slots\' '
+              'items (value, position) sorted by a stable LSD radix of '
+              '8-bit digits (two passes at k = 8), each a scan of the '
+              'tiles\' digit counts (counted by atomics where the items '
+              'land) and a scatter, a CTA a (row, tile of 4,096): '
+              '__match_any_sync and per-warp digit counts rank the items, '
+              'scanned over the warps from the tile\'s offset; the passes '
+              'ping-pong between pk1 and a scratch; the packs from the '
+              'sorted items; the window rows as 16-byte copies')
+
+
 def v2_index_build(torch, ag, b, codes, kb, C) -> dict:
-    """The v2 index build of bucket kb (`_index_block`, torch ops) on the
-    arena's genomes, alone: == the arena, its event and device times, and
-    its bytes bound (both strands' codes read once, the index written)."""
-    import numpy as np
-    from vclust_tpu_torch.core.seq import revcomp_codes
+    """K10 on the arena's genomes (bucket kb, C seeds a block) == the arena
+    (built by K10 through GenomeIndex) == index_block_plain on the same
+    codes, key by key (the plain version launching nothing); its ms,
+    device_ms, plain_ms, bytes bound (both strands' codes read once, the
+    index written once) and library_ms: torch.sort(stable=True) of the
+    same rows' keys (the selected values of both strands, BIG where
+    invalid; the sort alone, no selection and no packs)."""
     fwd = b['fwd']
     G = fwd.shape[0]
-    rc = np.full((G, kb), 4, np.int8)
-    for g, row in b['rows'].items():
-        rc[row, :len(codes[g])] = revcomp_codes(codes[g])
-    rc = torch.from_numpy(rc).to(fwd.device)
+    rc = arena_rc(torch, b, codes, kb)
     pb = b['pack_bits']
+    at = f'v2 index, bucket {kb}: {G} genomes, C={C}, {pb}-bit packs'
 
     def run():
         return ag._index_block(fwd, rc, ag.SEED_K, pb, C)
 
-    if not all(torch.equal(x, b[k]) for k, x in zip(ag._V2_KEYS, run())):
-        fail(f'v2 index at {kb}: _index_block != the arena')
+    def plain():
+        return ag.index_block_plain(fwd, rc, ag.SEED_K, pb, C)
+
+    keys = ag._V2_KEYS
+    same_arena(at, run(), [b[k] for k in keys], keys)
+    with no_launches(ag, at):
+        same_arena(at, [b[k] for k in keys], plain(), keys)
+        plain_ms = time_ms(plain, 2)
+        # The reverse strand's selected values: the plain version's qsv
+        # of the reverse codes.
+        sel_r = ag.index_block_plain(rc, rc, ag.SEED_K, pb, C)[0]
+    keys_rows = torch.cat([torch.where(x < 0, ag.BIG, x)
+                           for x in (b['qsv'], sel_r)]).contiguous()
+    del sel_r
+    library_ms = time_ms(lambda: torch.sort(keys_rows, dim=1, stable=True),
+                         5)
+    del keys_rows
     NQ = kb // ag.FINE * C
     # qsv, qoff, sv_f, sv_r (int32); the packs (int64: four arrays, or
     # two where pk2 is pk1); the window rows (int8).
     nbytes = (2 * G * kb + G * NQ * (16 + 8 * (4 if pb == 32 else 2))
               + b['r2dov'].numel())
     return with_shares(dict(
-        genomes=G, bucket=kb, C=C, ms=time_ms(run, 3),
-        **device_ms_item(run, 3), bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-        bound_by='bytes', bytes=nbytes))
+        name='index_v2', wrapper='_index_block', genomes=G, bucket=kb, C=C,
+        pack_bits=pb, max_abs_err=0, ms=time_ms(run, 3),
+        **device_ms_item(run, 3), profile=profile_breakdown(torch, run, 6),
+        plain_ms=plain_ms,
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by='bytes',
+        bytes=nbytes, library_ms=library_ms,
+        library='torch.sort(stable=True) of the rows\' keys (both '
+                'strands\' selected values, BIG where invalid): the sort '
+                'alone', at=at))
 
 
 def v2_dispatch(torch, dev, ag, b, codes, kb, seed, C=None, kernels=True):
@@ -2094,8 +2276,7 @@ def phase_align_hybrid(torch, dev, ag, idx, codes, pairs, v3_out, seed):
         out = ag.all2all_gpu(codes, pairs, index=idx)
         first_s = time.perf_counter() - t0
     launches = align_launches(ag)
-    check_align_launches('align_hybrid', launches,
-                         {p: st[p]['dispatches'] for p in st})
+    check_align_launches('align_hybrid', launches, st)
     if st['v3']['pairs'] != len(pairs):
         fail('align_hybrid: v3 did not run every pair')
     hard = st['v2']['pairs']
@@ -2222,7 +2403,7 @@ def phase_align_v2(torch, dev, seed):
     peak = torch.cuda.max_memory_allocated()
     launches = align_launches(ag)
     dispatches = {p: st[p]['dispatches'] for p in st}
-    check_align_launches('align_v2', launches, dispatches)
+    check_align_launches('align_v2', launches, st)
     with plain_kernels(ag):
         want = ag._all2all_single(codes, pairs, index=idx,
                                   keep_alignments=True, pipe='v2')
@@ -2255,9 +2436,15 @@ def phase_align_v2(torch, dev, seed):
     dispatch = v2_dispatch(torch, dev, ag, idx.bucket[(kb,
                                                        ag.SEEDS_PER_BLOCK)],
                            codes, kb, seed)
-    c8 = v2_dispatch(torch, dev, ag, idx.ensure(kb, sorted(
-        idx.bucket[(kb, ag.SEEDS_PER_BLOCK)]['rows']), C=8), codes, kb, seed,
-        C=8, kernels=False)
+    # The arena at C = 8 (PHASE1_C), built by one K10 launch.
+    before = ag._index_block.launches
+    gids = sorted(idx.bucket[(kb, ag.SEEDS_PER_BLOCK)]['rows'])
+    b8 = idx.ensure(kb, gids, C=8)
+    if ag._index_block.launches != before + 1:
+        fail('align_v2: the C = 8 arena was not built by one K10 launch')
+    c8 = v2_dispatch(torch, dev, ag, b8, codes, kb, seed, C=8,
+                     kernels=False)
+    index_c8 = v2_index_build(torch, ag, b8, codes, kb, 8)
     wide = wide_pack_check(dev, ag)
     den = np.array([lens[i] + lens[j] for i, j in pairs.tolist()])
     res = dict(phase='align_v2', genomes=len(codes), lengths=lens,
@@ -2270,7 +2457,7 @@ def phase_align_v2(torch, dev, seed):
                tani=((out[:, 1] + out[:, 4]) / den).round(5).tolist(),
                cpu_eq_pairs=check.tolist(),
                cpu_eq_records=int(len(cpu[1][0])), wide_pack=wide,
-               dispatch=dispatch,
+               dispatch=dispatch, index_c8=index_c8,
                dispatch_c8={k: c8[k] for k in (
                    'rows', 'peak_bytes_1_row', 'peak_bytes_2_rows',
                    'bytes_per_row', 'model_bytes_per_row')})
@@ -2467,8 +2654,7 @@ def phase_mesh(torch, dev, k1_inputs, align_rows) -> dict:
         sharded = ag.all2all_gpu(codes, pairs, keep_alignments=True,
                                  mesh=mesh2)
     sharded_launches = align_launches(ag)
-    check_align_launches('mesh: the sharded align', sharded_launches,
-                         {p: st[p]['dispatches'] for p in st})
+    check_align_launches('mesh: the sharded align', sharded_launches, st)
     if not (np.array_equal(single[0], sharded[0])
             and np.array_equal(single[1][0], sharded[1][0])
             and np.array_equal(single[1][1], sharded[1][1])):
@@ -2594,13 +2780,19 @@ def main():
                                 unweighted['max_abs_err'])
     keys = ('at', 'max_abs_err', 'ms', 'device_ms', 'plain_ms', 'bound_ms',
             'bound_by', 'library_ms', 'share_of_bound', 'host_ms')
-    for row, key in zip(align_rows[4:], ('k8', 'k6', 'k7')):
+    for row, key in zip(align_rows[6:], ('k8', 'k6', 'k7')):
         at = v2['dispatch'][key]
         row['max_abs_err'] = max(row['max_abs_err'], at['max_abs_err'])
         row['at_262144'] = {key: at.get(key) for key in keys}
-    k2_row, k3_row, k5_row, k4_row, k8_row, k6_row, k7_row = align_rows
-    emit({'kernels': [kx_row, k1_row, k2_row, k3_row, k4_row, k5_row,
-                      k8_row, k6_row, k7_row],
+    (k9_row, k10_row, k2_row, k3_row, k5_row, k4_row, k8_row, k6_row,
+     k7_row) = align_rows
+    for name, at in (('at_262144', v2['dispatch']['index']),
+                     ('at_262144_c8', v2['index_c8'])):
+        k10_row['max_abs_err'] = max(k10_row['max_abs_err'],
+                                     at['max_abs_err'])
+        k10_row[name] = {key: at.get(key) for key in keys}
+    emit({'kernels': [kx_row, k1_row, k9_row, k10_row, k2_row, k3_row,
+                      k4_row, k5_row, k8_row, k6_row, k7_row],
           'seconds': time.perf_counter() - t0})
     smi = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',

@@ -21,6 +21,7 @@ from back_half_cases import (CASES, K3_ARGS, K5_ARGS,  # noqa: E402
                              PARAMS, back_half_case, bands_case, chain_case,
                              last_chunk_case, long_segment_case,
                              propagate_case, sparse_cap_case, torch_args)
+from index_cases import index_genomes, padded  # noqa: E402
 from v2_cases import (CRAFTED, chain_election, clipped_election,  # noqa
                       crafted_case, distinct_election, election_case,
                       random_election, relay_election, v2_arena, v2_genomes,
@@ -1104,3 +1105,175 @@ def test_all2all_gpu_card_matches_cpu(cuda_device, monkeypatch, pipe):
         assert min(launched) >= 1 and launched[3] >= launched[2]
     else:
         assert launched[:3] == (0, 0, 0) and launched[3] >= 1
+
+
+# The index builds: K9 and K10 (csrc/index.cu) on the card against their
+# plain versions, on tests/index_cases.py's hard rows.
+
+def _index_on(device, Lp, seed=3):
+    fwd, rc = padded(index_genomes(seed, Lp), Lp)
+    return (torch.from_numpy(fwd).to(device),
+            torch.from_numpy(rc).to(device))
+
+
+def _same_arrays(got, want, keys):
+    torch.cuda.synchronize()
+    for key, g, w in zip(keys, got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, key
+        assert torch.equal(g, w), key
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('Lp,k,H,wq', [
+    (4096, 8, 2048, 128), (65536, 8, 2048, 128), (131072, 8, 2048, 128),
+    (4096, 8, 256, 128), (4096, 4, 256, 64), (6144, 8, 16384, 96),
+    (16384, 8, 4096, 256), (4096, 8, 2048, 64)])
+def test_k9_kernel_matches_plain(cuda_device, monkeypatch, Lp, k, H, wq):
+    """K9 == index_block_v3_plain, every array, one launch: buckets 4,096
+    to 131,072, H 256 to 16,384, V3_WQ 64 to 256 (a half-block of 48 at
+    96), k 4 and 8, on the poly-A, all-N, bucket-edge and N-run genomes."""
+    monkeypatch.setattr(tav, 'V3_H', H)
+    monkeypatch.setattr(tav, 'V3_WQ', wq)
+    fwd, rc = _index_on(cuda_device, Lp)
+    before = tav._index_block_v3.launches
+    got = tav._index_block_v3(fwd, rc, k, Lp)
+    assert tav._index_block_v3.launches == before + 1
+    _same_arrays(got, tav.index_block_v3_plain(fwd, rc, k, Lp),
+                 tav._V3_KEYS)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('Lp,k,C,pack', [
+    (4096, 8, 16, 32), (4096, 8, 1, 32), (4096, 8, 32, 64),
+    (4096, 4, 8, 32), (4096, 4, 32, 64), (65536, 8, 16, 32),
+    (65536, 8, 32, 32), (65536, 8, 8, 64), (262144, 8, 16, 64),
+    (262144, 8, 8, 64), (1 << 20, 8, 16, 64)])
+def test_k10_kernel_matches_plain(cuda_device, Lp, k, C, pack):
+    """K10 == index_block_plain, every array, one launch: buckets 4,096 to
+    2^20, C = 1-32, k 4 (one radix pass) and 8 (two), both pack widths,
+    on the poly-A run (one value over ~65 blocks), the all-N genome (no
+    valid seed), a genome to the bucket's edge and blocks with fewer valid
+    positions than C."""
+    fwd, rc = _index_on(cuda_device, Lp)
+    before = tav._index_block.launches
+    got = tav._index_block(fwd, rc, k, pack, C)
+    assert tav._index_block.launches == before + 1
+    want = tav.index_block_plain(fwd, rc, k, pack, C)
+    _same_arrays(got, want, tav._V2_KEYS)
+    if pack == 64:
+        assert got[4] is got[3] and got[7] is got[6]
+
+
+@pytest.mark.gpu
+def test_k10_kernel_groups_of_rows(cuda_device):
+    """K10 over 40 genomes at 262,144 and C = 32: 80 (genome, strand) rows
+    of 2 MiB of scratch each go in two groups of at most 128 MiB (64 rows,
+    then 16); == index_block_plain, every array, one launch."""
+    Lp = 262144
+    codes = [c for s in range(6) for c in index_genomes(s, Lp)][:40]
+    fwd, rc = (torch.from_numpy(x).to(cuda_device)
+               for x in padded(codes, Lp))
+    lib = tav.cuda.library('index', tav.cuda.INDEX_SIGNATURES)
+    assert lib.k10_scratch_rows(40, Lp // 32 * 32) == 64
+    before = tav._index_block.launches
+    got = tav._index_block(fwd, rc, 8, 64, 32)
+    assert tav._index_block.launches == before + 1
+    _same_arrays(got, tav.index_block_plain(fwd, rc, 8, 64, 32),
+                 tav._V2_KEYS)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('kind', ['v3', 'v2'])
+def test_index_arena_of_two_chunks(cuda_device, kind):
+    """600 genomes at bucket 4,096 through GenomeIndex (two chunks of
+    _INDEX_ROWS_CHUNK written into one arena, no copy) == the plain build
+    of the same codes, key by key; K9 or K10 launched once a chunk."""
+    codes = [c for s in range(86) for c in index_genomes(s, 4096)][:600]
+    idx = tav.GenomeIndex(codes, device=cuda_device)
+    counter = tav._index_block_v3 if kind == 'v3' else tav._index_block
+    before = counter.launches
+    if kind == 'v3':
+        got = idx.ensure_v3(4096, range(600))
+        keys = tav._V3_KEYS
+    else:
+        got = idx.ensure(4096, range(600), C=16)
+        keys = tav._V2_KEYS
+    assert counter.launches == before + 2
+    fwd, rc = padded(codes, 4096)
+    fwd, rc = (torch.from_numpy(x).to(cuda_device) for x in (fwd, rc))
+    want = (tav.index_block_v3_plain(fwd, rc, tav.SEED_K, 4096)
+            if kind == 'v3' else
+            tav.index_block_plain(fwd, rc, tav.SEED_K, 32, 16))
+    _same_arrays([got[k] for k in keys], want, keys)
+    assert torch.equal(got['fwd'], fwd)
+
+
+@pytest.mark.gpu
+def test_index_wrappers_raise_on_bad_arguments(cuda_device, monkeypatch):
+    """On the card K9's and K10's wrappers raise, and neither launch nor
+    fall back to the plain version, where the kernels cannot take their
+    arguments."""
+    fwd, rc = _index_on(cuda_device, 4096)
+    before = (tav._index_block_v3.launches, tav._index_block.launches)
+    shifted = torch.empty(fwd.numel() + 4, dtype=torch.int8,
+                          device=cuda_device)[4:].view(fwd.shape)
+    shifted.copy_(fwd)
+    with pytest.raises(ValueError, match='16-byte aligned'):
+        tav._index_block_v3(shifted, rc, 8, 4096)
+    with pytest.raises(ValueError, match='16-byte aligned'):
+        tav._index_block(fwd, shifted, 8, 32, 16)
+    with pytest.raises(ValueError, match='C 1-32'):
+        tav._index_block(fwd, rc, 8, 32, 33)
+    with pytest.raises(ValueError, match='is on'):
+        tav._index_block(fwd, rc.cpu(), 8, 32, 16)
+    with pytest.raises(ValueError, match='must be'):
+        tav._index_block(fwd, rc, 8, 32, 16,
+                         out=tav.index_v2_empty(7, 4096, 32, 8, cuda_device))
+    monkeypatch.setattr(tav, 'V3_H', 1000)
+    with pytest.raises(ValueError, match='multiple of 16'):
+        tav._index_block_v3(fwd, rc, 8, 4096)
+    assert (tav._index_block_v3.launches,
+            tav._index_block.launches) == before
+
+
+def test_cpu_tensors_take_the_plain_index_builds():
+    """K9's and K10's wrappers answer CPU tensors with their plain
+    versions, without a launch, and write them into `out` when given."""
+    before = (tav._index_block_v3.launches, tav._index_block.launches)
+    fwd, rc = _index_on('cpu', 4096)
+    got = tav._index_block_v3(fwd, rc, tav.SEED_K, 4096)
+    want = tav.index_block_v3_plain(fwd, rc, tav.SEED_K, 4096)
+    out = tav.index_v3_empty(len(fwd), 4096, 'cpu')
+    assert tav._index_block_v3(fwd, rc, tav.SEED_K, 4096, out=out) is not \
+        None
+    for g, o, w in zip(got, out, want):
+        assert torch.equal(g, w) and torch.equal(o, w)
+    for pack in (32, 64):
+        got = tav._index_block(fwd, rc, tav.SEED_K, pack, 8)
+        want = tav.index_block_plain(fwd, rc, tav.SEED_K, pack, 8)
+        out = tav.index_v2_empty(len(fwd), 4096, pack, 8, 'cpu')
+        tav._index_block(fwd, rc, tav.SEED_K, pack, 8, out=out)
+        for g, o, w in zip(got, out, want):
+            assert torch.equal(g, w) and torch.equal(o, w)
+    assert (tav._index_block_v3.launches,
+            tav._index_block.launches) == before
+
+
+@pytest.mark.parametrize('kind', ['v3', 'v2'])
+def test_index_chunks_write_one_arena(monkeypatch, kind):
+    """GenomeIndex writes each chunk of genomes into its slice of one
+    arena: with chunks of 3 genomes, the 7 genomes' arena == one chunk's,
+    key by key (on the CPU)."""
+    codes = index_genomes(6, 4096)
+    whole = tav.GenomeIndex(codes, device='cpu')
+    monkeypatch.setattr(tav, '_INDEX_ROWS_CHUNK', 3)
+    cut = tav.GenomeIndex(codes, device='cpu')
+    if kind == 'v3':
+        a, b = (i.ensure_v3(4096, range(7)) for i in (whole, cut))
+        keys = tav._V3_KEYS
+    else:
+        a, b = (i.ensure(4096, range(7), C=8) for i in (whole, cut))
+        keys = tav._V2_KEYS
+    for key in keys:
+        assert torch.equal(a[key], b[key]), key
+    assert cut.prep_s > 0

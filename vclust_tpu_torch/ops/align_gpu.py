@@ -5,10 +5,11 @@ runs two front ends that share one back half, as the JAX package's
 `all2all_tpu` and `_all2all_single(..., pipe='v3' | 'v2')` compute them,
 bit for bit. The default front end, v3:
 
-1. **Index** (`GenomeIndex.ensure_v3`, `_index_block_v3`): per genome and
-   length bucket, {0,1} occupancies of hashed canonical 8-mers over query
-   half-blocks of V3_WQ/2 bases (`qocc`) and reference blocks of 32
-   (`rocc`), and wide window rows of both strands (`roww_f`, `roww_r`).
+1. **Index** (`GenomeIndex.ensure_v3`, `_index_block_v3`, kernel K9 in
+   csrc/index.cu): per genome and length bucket, {0,1} occupancies of
+   hashed canonical 8-mers over query half-blocks of V3_WQ/2 bases
+   (`qocc`) and reference blocks of 32 (`rocc`), and wide window rows of
+   both strands (`roww_f`, `roww_r`).
 2. **Stage 1** (`_stage1_v3`, kernel K2 in csrc/align_v3.cu): the product
    qocc . rocc^T with a packed max over reference blocks for the half-sum
    and each half, then the dissenting-half rule: two candidate reference
@@ -29,10 +30,11 @@ bit for bit. The default front end, v3:
 The v2 front end, for buckets above V3_MAX_BUCKET, for the pairs v3
 leaves hard, and with VCLUST_ALIGN_PIPE=v2:
 
-1. **Index** (`GenomeIndex.ensure`, `_index_block`): per genome, the C
-   seeds of each fine block with the smallest value hash, and per strand
-   their value-sorted packs (value, position) / (value, previous
-   position), plus 64-wide overlapped window rows.
+1. **Index** (`GenomeIndex.ensure`, `_index_block`, kernel K10 in
+   csrc/index.cu): per genome, the C seeds of each fine block with the
+   smallest value hash, and per strand their value-sorted packs (value,
+   position) / (value, previous position), plus 64-wide overlapped
+   window rows.
 2. **Votes and election** (`_votes_elect_v2`, kernel K6 in
    csrc/align_v2.cu, K8 fused in): the plain version's stable sort join
    joins the K queries' seeds with the reference's and a running max
@@ -52,12 +54,14 @@ mechanisms are kept in semantics only: the hierarchical cummax is
 sort is an inverse permutation, and the dispatch size comes from a bound
 on live device bytes (`_dispatch_rows`, `_dispatch_rows_v2`).
 
-`stage1_pack` (K2), `_bands_v3` (K3), `_propagate_v3` (K5),
-`_blocks_to_measures` (K4), `_votes_elect_v2` (K6, K8 fused in) and
-`_propagate_v2` (K7) are the kernel wrappers: CPU tensors take
-`stage1_pack_plain`, `bands_v3_plain`, `propagate_v3_plain`,
-`blocks_to_measures_plain`, `votes_elect_v2_plain` and
-`propagate_v2_plain`, CUDA tensors launch the kernel or raise. Each
+`_index_block_v3` (K9), `_index_block` (K10), `stage1_pack` (K2),
+`_bands_v3` (K3), `_propagate_v3` (K5), `_blocks_to_measures` (K4),
+`_votes_elect_v2` (K6, K8 fused in) and `_propagate_v2` (K7) are the
+kernel wrappers: CPU tensors take `index_block_v3_plain`,
+`index_block_plain`, `stage1_pack_plain`, `bands_v3_plain`,
+`propagate_v3_plain`, `blocks_to_measures_plain`,
+`votes_elect_v2_plain` and `propagate_v2_plain`, CUDA tensors launch the
+kernel or raise. Each
 wrapper's `launches` counts its kernel launches. Entry points:
 `all2all_gpu` and `_all2all_single`, on `cuda`
 unless the caller asks for the CPU (utils/device.py), or over a mesh
@@ -71,6 +75,7 @@ bound small dispatches by the shard count.
 """
 
 import os
+import time
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -258,12 +263,12 @@ def _canon_hash(vals: torch.Tensor) -> torch.Tensor:
     return torch.where(vals >= 0, h.to(torch.int32), -1)
 
 
-def _index_block_v3(fwd, rc, k: int, Lp: int):
-    """Per-genome v3 device index for one bucket chunk: canonical
-    occupancies (query half-blocks of WQ/2, reference blocks of FINE) and
-    the wide window rows of both strands. fwd/rc: (G, Lp) int8 codes.
-    Returns qocc (G, 2*NQB, H), rocc (G, NRB, H), roww_f and roww_r
-    (G, NRB, ROWW), all int8."""
+def index_block_v3_plain(fwd, rc, k: int, Lp: int):
+    """Per-genome v3 device index for one bucket chunk, in torch ops (K9's
+    plain version): canonical occupancies (query half-blocks of WQ/2,
+    reference blocks of FINE) and the wide window rows of both strands.
+    fwd/rc: (G, Lp) int8 codes. Returns qocc (G, 2*NQB, H), rocc (G, NRB,
+    H), roww_f and roww_r (G, NRB, ROWW), all int8."""
     g3 = _v3_geom(Lp, Lp)
     WQ, NQB, NRB, ROWW = g3['WQ'], g3['NQB'], g3['NRB'], g3['ROWW']
     G = fwd.shape[0]
@@ -307,8 +312,9 @@ def _pack_bits(Lp: int) -> int:
     return 32 if Lp <= 65536 else 64
 
 
-def _index_block(fwd, rc, k: int, pack_bits: int, C: int):
-    """Per-genome v2 device index for one bucket chunk. fwd/rc: (G, Lp)
+def index_block_plain(fwd, rc, k: int, pack_bits: int, C: int):
+    """Per-genome v2 device index for one bucket chunk, in torch ops (K10's
+    plain version). fwd/rc: (G, Lp)
     int8 codes. Sampling by VALUE keeps the two join sides consistent: a
     matching seed is kept or dropped on both sides together; ties inside a
     block resolve by position (stable sorts).
@@ -378,6 +384,153 @@ def _index_block(fwd, rc, k: int, pack_bits: int, C: int):
     return qsv, qoff, sv_f, pk1_f, pk2_f, sv_r, pk1_r, pk2_r, r2dov
 
 
+def index_v3_empty(G: int, Lp: int, device) -> tuple:
+    """Uninitialised v3 arena arrays of G genomes at bucket Lp, in the
+    order of _V3_KEYS."""
+    g3 = _v3_geom(Lp, Lp)
+    NRB = g3['NRB']
+    return tuple(torch.empty(shape, dtype=torch.int8, device=device)
+                 for shape in ((G, 2 * g3['NQB'], V3_H), (G, NRB, V3_H),
+                               (G, NRB, g3['ROWW']), (G, NRB, g3['ROWW'])))
+
+
+def index_v2_empty(G: int, Lp: int, pack_bits: int, C: int,
+                   device) -> tuple:
+    """Uninitialised v2 arena arrays of G genomes at bucket Lp, in the
+    order of _V2_KEYS; with 64-bit packs pk2 is pk1 (one tensor), as
+    index_block_plain returns them."""
+    NQ = Lp // FINE * C
+
+    def new(dtype):
+        return torch.empty((G, NQ), dtype=dtype, device=device)
+
+    qsv, qoff, sv_f, sv_r = (new(torch.int32) for _ in range(4))
+    pk1_f, pk1_r = new(torch.int64), new(torch.int64)
+    pk2_f, pk2_r = ((pk1_f, pk1_r) if pack_bits == 64 else
+                    (new(torch.int64), new(torch.int64)))
+    r2dov = torch.empty((G, 2 * (Lp // FINE + 1), 2 * FINE),
+                        dtype=torch.int8, device=device)
+    return qsv, qoff, sv_f, pk1_f, pk2_f, sv_r, pk1_r, pk2_r, r2dov
+
+
+def _index_codes(fwd, rc, what):
+    """The codes both index builds take, checked for their kernels:
+    (G, Lp) int8 on one card, contiguous, 16-byte aligned. Returns (G,
+    Lp)."""
+    dev = fwd.device
+    cuda.require(fwd, 'fwd', torch.int8, 2, dev)
+    _check(rc, 'rc', torch.int8, tuple(fwd.shape), dev)
+    if fwd.data_ptr() % 16 or rc.data_ptr() % 16:
+        raise ValueError(f'{what} reads the codes 16 bytes at a time: fwd '
+                         f'and rc must be 16-byte aligned')
+    return tuple(fwd.shape)
+
+
+def _index_out(out, empty, dev, what):
+    """The arrays a kernel writes: empty(dev), or `out` checked against
+    empty('meta') (dtype, shape, contiguity, on dev, 16-byte aligned)."""
+    if out is None:
+        return empty(dev)
+    want = empty('meta')
+    if len(out) != len(want):
+        raise ValueError(f'{what}: out must hold {len(want)} arrays')
+    for i, (o, w) in enumerate(zip(out, want)):
+        _check(o, f'out[{i}]', w.dtype, tuple(w.shape), dev)
+        if o.data_ptr() % 16:
+            raise ValueError(f'{what} writes 16 bytes at a time: out[{i}] '
+                             f'must be 16-byte aligned')
+    return tuple(out)
+
+
+def _into(res, out):
+    """The plain version's arrays, copied into `out` where one is given."""
+    if out is None:
+        return res
+    for o, r in zip(out, res):
+        o.copy_(r)
+    return tuple(out)
+
+
+def _index_block_v3(fwd, rc, k: int, Lp: int, out=None):
+    """K9 wrapper (see index_block_v3_plain): the plain version for CPU
+    tensors, the CUDA kernel (csrc/index.cu) for CUDA tensors (or raise).
+    With `out` (arrays as index_v3_empty gives them, or slices of them)
+    the arena is written there and `out` returned. The kernel takes codes
+    0-4, k 1-8, V3_H a multiple of 16 (it writes the rows 16 bytes at a
+    time from a row of H bytes a warp in shared memory) and the geometry
+    of `_v3_geom` (1-13 fine blocks a coarse block)."""
+    dev = fwd.device
+    if dev.type == 'cpu':
+        return _into(index_block_v3_plain(fwd, rc, k, Lp), out)
+    if dev.type != 'cuda':
+        raise ValueError(f'unsupported device {dev}')
+    G, L = _index_codes(fwd, rc, 'K9')
+    g3 = _v3_geom(Lp, Lp)
+    if L != Lp or not 1 <= k <= 8:
+        raise ValueError(f'K9 takes (G, {Lp}) codes and k 1-8; got {L}, '
+                         f'k={k}')
+    if V3_H % 16:
+        raise ValueError(f'K9 takes V3_H a multiple of 16; got {V3_H}')
+    out = _index_out(out, lambda d: index_v3_empty(G, Lp, d), dev, 'K9')
+    if G:
+        lib = cuda.library('index', cuda.INDEX_SIGNATURES)
+        with torch.cuda.device(dev):
+            rc_ = lib.k9_index_v3(
+                cuda.ptr(fwd), cuda.ptr(rc), G, Lp, k, SEED_K, V3_H,
+                32 - int(np.log2(V3_H)), g3['WQ'], g3['ROWW'],
+                *(cuda.ptr(t) for t in out), cuda.stream(fwd))
+        cuda.check(lib, rc_, 'k9_index_v3')
+        _index_block_v3.launches += 1
+    return out
+
+
+_index_block_v3.launches = 0
+
+
+def _index_block(fwd, rc, k: int, pack_bits: int, C: int, out=None):
+    """K10 wrapper (see index_block_plain): the plain version for CPU
+    tensors, the CUDA kernel (csrc/index.cu) for CUDA tensors (or raise).
+    With `out` (arrays as index_v2_empty gives them, or slices of them)
+    the arena is written there and `out` returned. The kernel takes codes
+    0-4, k 1-8, C 1-32, packs of 32 or 64 bits and buckets that are
+    multiples of 32 up to 2^20. It sorts the chunk's (genome, strand) rows
+    a group at a time through a scratch of k10_scratch_rows(G, NQ) rows
+    (8 bytes a slot, at most 128 MiB) and k10_meta_ints words of
+    counts."""
+    dev = fwd.device
+    if dev.type == 'cpu':
+        return _into(index_block_plain(fwd, rc, k, pack_bits, C), out)
+    if dev.type != 'cuda':
+        raise ValueError(f'unsupported device {dev}')
+    G, Lp = _index_codes(fwd, rc, 'K10')
+    if not (1 <= k <= 8 and 1 <= C <= 32 and pack_bits in (32, 64)
+            and Lp % FINE == 0 and 0 < Lp <= MAX_TPU_LEN):
+        raise ValueError(f'K10 takes k 1-8, C 1-32, packs of 32 or 64 bits '
+                         f'and buckets that are multiples of {FINE} up to '
+                         f'{MAX_TPU_LEN}; got k={k}, C={C}, '
+                         f'pack_bits={pack_bits}, Lp={Lp}')
+    out = _index_out(out, lambda d: index_v2_empty(G, Lp, pack_bits, C, d),
+                     dev, 'K10')
+    if G:
+        lib = cuda.library('index', cuda.INDEX_SIGNATURES)
+        NQ = Lp // FINE * C
+        with torch.cuda.device(dev):
+            rows = lib.k10_scratch_rows(G, NQ)
+            scratch = torch.empty((rows, NQ), dtype=torch.int64, device=dev)
+            meta = torch.empty(lib.k10_meta_ints(rows, NQ),
+                               dtype=torch.int32, device=dev)
+            rc_ = lib.k10_index_v2(
+                cuda.ptr(fwd), cuda.ptr(rc), G, Lp, k, C, pack_bits, rows,
+                *(cuda.ptr(t) for t in out), cuda.ptr(scratch),
+                cuda.ptr(meta), cuda.stream(fwd))
+        cuda.check(lib, rc_, 'k10_index_v2')
+        _index_block.launches += 1
+    return out
+
+
+_index_block.launches = 0
+
+
 # Genomes indexed at once (bounds the index build's temporaries).
 _INDEX_ROWS_CHUNK = 512
 _V2_KEYS = ('qsv', 'qoff', 'sv_f', 'pk1_f', 'pk2_f', 'sv_r', 'pk1_r', 'pk2_r',
@@ -387,27 +540,31 @@ _V3_KEYS = ('qocc', 'rocc', 'roww_f', 'roww_r')
 
 class GenomeIndex:
     """Device-resident per-bucket genome arena: padded codes, and per
-    bucket the v3 arrays (canonical occupancies and wide window rows) or
-    the v2 arrays at C seeds a block (sampled seeds, value-sorted packs
-    and window rows). Buckets build lazily, at exactly the bucket sizes
-    the pairs need, and each (bucket, genome set) build is cached on the
-    index."""
+    bucket the v3 arrays (canonical occupancies and wide window rows, K9)
+    or the v2 arrays at C seeds a block (sampled seeds, value-sorted packs
+    and window rows, K10). Buckets build lazily, at exactly the bucket
+    sizes the pairs need, and each (bucket, genome set) build is cached on
+    the index. `prep_s` counts the host's seconds of the builds' padding,
+    reverse complements and uploads."""
 
     def __init__(self, codes_list: Sequence[np.ndarray], device=None):
         self.device = resolve_device(device)
         self.codes = [np.asarray(c, dtype=np.int8) for c in codes_list]
         self.lens = np.array([len(c) for c in self.codes], dtype=np.int32)
         self.bucket = {}   # (Lp, 'v3' or C) -> dict of arrays + row map
+        self.prep_s = 0.0
         # Genomes beyond the engine's position range are not indexed;
         # pairs touching them raise.
         self.oversized = {i for i, c in enumerate(self.codes)
                           if len(c) > MAX_TPU_LEN}
 
-    def _build(self, key, gids, cache, names, index_fn) -> dict:
-        """The arrays `names` = index_fn(fwd, rc) for bucket key[0]
-        covering at least genomes `gids` (cached under `key`). cache=False
-        builds a disposable exact-member sub-arena (the MAX_ARENA path)
-        that is neither stored nor merged."""
+    def _build(self, key, gids, cache, names, index_fn, empty_fn) -> dict:
+        """The arrays `names` for bucket key[0] covering at least genomes
+        `gids` (cached under `key`): allocated once by empty_fn(G, device)
+        and written by index_fn(fwd, rc, out) a chunk of genomes at a time
+        into its slices. cache=False builds a disposable exact-member
+        sub-arena (the MAX_ARENA path) that is neither stored nor
+        merged."""
         Lp = key[0]
         cur = self.bucket.get(key) if cache else None
         need = set(int(g) for g in gids)
@@ -415,6 +572,7 @@ class GenomeIndex:
             return cur
         members = sorted(need | (set(cur['rows']) if cur else set()))
         G = len(members)
+        t0 = time.perf_counter()
         fwd = np.full((G, Lp), 4, dtype=np.int8)
         rc = np.full((G, Lp), 4, dtype=np.int8)
         rows = {}
@@ -424,11 +582,13 @@ class GenomeIndex:
             rows[i] = row
         fwd_d = torch.from_numpy(fwd).to(self.device)
         rc_d = torch.from_numpy(rc).to(self.device)
+        self.prep_s += time.perf_counter() - t0
+        arena = empty_fn(G, self.device)
         ch = _INDEX_ROWS_CHUNK
-        parts = [index_fn(fwd_d[lo:lo + ch], rc_d[lo:lo + ch])
-                 for lo in range(0, G, ch)]
-        d = {name: torch.cat(xs, dim=0) if len(xs) > 1 else xs[0]
-             for name, xs in zip(names, zip(*parts))}
+        for lo in range(0, G, ch):
+            index_fn(fwd_d[lo:lo + ch], rc_d[lo:lo + ch],
+                     tuple(x[lo:lo + ch] for x in arena))
+        d = dict(zip(names, arena))
         d.update(fwd=fwd_d, rows=rows)
         if cache:
             self.bucket[key] = d
@@ -436,8 +596,10 @@ class GenomeIndex:
 
     def ensure_v3(self, Lp: int, gids, cache: bool = True) -> dict:
         """v3 arrays for bucket Lp covering at least genomes `gids`."""
-        return self._build((Lp, 'v3'), gids, cache, _V3_KEYS,
-                           lambda f, r: _index_block_v3(f, r, SEED_K, Lp))
+        return self._build(
+            (Lp, 'v3'), gids, cache, _V3_KEYS,
+            lambda f, r, out: _index_block_v3(f, r, SEED_K, Lp, out=out),
+            lambda G, dev: index_v3_empty(G, Lp, dev))
 
     def ensure(self, Lp: int, gids, C: Optional[int] = None,
                cache: bool = True) -> dict:
@@ -445,8 +607,11 @@ class GenomeIndex:
         sampled at C seeds per fine block (default SEEDS_PER_BLOCK)."""
         C = SEEDS_PER_BLOCK if C is None else C
         pack_bits = _pack_bits(Lp)
-        d = self._build((Lp, C), gids, cache, _V2_KEYS,
-                        lambda f, r: _index_block(f, r, SEED_K, pack_bits, C))
+        d = self._build(
+            (Lp, C), gids, cache, _V2_KEYS,
+            lambda f, r, out: _index_block(f, r, SEED_K, pack_bits, C,
+                                           out=out),
+            lambda G, dev: index_v2_empty(G, Lp, pack_bits, C, dev))
         d['pack_bits'] = pack_bits
         return d
 

@@ -18,7 +18,8 @@ import torch
 from ..utils.build import (BUILD_DIR, CSRC_DIR, finish_compile, is_stale,
                            start_compile)
 
-SOURCES = ('occupancy', 'extend', 'align_v3', 'back_half', 'align_v2')
+SOURCES = ('occupancy', 'extend', 'align_v3', 'back_half', 'align_v2',
+           'index')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
@@ -55,6 +56,19 @@ ALIGN_V2_SIGNATURES = {
     # NRT, iters, ext_min, ext_margin, m1, m0, sw, A, S, D, Ap, Sp, Dp,
     # stream
     'k7_propagate': [_P] * 9 + [_I] * 8 + [_P] * 10,
+}
+# csrc/index.cu, kernels K9 and K10: the v3 and the v2 index builds.
+INDEX_SIGNATURES = {
+    # fwd, rc, G, Lp, k, ck, H, shift, WQ, ROWW, qocc, rocc, roww_f,
+    # roww_r, stream
+    'k9_index_v3': [_P] * 2 + [_I] * 8 + [_P] * 5,
+    # G, NQ
+    'k10_scratch_rows': [_I, _I],
+    # rows, NQ
+    'k10_meta_ints': [_I, _I],
+    # fwd, rc, G, Lp, k, C, pack_bits, rows, qsv, qoff, sv_f, pk1_f,
+    # pk2_f, sv_r, pk1_r, pk2_r, r2dov, scratch, meta, stream
+    'k10_index_v2': [_P] * 2 + [_I] * 6 + [_P] * 12,
 }
 
 _libs = {}
