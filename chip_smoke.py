@@ -22,9 +22,21 @@ Phases, each printing one JSON line; any failure exits non-zero:
               behind a spin kernel) beside its event time; (c) also
               times one launch a chunk (`ms_per_chunk`) against one a
               pass of chunks (`ms`: counts added once);
-  4. cc     - device connected components (ops/cc.py:_cc_run, torch ops)
-              through single linkage on 200,000 nodes, == host union-find,
-              with its time and bytes bound;
+  4. cc     - device connected components, K11 (csrc/cc.cu, wrapper
+              ops/cc.py:_cc_run), through single linkage on 200,000 nodes
+              (launches counted from 0, labels == host union-find); then
+              K11 == cc_plain on the card == a host reference (union-find,
+              or scipy's components at their least member above 200,000
+              nodes) on that graph, a 200,000-node path of permuted ids (the
+              plain version's rounds printed), a star on the largest id,
+              isolated nodes with self loops and duplicate reversed edges,
+              and at IMG/VR scale 2,000,000 nodes: (a) 1,500,000 draws of
+              edges between ids < 64 apart, (b) 8,000,000 random edges;
+              each with ms, device_ms, plain_ms, bound and share;
+     cluster_cli - the `cluster` CLI (single linkage, --metric tani --tani
+              0.95) on a synthetic ani.tsv of 60,000 objects and 200,000
+              directed rows from --seed: K11 launched once, clusters.tsv ==
+              the same CLI run with VCLUST_TORCH_DEVICE=cpu (cc_plain);
   5. main   - the CLI main path on the card: prefilter on 48 genomes (K1
               must launch; fltr.txt == a host-backend run byte for byte;
               K1 on the same index == plain and == the full host count
@@ -108,9 +120,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
               `entry()` == the int product; and `dryrun_multichip` on every
               visible card, or on 2 shards of cuda:0 when one is visible;
  11. the `kernels` line: every kernel (KX, K1, K9, K10, K2, K3, K4, K5,
-     K8, K6, K7) with its launches on its path, error against its plain
-     version, times and bound; K8 is fused into K6 (one launch: row k8 is
-     its votes output, row k6 its election).
+     K8, K6, K7, K11) with its launches on its path, error against its
+     plain version, times, bound and share of it; K8 is fused into K6 (one
+     launch: row k8 is its votes output, row k6 its election).
 On every align path (phases 6-10) K9, K10, K2, K3, K5, K4, K6 and K7 are
 counted from 0 around the run: each chunk of genomes of a v3 or v2 arena
 the path builds launches K9 or K10 once, each v3 dispatch K2, K3, K5 and
@@ -446,7 +458,10 @@ def phase_kx(torch, dev, rng):
     row = dict(
         name='extend', route='cuda', source='vclust_tpu_torch/csrc/extend.cu',
         replaces='vclust_tpu/ops/extend_pallas.py:68',
-        launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        launches=launches, max_abs_err=err, ms=ms,
+        **device_ms_item(
+            lambda: kx.extend(*args, nq, nr, p.aw, p.am, p.ar), 5),
+        plain_ms=plain_ms,
         bound_ms=max(t_bytes, t_ops),
         bound_by='bytes' if t_bytes >= t_ops else 'operations',
         library_ms=None)
@@ -671,11 +686,19 @@ def phase_k1(torch, dev, seed: int):
 
 
 # --------------------------------------------------------------------------
-# Phase 4: device connected components (torch ops, no kernel)
+# Phase 4: device connected components (K11) and the cluster CLI on them
 # --------------------------------------------------------------------------
 
 CC_NODES = 200_000
 CC_EDGE_DRAWS = 150_000
+# IMG/VR scale (SURVEY.md:541): 2,000,000 nodes, (a) the recipe above x 10,
+# (b) 8,000,000 random edges (one giant component plus stragglers).
+CC_BIG_NODES = 2_000_000
+CC_BIG_DRAWS = 1_500_000
+CC_BIG_RANDOM_EDGES = 8_000_000
+# The plain version's rounds each read a flag on the host: a call slower
+# than this is timed once, by its check.
+CC_PLAIN_ONCE_MS = 1000.0
 
 
 def union_find(n: int, edges):
@@ -696,39 +719,207 @@ def union_find(n: int, edges):
     return np.array([find(i) for i in range(n)])
 
 
+def least_member_labels(n: int, edges):
+    """scipy's connected components, each mapped to its least member id:
+    the host reference above 200,000 nodes."""
+    import numpy as np
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components
+    m = coo_matrix((np.ones(len(edges), np.int8), (edges[:, 0], edges[:, 1])),
+                   shape=(n, n))
+    _, comp = connected_components(m, directed=False)
+    least = np.full(comp.max() + 1, n, dtype=np.int64)
+    np.minimum.at(least, comp, np.arange(n))
+    return least[comp]
+
+
+def near_id_edges(rng, n: int, draws: int):
+    """Unique edges between ids less than 64 apart (many small
+    components)."""
+    import numpy as np
+    a = rng.integers(0, n, draws)
+    b = a + rng.integers(1, 64, len(a))
+    return np.unique(np.stack([a, b], axis=1)[b < n], axis=0)
+
+
+def cc_graphs(rng, recipe):
+    """(name, n, edges) of phase cc beyond the recipe graph: the shapes
+    that are hard for propagation or for the atomics, and two graphs at
+    IMG/VR scale."""
+    import numpy as np
+    n = CC_NODES
+    perm = rng.permutation(n)
+    live = rng.choice(n, n // 2, replace=False)
+    pairs = live[rng.integers(0, len(live), (n // 4, 2))]
+    loops = rng.choice(n, n // 8, replace=False)
+    mixed = np.concatenate([pairs, pairs[:, ::-1],
+                            np.stack([loops, loops], axis=1)])
+    return [
+        ('recipe_200k', n, recipe),
+        ('path_permuted_200k', n, np.stack([perm[:-1], perm[1:]], axis=1)),
+        ('star_on_largest_200k', n, np.stack(
+            [np.full(n - 1, n - 1), np.arange(n - 1)], axis=1)),
+        ('isolated_loops_duplicates_200k', n,
+         mixed[rng.permutation(len(mixed))]),
+        ('a_recipe_2m', CC_BIG_NODES,
+         near_id_edges(rng, CC_BIG_NODES, CC_BIG_DRAWS)),
+        ('b_random_2m', CC_BIG_NODES,
+         rng.integers(0, CC_BIG_NODES, (CC_BIG_RANDOM_EDGES, 2))),
+    ]
+
+
+def cc_case(torch, dev, name: str, n: int, edges) -> dict:
+    """K11 (ops/cc.py:_cc_run on the card) == cc_plain on the card == the
+    host reference on one graph; K11's ms, device ms, the plain version's
+    ms and rounds, and the bytes bound: the int32 edges read once, the
+    int32 labels written once."""
+    import numpy as np
+    from vclust_tpu_torch.ops import cc
+    e = torch.from_numpy(np.ascontiguousarray(edges, np.int32)).to(dev)
+    e64 = e.long()
+    got = cc._cc_run(e, n)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = cc.cc_plain(e64, n)
+    torch.cuda.synchronize()
+    plain_once_ms = (time.perf_counter() - t0) * 1e3
+    rounds = cc.cc_plain.rounds
+    t0 = time.perf_counter()
+    want = (union_find(n, edges) if n <= CC_NODES
+            else least_member_labels(n, edges))
+    ref_s = time.perf_counter() - t0
+    k, p = got.cpu().numpy().astype(np.int64), plain.cpu().numpy()
+    err = int(np.abs(k - p).max())
+    if got.dtype != torch.int32 or err or not np.array_equal(k, want) \
+            or not np.array_equal(p, want):
+        fail(f'cc {name}: K11, cc_plain and the host reference differ '
+             f'(K11 - plain max abs err {err})')
+    del plain
+
+    def run():
+        cc._cc_run(e, n, trusted=True)
+
+    plain_ms = (plain_once_ms if plain_once_ms > CC_PLAIN_ONCE_MS
+                else time_ms(lambda: cc.cc_plain(e64, n), 3))
+    sizes = np.bincount(want, minlength=n)
+    return with_shares(dict(
+        graph=name, nodes=n, edges=int(len(edges)),
+        components=int((sizes > 0).sum()), largest_component=int(sizes.max()),
+        max_abs_err=err, ms=time_ms(run, 10), **device_ms_item(run, 10),
+        plain_ms=plain_ms, plain_rounds=rounds,
+        bound_ms=(4 * e.numel() + 4 * n) / HBM_BYTES_PER_S * 1e3,
+        bound_by='bytes', library_ms=None,
+        reference='union_find' if n <= CC_NODES else 'scipy',
+        reference_s=ref_s))
+
+
 def phase_cc(torch, dev, seed: int):
-    """ops/cc.py:_cc_run on the path single linkage takes from 50,000
-    objects up (models/cluster.py:40, `_single`): 200,000 nodes, ~150,000
-    edges between ids less than 64 apart (tens of thousands of components,
-    the largest of a few thousand nodes), labels == the host union-find's."""
+    """K11 on the path single linkage takes from 50,000 objects up
+    (models/cluster.py:40, `_single`): 200,000 nodes, ~150,000 edges
+    between ids less than 64 apart, launches counted, labels == the host
+    union-find's; then K11 == cc_plain == a host reference on that graph,
+    a permuted path, a star, isolated nodes with self loops and duplicate
+    reversed edges, and two graphs of 2,000,000 nodes."""
     import numpy as np
     from vclust_tpu_torch.models import cluster as mc
     from vclust_tpu_torch.ops import cc
     rng = np.random.default_rng(seed)
     n = CC_NODES
-    a = rng.integers(0, n, CC_EDGE_DRAWS)
-    b = a + rng.integers(1, 64, len(a))
-    edges = np.unique(np.stack([a, b], axis=1)[b < n], axis=0)
+    edges = near_id_edges(rng, n, CC_EDGE_DRAWS)
     if n < mc._DEVICE_SINGLE_MIN_NODES:
         fail('the cc graph is below the device path\'s size')
+    cc._cc_run.launches = 0
     t0 = time.perf_counter()
     labels = np.asarray(mc._single(n, edges, None, None, mc.ClusterParams(),
                                    dev))
     path_s = time.perf_counter() - t0
-    want = union_find(n, edges)
-    if not np.array_equal(labels, want):
+    launches = cc._cc_run.launches
+    if launches != 1:
+        fail(f'single linkage on {n} nodes launched K11 {launches} times')
+    if not np.array_equal(labels, union_find(n, edges)):
         fail('device connected components != host union-find')
-    e_d = torch.from_numpy(edges).to(dev)
-    ms = time_ms(lambda: cc._cc_run(e_d, n), 5)
-    # Least bytes: the int64 edges read once, the int64 labels written once.
-    bound_ms = (edges.nbytes + 8 * n) / HBM_BYTES_PER_S * 1e3
-    sizes = np.bincount(want, minlength=n)
-    res = dict(phase='cc', nodes=n, edges=int(len(edges)),
-               components=int((sizes > 0).sum()),
-               largest_component=int(sizes.max()),
-               path='models/cluster.py:_single', path_s=path_s,
-               labels_eq_union_find=True, ms=ms, bound_ms=bound_ms,
-               bound_by='bytes')
+    cases = []
+    for name, gn, ge in cc_graphs(rng, edges):
+        cases.append(cc_case(torch, dev, name, gn, ge))
+        emit(dict(phase='cc', **cases[-1]))
+    res = dict(phase='cc', path='models/cluster.py:_single', nodes=n,
+               edges=int(len(edges)), path_s=path_s, path_launches=launches,
+               labels_eq_union_find=True,
+               graphs_eq_plain_and_reference=[c['graph'] for c in cases])
+    emit(res)
+    return res, cases
+
+
+CLI_OBJECTS = 60_000
+CLI_ROWS = 200_000
+CLI_HEADER = ('qidx', 'ridx', 'query', 'reference', 'tani', 'gani', 'ani',
+              'qcov', 'rcov', 'num_alns', 'len_ratio')
+
+
+def cluster_inputs(work: pathlib.Path, seed: int):
+    """A synthetic ani.tsv and ani.ids.tsv from `seed`: CLI_OBJECTS objects,
+    length-descending, and CLI_ROWS directed rows between objects less than
+    64 apart, tANI uniform in [0.9, 1) (about half below 0.95)."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 16)
+    n = CLI_OBJECTS
+    lens = np.sort(rng.integers(5_000, 200_000, n))[::-1]
+    names = [f'obj{i:05d}' for i in range(n)]
+    ids = work / 'ani.ids.tsv'
+    ids.write_text('id\tseq_len\tno_parts\n' + ''.join(
+        f'{nm}\t{ln}\t1\n' for nm, ln in zip(names, lens.tolist())))
+    q = rng.integers(0, n, CLI_ROWS)
+    r = np.clip(q + rng.integers(-63, 64, CLI_ROWS), 0, n - 1)
+    tani = rng.random(CLI_ROWS) * 0.1 + 0.9
+    cov = rng.random(CLI_ROWS) * 0.2 + 0.8
+    ani = work / 'ani.tsv'
+    ani.write_text('\t'.join(CLI_HEADER) + '\n' + ''.join(
+        f'{a}\t{b}\t{names[a]}\t{names[b]}\t{t:.6f}\t{t * c:.6f}\t{t:.6f}\t'
+        f'{c:.6f}\t{c:.6f}\t1\t{lens[b] / lens[a]:.6f}\n'
+        for a, b, t, c in zip(q.tolist(), r.tolist(), tani.tolist(),
+                              cov.tolist())))
+    keep = (tani >= 0.95) & (q != r)
+    passing = len(np.unique(np.stack([np.minimum(q, r), np.maximum(q, r)],
+                                     axis=1)[keep], axis=0))
+    return ani, ids, passing
+
+
+def phase_cluster_cli(work: pathlib.Path, seed: int) -> dict:
+    """The `cluster` CLI on the card above the device size: single linkage
+    (the default) over 60,000 objects, K11 launched, clusters.tsv == the
+    same CLI run on the CPU (VCLUST_TORCH_DEVICE=cpu: cc_plain)."""
+    from vclust_tpu_torch.models import cluster as mc
+    from vclust_tpu_torch.ops import cc
+    work.mkdir()
+    ani, ids, passing = cluster_inputs(work, seed)
+    if CLI_OBJECTS < mc._DEVICE_SINGLE_MIN_NODES:
+        fail('the cluster_cli corpus is below the device path\'s size')
+    args = ['cluster', '-i', ani, '--ids', ids, '--metric', 'tani',
+            '--tani', 0.95, '-v', 0]
+    cc._cc_run.launches = 0
+    t0 = time.perf_counter()
+    cli(*args, '-o', work / 'clusters.tsv')
+    card_s = time.perf_counter() - t0
+    launches = cc._cc_run.launches
+    if launches != 1:
+        fail(f'cluster CLI launched K11 {launches} times')
+    os.environ['VCLUST_TORCH_DEVICE'] = 'cpu'
+    try:
+        t0 = time.perf_counter()
+        cli(*args, '-o', work / 'clusters_cpu.tsv')
+        cpu_s = time.perf_counter() - t0
+    finally:
+        os.environ['VCLUST_TORCH_DEVICE'] = 'cuda'
+    if cc._cc_run.launches != launches:
+        fail('the CPU cluster run launched K11')
+    out = (work / 'clusters.tsv').read_bytes()
+    if out != (work / 'clusters_cpu.tsv').read_bytes():
+        fail('cluster CLI: clusters.tsv on the card != on the CPU')
+    clusters = len({ln.split(b'\t')[1] for ln in out.splitlines()[1:]})
+    res = dict(phase='cluster_cli', objects=CLI_OBJECTS, rows=CLI_ROWS,
+               edges_passing=passing, clusters=clusters,
+               clusters_tsv_eq_cpu=True, k11_launches=launches,
+               seconds=card_s, cpu_seconds=cpu_s)
     emit(res)
     return res
 
@@ -1272,7 +1463,9 @@ NO_LIBRARY = {
     '_blocks_to_measures': 'none: no PyTorch call computes the segmentation '
                            '(its plain version is some 80 torch ops)',
     '_propagate_v3': 'none: no PyTorch call computes the neighbour adoption '
-                     '(its plain version is some 100 torch ops)'}
+                     '(its plain version is some 100 torch ops)',
+    'connected_components': 'none: no PyTorch call computes connected '
+                            'components'}
 
 # Int32 issue slots a word of 32 positions needs in the least bit-parallel
 # sequence of the back half (K4's operation bound):
@@ -2745,8 +2938,10 @@ def main():
               ptxas={k: ptxas_summary(v) for k, v in cuda.build_log.items()}))
     kx_row = phase_kx(torch, dev, np.random.default_rng(args.seed))
     c, k1_err, k1_inputs = phase_k1(torch, dev, args.seed)
-    phase_cc(torch, dev, args.seed)
+    cc_path, cc_cases = phase_cc(torch, dev, args.seed)
     with tempfile.TemporaryDirectory(prefix='vclust_smoke_') as tmp:
+        cc_cli = phase_cluster_cli(pathlib.Path(tmp) / 'cluster_cli',
+                                   args.seed)
         launches, k1_main = phase_main(torch, dev, pathlib.Path(tmp),
                                        k1_inputs[0])
         engine = phase_align_engine(torch, pathlib.Path(tmp))
@@ -2791,8 +2986,28 @@ def main():
         k10_row['max_abs_err'] = max(k10_row['max_abs_err'],
                                      at['max_abs_err'])
         k10_row[name] = {key: at.get(key) for key in keys}
-    emit({'kernels': [kx_row, k1_row, k9_row, k10_row, k2_row, k3_row,
-                      k4_row, k5_row, k8_row, k6_row, k7_row],
+    at = {c['graph']: c for c in cc_cases}
+    cc_row = dict(
+        name='connected_components', route='cuda',
+        source='vclust_tpu_torch/csrc/cc.cu',
+        replaces='vclust_tpu/ops/cc.py:21', launches=cc_cli['k11_launches'],
+        launches_by_path={
+            'cluster CLI, 60,000 objects': cc_cli['k11_launches'],
+            'models/cluster.py:_single, 200,000 nodes':
+                cc_path['path_launches']},
+        max_abs_err=max(c['max_abs_err'] for c in cc_cases),
+        **{key: at['a_recipe_2m'].get(key) for key in (
+            'ms', 'device_ms', 'plain_ms', 'bound_ms', 'bound_by',
+            'library_ms')},
+        at='graph (a): 2,000,000 nodes, '
+           f"{at['a_recipe_2m']['edges']} edges between ids < 64 apart",
+        library=NO_LIBRARY['connected_components'],
+        by_graph={name: {key: c.get(key) for key in (
+            'nodes', 'edges', 'ms', 'device_ms', 'plain_ms', 'plain_rounds',
+            'bound_ms', 'share_of_bound')} for name, c in at.items()})
+    rows = [kx_row, k1_row, k9_row, k10_row, k2_row, k3_row, k4_row, k5_row,
+            k8_row, k6_row, k7_row, cc_row]
+    emit({'kernels': [with_shares(row) for row in rows],
           'seconds': time.perf_counter() - t0})
     smi = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',

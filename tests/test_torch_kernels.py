@@ -21,12 +21,15 @@ from back_half_cases import (CASES, K3_ARGS, K5_ARGS,  # noqa: E402
                              PARAMS, back_half_case, bands_case, chain_case,
                              last_chunk_case, long_segment_case,
                              propagate_case, sparse_cap_case, torch_args)
+from cc_cases import (least_member_labels, model_graphs,  # noqa: E402
+                      near_ids, random_graph, union_find)
 from index_cases import index_genomes, padded  # noqa: E402
 from v2_cases import (CRAFTED, chain_election, clipped_election,  # noqa
                       crafted_case, distinct_election, election_case,
                       random_election, relay_election, v2_arena, v2_genomes,
                       v2_rows)
 from vclust_tpu_torch.ops import align_gpu as tav  # noqa: E402
+from vclust_tpu_torch.ops import cc as tcc         # noqa: E402
 from vclust_tpu_torch.ops import extend as tx      # noqa: E402
 from vclust_tpu_torch.ops import prefilter as tpf  # noqa: E402
 
@@ -1277,3 +1280,69 @@ def test_index_chunks_write_one_arena(monkeypatch, kind):
     for key in keys:
         assert torch.equal(a[key], b[key]), key
     assert cut.prep_s > 0
+
+
+# --------------------------------------------------------------------------
+# K11: connected components (csrc/cc.cu)
+# --------------------------------------------------------------------------
+
+CC_GRAPHS = model_graphs()
+
+
+def test_cpu_tensors_take_cc_plain():
+    """K11's wrapper answers CPU tensors with cc_plain (int32 labels),
+    without a launch."""
+    before = tcc._cc_run.launches
+    for name, n, edges in CC_GRAPHS:
+        e = torch.from_numpy(edges)
+        got = tcc._cc_run(e, n)
+        assert got.dtype == torch.int32, name
+        assert torch.equal(got.long(), tcc.cc_plain(e.long(), n)), name
+    assert tcc._cc_run.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('name,n,edges', CC_GRAPHS,
+                         ids=[g[0] for g in CC_GRAPHS])
+def test_k11_kernel_matches_plain(cuda_device, name, n, edges):
+    e = torch.from_numpy(edges).to(cuda_device)
+    before = tcc._cc_run.launches
+    got = tcc._cc_run(e, n)
+    assert tcc._cc_run.launches == before + 1
+    assert got.dtype == torch.int32
+    assert torch.equal(got.long(), tcc.cc_plain(e.long(), n))
+    assert np.array_equal(got.cpu().numpy(), union_find(n, edges))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('kind', ['near_ids', 'giant'])
+def test_k11_kernel_at_two_million_nodes(cuda_device, kind):
+    """IMG/VR scale: 2,000,000 nodes, (a) 1,500,000 draws of edges between
+    ids fewer than 64 apart, (b) 8,000,000 random edges."""
+    n = 2_000_000
+    n, edges = (near_ids(n, 1_500_000, seed=13) if kind == 'near_ids'
+                else random_graph(n, 8_000_000, seed=14))
+    e = torch.from_numpy(edges).to(cuda_device)
+    got = tcc._cc_run(e, n)
+    assert torch.equal(got.long(), tcc.cc_plain(e.long(), n))
+    assert np.array_equal(got.cpu().numpy(), least_member_labels(n, edges))
+
+
+@pytest.mark.gpu
+def test_k11_wrapper_raises_on_bad_arguments(cuda_device):
+    """On the card K11's wrapper raises, and neither launches nor falls
+    back to the plain version, on an edge outside [0, n), the wrong dtype
+    or layout, and n >= 2^31."""
+    e = torch.tensor([[0, 1], [2, 5]], dtype=torch.int32, device=cuda_device)
+    before = tcc._cc_run.launches
+    with pytest.raises(ValueError, match=r'\[0, 5\)'):
+        tcc._cc_run(e, 5)
+    with pytest.raises(ValueError, match=r'\[0, 6\)'):
+        tcc._cc_run(-e, 6)
+    with pytest.raises(TypeError, match='int32'):
+        tcc._cc_run(e.long(), 6)
+    with pytest.raises(ValueError, match='contiguous'):
+        tcc._cc_run(e.t(), 6)
+    with pytest.raises(ValueError, match='2\\^31'):
+        tcc._cc_run(e, 2 ** 31)
+    assert tcc._cc_run.launches == before

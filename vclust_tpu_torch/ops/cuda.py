@@ -19,11 +19,11 @@ from ..utils.build import (BUILD_DIR, CSRC_DIR, finish_compile, is_stale,
                            start_compile)
 
 SOURCES = ('occupancy', 'extend', 'align_v3', 'back_half', 'align_v2',
-           'index')
+           'index', 'cc')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # The C entry points of csrc/align_v3.cu, kernels K2, K3 and K5 of the v3
 # align pipe (launched by ops/align_gpu.py): {function: argtypes}.
 ALIGN_V3_SIGNATURES = {
@@ -69,6 +69,12 @@ INDEX_SIGNATURES = {
     # fwd, rc, G, Lp, k, C, pack_bits, rows, qsv, qoff, sv_f, pk1_f,
     # pk2_f, sv_r, pk1_r, pk2_r, r2dov, scratch, meta, stream
     'k10_index_v2': [_P] * 2 + [_I] * 6 + [_P] * 12,
+}
+# csrc/cc.cu, kernel K11: connected components (single linkage's device
+# path).
+CC_SIGNATURES = {
+    # edges, E, n, labels, stream
+    'k11_cc': [_P, _L, _I, _P, _P],
 }
 
 _libs = {}
