@@ -1215,25 +1215,44 @@ def same_records(path: str, got, want) -> None:
             fail(f'{path}: {what}, kernels != plain')
 
 
-def profile_breakdown(torch, fn, top: int = 10) -> dict:
+def profile_breakdown(torch, fn, top: int = 10, warm: bool = False,
+                      expect: tuple = ()) -> dict:
     """One call of `fn` under torch.profiler (device activity only): its
     wall time, the device time of its kernels and memory operations, their
     share of the wall time (the device's busy share) and the largest
-    entries by device time."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    entries by device time. `warm`: a call of `fn` in a warm-up step of
+    the profiler first, its events dropped. `expect`: names of kernels
+    the call launches; a trace can lose events (the first device
+    operation it records, or all of them), so where it lacks one it is taken
+    again, up to three times, and `tries` and `lost` (what the last trace
+    still lacked) are given."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    for tries in range(1, 4):
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    ka = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+        kw = dict(schedule=schedule(wait=0, warmup=1, active=1, repeat=1)
+                  ) if warm else {}
+        with profile(activities=[ProfilerActivity.CUDA], **kw) as prof:
+            if warm:
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if warm:
+                prof.step()
+        ka = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+        lost = [n for n in expect if not any(n in e.key for e in ka)]
+        if not lost:
+            break
     dev_us = sum(e.self_device_time_total for e in ka)
     ka.sort(key=lambda e: -e.self_device_time_total)
     return dict(wall_ms=wall * 1e3, device_ms=dev_us / 1e3,
                 busy_share=dev_us / 1e6 / wall if wall else None,
                 top=[[e.key[:60], e.self_device_time_total / 1e3, e.count]
-                     for e in ka[:top]])
+                     for e in ka[:top]],
+                **(dict(tries=tries, lost=lost) if expect else {}))
 
 
 def arena_rc(torch, b, codes, kb):
@@ -2308,17 +2327,20 @@ def v2_front_end_alone(torch, ag, b, r_rows, rlens, q_rows, qlens, kb, C,
     return k8, k6, k7
 
 
-K10_DESIGN = ('(genome, strand) rows a group at a time: a warp a fine '
-              'block, its (hash, offset) keys sorted by a bitonic network '
-              'over the warp, lanes r < C writing slot r; the valid slots\' '
-              'items (value, position) sorted by a stable LSD radix of '
-              '8-bit digits (two passes at k = 8), each a scan of the '
-              'tiles\' digit counts (counted by atomics where the items '
-              'land) and a scatter, a CTA a (row, tile of 4,096): '
-              '__match_any_sync and per-warp digit counts rank the items, '
-              'scanned over the warps from the tile\'s offset; the passes '
-              'ping-pong between pk1 and a scratch; the packs from the '
-              'sorted items; the window rows as 16-byte copies')
+K10_DESIGN = ('(genome, strand) rows a group at a time (at most 128 MiB '
+              'of items), three launches at k <= 4 and four at k = 8: the '
+              'selection, a CTA 64 fine blocks of a row, 8 a warp, '
+              'its (hash, offset) keys sorted by a bitonic network over the '
+              'warp, lanes r < C writing slot r, both passes\' digits '
+              'counted in shared memory and added to the row\'s totals once '
+              'a CTA and digit; a stable LSD radix of 8-bit digits, a launch '
+              'a pass, a CTA a (row, tile of 4,096) taken by ticket: items '
+              'ranked by ballots (digit peers) and per-warp counts, the '
+              'tile\'s digit counts published, the tiles before found by a '
+              'decoupled look-back (epoch-tagged words), the items staged '
+              'by digit in shared memory and stored in runs; 4-byte items '
+              'up to bucket 65,536; the packs from the sorted items; the '
+              'window rows as 16-byte copies')
 
 
 def v2_index_build(torch, ag, b, codes, kb, C) -> dict:
@@ -2363,7 +2385,10 @@ def v2_index_build(torch, ag, b, codes, kb, C) -> dict:
     return with_shares(dict(
         name='index_v2', wrapper='_index_block', genomes=G, bucket=kb, C=C,
         pack_bits=pb, max_abs_err=0, ms=time_ms(run, 3),
-        **device_ms_item(run, 3), profile=profile_breakdown(torch, run, 6),
+        **device_ms_item(run, 3),
+        profile=profile_breakdown(
+            torch, run, 6, warm=True,
+            expect=('index_v2_select', 'index_v2_pass', 'index_v2_pack')),
         plain_ms=plain_ms,
         bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by='bytes',
         bytes=nbytes, library_ms=library_ms,

@@ -1145,12 +1145,25 @@ def test_k9_kernel_matches_plain(cuda_device, monkeypatch, Lp, k, H, wq):
                  tav._V3_KEYS)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize('Lp,k,C,pack', [
+K10_SHAPES = [
     (4096, 8, 16, 32), (4096, 8, 1, 32), (4096, 8, 32, 64),
     (4096, 4, 8, 32), (4096, 4, 32, 64), (65536, 8, 16, 32),
     (65536, 8, 32, 32), (65536, 8, 8, 64), (262144, 8, 16, 64),
-    (262144, 8, 8, 64), (1 << 20, 8, 16, 64)])
+    (262144, 8, 8, 64), (1 << 20, 8, 16, 64)]
+
+
+def _poisoned_v2_out(G, Lp, pack, C, device):
+    """index_v2_empty's arrays, every byte 0x5A: a value no arena holds
+    (an element K10 leaves unwritten shows, whatever memory the allocator
+    hands back)."""
+    out = tav.index_v2_empty(G, Lp, pack, C, device)
+    for t in out:
+        t.view(torch.int8).fill_(0x5A)
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('Lp,k,C,pack', K10_SHAPES)
 def test_k10_kernel_matches_plain(cuda_device, Lp, k, C, pack):
     """K10 == index_block_plain, every array, one launch: buckets 4,096 to
     2^20, C = 1-32, k 4 (one radix pass) and 8 (two), both pack widths,
@@ -1168,20 +1181,164 @@ def test_k10_kernel_matches_plain(cuda_device, Lp, k, C, pack):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize('Lp,k,C,pack', K10_SHAPES)
+def test_k10_kernel_writes_every_element(cuda_device, Lp, k, C, pack):
+    """K10 into `out` arrays filled with a poison value ==
+    index_block_plain, every array: no element is left to what the memory
+    held before."""
+    fwd, rc = _index_on(cuda_device, Lp)
+    out = _poisoned_v2_out(fwd.shape[0], Lp, pack, C, cuda_device)
+    assert tav._index_block(fwd, rc, k, pack, C, out=out) is out
+    _same_arrays(out, tav.index_block_plain(fwd, rc, k, pack, C),
+                 tav._V2_KEYS)
+
+
+@pytest.mark.gpu
+def test_k10_kernel_after_other_shapes(cuda_device):
+    """K10's state outlives a call, and a call of other shapes lays it
+    out otherwise (its totals, counts and look-back words over an earlier
+    call's words of another kind). On one stream: calls of other buckets,
+    C, k (4, one radix pass, then 8, two) and pack widths in turn, larger
+    and smaller, each into poisoned arrays == index_block_plain, every
+    array."""
+    seq = [(65536, 8, 32, 32), (4096, 4, 8, 32), (4096, 8, 8, 32),
+           (262144, 8, 16, 64), (4096, 8, 1, 32), (65536, 4, 16, 64),
+           (65536, 8, 16, 64), (4096, 4, 32, 64), (262144, 8, 8, 64),
+           (4096, 8, 16, 32)]
+    st = torch.cuda.Stream(cuda_device)
+    st.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(st):
+        for seed, (Lp, k, C, pack) in enumerate(seq):
+            fwd, rc = _index_on(cuda_device, Lp, seed)
+            out = _poisoned_v2_out(fwd.shape[0], Lp, pack, C, cuda_device)
+            tav._index_block(fwd, rc, k, pack, C, out=out)
+            _same_arrays(out, tav.index_block_plain(fwd, rc, k, pack, C),
+                         tav._V2_KEYS)
+
+
+@pytest.mark.gpu
+def test_k10_kernel_stale_count_word(cuda_device):
+    """A call's digit totals lying over an earlier call's row counts:
+    call A (1 genome, 2 rows) leaves its rows' valid counts at state byte
+    64 + 8 * 2 * 2 * 256; there call B (2 genomes, 4 rows) keeps its
+    second pass's total of digit 0 in row 0. A's genome gives both its
+    rows as many valid slots (C = 1: a slot a block) as the epoch B tags
+    its totals with, so a count word that carried no epoch of its own
+    would read as B's fresh total. B == index_block_plain, every array."""
+    rng = np.random.default_rng(11)
+    dev = cuda_device
+    st = torch.cuda.Stream(dev)
+    st.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(st):
+        # A state larger than A's and B's (neither grows it, which would
+        # zero it).
+        fwd, rc = _index_on(dev, 65536)
+        tav._index_block(fwd, rc, 8, 32, 32)
+        torch.cuda.synchronize()
+        state = tav._K10_STATE[fwd.device.index, st.cuda_stream]
+        m = int(state[2]) + 2       # B's epoch: A's two passes on
+        assert 1 <= m <= 65536 // 32, m
+        calls = [([rng.integers(0, 4, 32 * m).astype(np.int8)], 65536, 1),
+                 ([rng.integers(0, 4, n).astype(np.int8)
+                   for n in (3000, 4000)], 4096, 16)]
+        for i, (codes, Lp, C) in enumerate(calls):
+            fwd, rc = (torch.from_numpy(x).to(dev)
+                       for x in padded(codes, Lp))
+            got = tav._index_block(fwd, rc, 8, 32, C)
+            want = tav.index_block_plain(fwd, rc, 8, 32, C)
+            _same_arrays(got, want, tav._V2_KEYS)
+            if i == 0:
+                assert [int((sv < tav.BIG).sum()) for sv in
+                        (want[2], want[5])] == [m, m]
+        assert int(state[2]) == m + 2
+
+
+@pytest.mark.gpu
 def test_k10_kernel_groups_of_rows(cuda_device):
     """K10 over 40 genomes at 262,144 and C = 32: 80 (genome, strand) rows
-    of 2 MiB of scratch each go in two groups of at most 128 MiB (64 rows,
-    then 16); == index_block_plain, every array, one launch."""
+    of 262,144 8-byte items go in groups of what 128 MiB of items hold (64
+    rows, then 16), through one scratch; == index_block_plain, every
+    array, one launch. 4-byte items (buckets up to 65,536) hold twice the
+    rows."""
     Lp = 262144
     codes = [c for s in range(6) for c in index_genomes(s, Lp)][:40]
     fwd, rc = (torch.from_numpy(x).to(cuda_device)
                for x in padded(codes, Lp))
     lib = tav.cuda.library('index', tav.cuda.INDEX_SIGNATURES)
-    assert lib.k10_scratch_rows(40, Lp // 32 * 32) == 64
+    assert lib.k10_group_rows(40, Lp, 32) == 64
+    assert lib.k10_group_rows(600, 65536, 32) == 512
+    assert lib.k10_group_rows(600, 65536, 16) == 1024
+    assert lib.k10_items_bytes(40, Lp, 32) == 64 * Lp * 8
     before = tav._index_block.launches
     got = tav._index_block(fwd, rc, 8, 64, 32)
     assert tav._index_block.launches == before + 1
     _same_arrays(got, tav.index_block_plain(fwd, rc, 8, 64, 32),
+                 tav._V2_KEYS)
+
+
+@pytest.mark.gpu
+def test_k10_kernel_one_value_rows(cuda_device):
+    """Rows whose valid slots all hold one value: a poly-A genome at
+    262,144 and C = 32 (0 on the forward strand, 65,535 on the reverse),
+    each of its 64 tiles a row one run of one digit in both passes, beside
+    two random genomes; == index_block_plain, every array."""
+    Lp = 262144
+    rng = np.random.default_rng(7)
+    codes = [np.zeros(Lp - 300, np.int8),
+             rng.integers(0, 4, Lp - 5000).astype(np.int8),
+             rng.integers(0, 4, 9000).astype(np.int8)]
+    fwd, rc = (torch.from_numpy(x).to(cuda_device)
+               for x in padded(codes, Lp))
+    got = tav._index_block(fwd, rc, 8, 64, 32)
+    want = tav.index_block_plain(fwd, rc, 8, 64, 32)
+    _same_arrays(got, want, tav._V2_KEYS)
+    for sv, value in ((want[2][0], 0), (want[5][0], 65535)):
+        n = int((sv < tav.BIG).sum())
+        assert n > Lp // 32 * 31 and (sv[:n] == value).all()
+
+
+@pytest.mark.gpu
+def test_k10_kernel_streams(cuda_device):
+    """K10 twice back to back on one stream (the second launch's look-back
+    must not take the first's words: an epoch tells them apart), then on
+    each of two streams at once (a scratch each); each call == its
+    index_block_plain, every array."""
+    calls = [(_index_on(cuda_device, Lp, seed), Lp, C, pack)
+             for Lp, C, pack, seed in ((65536, 16, 32, 3), (65536, 8, 32, 4),
+                                       (262144, 16, 64, 5),
+                                       (262144, 8, 64, 6))]
+    before = tav._index_block.launches
+    got = [tav._index_block(*codes, 8, pack, C)
+           for codes, Lp, C, pack in calls[:2]]
+    main = torch.cuda.current_stream(cuda_device)
+    streams = [torch.cuda.Stream(cuda_device) for _ in range(2)]
+    for st, (codes, Lp, C, pack) in zip(streams, calls[2:]):
+        st.wait_stream(main)
+        with torch.cuda.stream(st):
+            got.append(tav._index_block(*codes, 8, pack, C))
+    for st in streams:
+        main.wait_stream(st)
+    assert tav._index_block.launches == before + 4
+    for out, (codes, Lp, C, pack) in zip(got, calls):
+        _same_arrays(out, tav.index_block_plain(*codes, 8, pack, C),
+                     tav._V2_KEYS)
+
+
+@pytest.mark.gpu
+def test_k10_kernel_more_tiles_than_resident(cuda_device):
+    """A pass launch of more (row, tile) CTAs than the card holds at once:
+    7 genomes at 2^20 and C = 32, 14 rows of 256 tiles (3,584 CTAs
+    against at most 8 of 256 threads an SM), so later tiles' CTAs start
+    only as earlier ones finish; == index_block_plain, every array."""
+    Lp, C = 1 << 20, 32
+    props = torch.cuda.get_device_properties(cuda_device)
+    resident = props.multi_processor_count * getattr(
+        props, 'max_threads_per_multi_processor', 2048) // 256
+    assert 14 * (Lp // 32 * C // 4096) > resident
+    fwd, rc = _index_on(cuda_device, Lp)
+    assert fwd.shape[0] == 7
+    got = tav._index_block(fwd, rc, 8, 64, C)
+    _same_arrays(got, tav.index_block_plain(fwd, rc, 8, 64, C),
                  tav._V2_KEYS)
 
 

@@ -398,16 +398,24 @@ def index_v2_empty(G: int, Lp: int, pack_bits: int, C: int,
                    device) -> tuple:
     """Uninitialised v2 arena arrays of G genomes at bucket Lp, in the
     order of _V2_KEYS; with 64-bit packs pk2 is pk1 (one tensor), as
-    index_block_plain returns them."""
+    index_block_plain returns them. The arrays of one dtype share one
+    allocation, each 16-byte aligned (three allocations and a few views,
+    not nine allocations: K10's wrapper's host time is of the order of
+    its kernels')."""
     NQ = Lp // FINE * C
 
-    def new(dtype):
-        return torch.empty((G, NQ), dtype=dtype, device=device)
+    def new(dtype, n):
+        if G * NQ % 4 == 0:
+            return torch.empty((n, G, NQ), dtype=dtype,
+                               device=device).unbind(0)
+        S = -(-G * NQ // 4) * 4     # each array 16-byte aligned
+        flat = torch.empty((n, S), dtype=dtype, device=device)
+        return flat[:, :G * NQ].unflatten(1, (G, NQ)).unbind(0)
 
-    qsv, qoff, sv_f, sv_r = (new(torch.int32) for _ in range(4))
-    pk1_f, pk1_r = new(torch.int64), new(torch.int64)
-    pk2_f, pk2_r = ((pk1_f, pk1_r) if pack_bits == 64 else
-                    (new(torch.int64), new(torch.int64)))
+    qsv, qoff, sv_f, sv_r = new(torch.int32, 4)
+    packs = new(torch.int64, 2 if pack_bits == 64 else 4)
+    pk1_f, pk1_r = packs[:2]
+    pk2_f, pk2_r = (pk1_f, pk1_r) if pack_bits == 64 else packs[2:]
     r2dov = torch.empty((G, 2 * (Lp // FINE + 1), 2 * FINE),
                         dtype=torch.int8, device=device)
     return qsv, qoff, sv_f, pk1_f, pk2_f, sv_r, pk1_r, pk2_r, r2dov
@@ -494,9 +502,11 @@ def _index_block(fwd, rc, k: int, pack_bits: int, C: int, out=None):
     the arena is written there and `out` returned. The kernel takes codes
     0-4, k 1-8, C 1-32, packs of 32 or 64 bits and buckets that are
     multiples of 32 up to 2^20. It sorts the chunk's (genome, strand) rows
-    a group at a time through a scratch of k10_scratch_rows(G, NQ) rows
-    (8 bytes a slot, at most 128 MiB) and k10_meta_ints words of
-    counts."""
+    a group of k10_group_rows(G, Lp, C) at a time (at most 128 MiB of
+    items) through two buffers kept per device and stream: the state
+    (`_K10_STATE`: the digit totals, the counts and the look-back words,
+    which an epoch tells apart from an earlier launch's; zeroed once) and
+    the items (`_K10_ITEMS`, the largest group's need so far)."""
     dev = fwd.device
     if dev.type == 'cpu':
         return _into(index_block_plain(fwd, rc, k, pack_bits, C), out)
@@ -513,22 +523,28 @@ def _index_block(fwd, rc, k: int, pack_bits: int, C: int, out=None):
                      dev, 'K10')
     if G:
         lib = cuda.library('index', cuda.INDEX_SIGNATURES)
-        NQ = Lp // FINE * C
         with torch.cuda.device(dev):
-            rows = lib.k10_scratch_rows(G, NQ)
-            scratch = torch.empty((rows, NQ), dtype=torch.int64, device=dev)
-            meta = torch.empty(lib.k10_meta_ints(rows, NQ),
-                               dtype=torch.int32, device=dev)
+            key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+            state = _stream_scratch(_K10_STATE, key, dev,
+                                    -(-lib.k10_state_bytes(G, Lp, C) // 4))
+            items = _stream_scratch(_K10_ITEMS, key, dev,
+                                    -(-lib.k10_items_bytes(G, Lp, C) // 4),
+                                    zeroed=False)
             rc_ = lib.k10_index_v2(
-                cuda.ptr(fwd), cuda.ptr(rc), G, Lp, k, C, pack_bits, rows,
-                *(cuda.ptr(t) for t in out), cuda.ptr(scratch),
-                cuda.ptr(meta), cuda.stream(fwd))
+                cuda.ptr(fwd), cuda.ptr(rc), G, Lp, k, C, pack_bits,
+                *(cuda.ptr(t) for t in out), cuda.ptr(state),
+                4 * state.numel(), cuda.ptr(items), 4 * items.numel(),
+                cuda.stream(fwd))
         cuda.check(lib, rc_, 'k10_index_v2')
         _index_block.launches += 1
     return out
 
 
 _index_block.launches = 0
+# K10's state and items, an int32 buffer each a (device, stream)
+# (`_stream_scratch`). The items buffer stays for the process's life, up to
+# 128 MiB a stream, outside `_dispatch_rows`' budget (ROADMAP P6).
+_K10_STATE, _K10_ITEMS = {}, {}
 
 
 # Genomes indexed at once (bounds the index build's temporaries).
@@ -956,18 +972,27 @@ _K4_SCRATCH = {}
 
 def _k4_scratch(lib, dev, N, Lq):
     """K4's scratch buffer for N pairs of Lq positions on the current
-    stream of `dev`: zeroed when made, grown (to twice the need) when too
-    small; the kernel leaves it ready for its next launch."""
+    stream of `dev` (`_stream_scratch`)."""
     need = lib.k4_scratch_ints(N, Lq)
     if need < 0:
         raise ValueError(f'back half: {N} pairs of {Lq} positions are more '
                          f'chunks than one launch takes')
     key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
-    buf = _K4_SCRATCH.get(key)
-    if buf is None or buf.numel() < need:
-        buf = torch.zeros(min(2 * need, 2 ** 31 - 1), dtype=torch.int32,
-                          device=dev)
-        _K4_SCRATCH[key] = buf
+    return _stream_scratch(_K4_SCRATCH, key, dev, need)
+
+
+def _stream_scratch(cache, key, dev, ints, zeroed=True):
+    """A kernel's int32 scratch of at least `ints` words on `dev`, kept in
+    `cache` under key (device index, stream). `zeroed`: zeroed when made
+    and grown to twice the need when too small (the kernel leaves it ready
+    for its next launch); else uninitialised, made anew at the need."""
+    buf = cache.get(key)
+    if buf is None or buf.numel() < ints:
+        cache[key] = buf = None         # the old buffer goes first
+        buf = (torch.zeros(min(2 * ints, 2 ** 31 - 1), dtype=torch.int32,
+                           device=dev) if zeroed else
+               torch.empty(ints, dtype=torch.int32, device=dev))
+        cache[key] = buf
     return buf
 
 

@@ -62,13 +62,16 @@ INDEX_SIGNATURES = {
     # fwd, rc, G, Lp, k, ck, H, shift, WQ, ROWW, qocc, rocc, roww_f,
     # roww_r, stream
     'k9_index_v3': [_P] * 2 + [_I] * 8 + [_P] * 5,
-    # G, NQ
-    'k10_scratch_rows': [_I, _I],
-    # rows, NQ
-    'k10_meta_ints': [_I, _I],
-    # fwd, rc, G, Lp, k, C, pack_bits, rows, qsv, qoff, sv_f, pk1_f,
-    # pk2_f, sv_r, pk1_r, pk2_r, r2dov, scratch, meta, stream
-    'k10_index_v2': [_P] * 2 + [_I] * 6 + [_P] * 12,
+    # G, Lp, C
+    'k10_group_rows': [_I, _I, _I],
+    # G, Lp, C
+    'k10_state_bytes': [_I, _I, _I],
+    # G, Lp, C
+    'k10_items_bytes': [_I, _I, _I],
+    # fwd, rc, G, Lp, k, C, pack_bits, qsv, qoff, sv_f, pk1_f, pk2_f,
+    # sv_r, pk1_r, pk2_r, r2dov, state, state_bytes, items, items_bytes,
+    # stream
+    'k10_index_v2': [_P] * 2 + [_I] * 5 + [_P] * 10 + [_L, _P, _L, _P],
 }
 # csrc/cc.cu, kernel K11: connected components (single linkage's device
 # path).
