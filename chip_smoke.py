@@ -31,8 +31,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
               plain version's rounds printed), a star on the largest id,
               isolated nodes with self loops and duplicate reversed edges,
               and at IMG/VR scale 2,000,000 nodes: (a) 1,500,000 draws of
-              edges between ids < 64 apart, (b) 8,000,000 random edges;
-              each with ms, device_ms, plain_ms, bound and share;
+              edges between ids < 64 apart, (b) 8,000,000 random edges,
+              (b) in `cluster`'s order (unique pairs i < j, sorted), and
+              beyond L2 16,000,000 nodes with 48,000,000 random pairs in
+              that order; each with ms, device_ms, each launch's device
+              ms (`parts`), plain_ms, bound and share;
      cluster_cli - the `cluster` CLI (single linkage, --metric tani --tani
               0.95) on a synthetic ani.tsv of 60,000 objects and 200,000
               directed rows from --seed: K11 launched once, clusters.tsv ==
@@ -696,6 +699,10 @@ CC_EDGE_DRAWS = 150_000
 CC_BIG_NODES = 2_000_000
 CC_BIG_DRAWS = 1_500_000
 CC_BIG_RANDOM_EDGES = 8_000_000
+# Beyond L2: 16,000,000 nodes (`parent` 64 MB, above the 50 MB L2) and
+# 48,000,000 random pairs, in the form `cluster` passes them.
+CC_HUGE_NODES = 16_000_000
+CC_HUGE_PAIRS = 48_000_000
 # The plain version's rounds each read a flag on the host: a call slower
 # than this is timed once, by its check.
 CC_PLAIN_ONCE_MS = 1000.0
@@ -742,10 +749,25 @@ def near_id_edges(rng, n: int, draws: int):
     return np.unique(np.stack([a, b], axis=1)[b < n], axis=0)
 
 
+def build_edges_order(n: int, edges):
+    """`edges` as `cluster`'s build_edges passes them to K11
+    (models/cluster.py): self loops dropped, each pair (i, j) with i < j,
+    unique, sorted. The keys i * n + j are sorted and equal neighbours
+    dropped: np.unique's result, where numpy 2.3.5's np.unique took 91.6 s
+    on 48,000,000 keys against 0.79 s for np.sort (on an H100 host)."""
+    import numpy as np
+    lo = np.minimum(edges[:, 0], edges[:, 1]).astype(np.int64)
+    hi = np.maximum(edges[:, 0], edges[:, 1]).astype(np.int64)
+    key = np.sort((lo * n + hi)[lo != hi])
+    key = key[np.concatenate([key[:1] == key[:1], key[1:] != key[:-1]])]
+    return np.stack([key // n, key % n], axis=1)
+
+
 def cc_graphs(rng, recipe):
     """(name, n, edges) of phase cc beyond the recipe graph: the shapes
-    that are hard for propagation or for the atomics, and two graphs at
-    IMG/VR scale."""
+    that are hard for propagation or for the atomics, two graphs at IMG/VR
+    scale, (b) again in `cluster`'s order, and one beyond L2 in that
+    order."""
     import numpy as np
     n = CC_NODES
     perm = rng.permutation(n)
@@ -754,27 +776,62 @@ def cc_graphs(rng, recipe):
     loops = rng.choice(n, n // 8, replace=False)
     mixed = np.concatenate([pairs, pairs[:, ::-1],
                             np.stack([loops, loops], axis=1)])
+    mixed = mixed[rng.permutation(len(mixed))]
+    a = near_id_edges(rng, CC_BIG_NODES, CC_BIG_DRAWS)
+    b = rng.integers(0, CC_BIG_NODES, (CC_BIG_RANDOM_EDGES, 2))
     return [
         ('recipe_200k', n, recipe),
         ('path_permuted_200k', n, np.stack([perm[:-1], perm[1:]], axis=1)),
         ('star_on_largest_200k', n, np.stack(
             [np.full(n - 1, n - 1), np.arange(n - 1)], axis=1)),
-        ('isolated_loops_duplicates_200k', n,
-         mixed[rng.permutation(len(mixed))]),
-        ('a_recipe_2m', CC_BIG_NODES,
-         near_id_edges(rng, CC_BIG_NODES, CC_BIG_DRAWS)),
-        ('b_random_2m', CC_BIG_NODES,
-         rng.integers(0, CC_BIG_NODES, (CC_BIG_RANDOM_EDGES, 2))),
+        ('isolated_loops_duplicates_200k', n, mixed),
+        ('a_recipe_2m', CC_BIG_NODES, a),
+        ('b_random_2m', CC_BIG_NODES, b),
+        ('b_sorted_2m', CC_BIG_NODES, build_edges_order(CC_BIG_NODES, b)),
+        ('c_beyond_l2_16m', CC_HUGE_NODES, build_edges_order(
+            CC_HUGE_NODES, rng.integers(0, CC_HUGE_NODES,
+                                        (CC_HUGE_PAIRS, 2)))),
     ]
+
+
+def k11_parts(torch, run) -> dict:
+    """{launch: device ms} of one K11 call (`run`) by torch.profiler, after
+    a warm-up call: cc_init, cc_hook<0> (every block) or cc_hook<1> (the
+    sample), cc_compress and cc_hook<2> (the other blocks), cc_flatten (an
+    earlier csrc/cc.cu's or a variant's kernels by their own names). A
+    trace can lose a kernel's events: taken again, up to three times,
+    where it lacks the init or the flatten."""
+    import re
+    from torch.profiler import ProfilerActivity, profile, schedule
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                run()
+                torch.cuda.synchronize()
+                prof.step()
+        parts = {}
+        for e in prof.key_averages():
+            m = re.search(r'cc_\w+(<\d+>)?', e.key)
+            if m and e.self_device_time_total > 0:
+                parts[m.group(0)] = (parts.get(m.group(0), 0.0)
+                                     + e.self_device_time_total / 1e3)
+        if ('cc_init' in parts and 'cc_flatten' in parts) \
+                or 'cc_persistent' in parts:
+            break
+    return parts
 
 
 def cc_case(torch, dev, name: str, n: int, edges) -> dict:
     """K11 (ops/cc.py:_cc_run on the card) == cc_plain on the card == the
-    host reference on one graph; K11's ms, device ms, the plain version's
-    ms and rounds, and the bytes bound: the int32 edges read once, the
-    int32 labels written once."""
+    host reference on one graph; K11's ms, device ms and each launch's
+    device ms, the plain version's ms and rounds, and the bytes bound: the
+    int32 edges read once, the int32 labels written once."""
     import numpy as np
     from vclust_tpu_torch.ops import cc
+    t_case = time.perf_counter()
     e = torch.from_numpy(np.ascontiguousarray(edges, np.int32)).to(dev)
     e64 = e.long()
     got = cc._cc_run(e, n)
@@ -806,11 +863,11 @@ def cc_case(torch, dev, name: str, n: int, edges) -> dict:
         graph=name, nodes=n, edges=int(len(edges)),
         components=int((sizes > 0).sum()), largest_component=int(sizes.max()),
         max_abs_err=err, ms=time_ms(run, 10), **device_ms_item(run, 10),
-        plain_ms=plain_ms, plain_rounds=rounds,
+        parts=k11_parts(torch, run), plain_ms=plain_ms, plain_rounds=rounds,
         bound_ms=(4 * e.numel() + 4 * n) / HBM_BYTES_PER_S * 1e3,
         bound_by='bytes', library_ms=None,
         reference='union_find' if n <= CC_NODES else 'scipy',
-        reference_s=ref_s))
+        reference_s=ref_s, seconds=time.perf_counter() - t_case))
 
 
 def phase_cc(torch, dev, seed: int):
@@ -819,7 +876,8 @@ def phase_cc(torch, dev, seed: int):
     between ids less than 64 apart, launches counted, labels == the host
     union-find's; then K11 == cc_plain == a host reference on that graph,
     a permuted path, a star, isolated nodes with self loops and duplicate
-    reversed edges, and two graphs of 2,000,000 nodes."""
+    reversed edges, two graphs of 2,000,000 nodes, the random one again in
+    `cluster`'s order, and 16,000,000 nodes in that order."""
     import numpy as np
     from vclust_tpu_torch.models import cluster as mc
     from vclust_tpu_torch.ops import cc
@@ -839,13 +897,23 @@ def phase_cc(torch, dev, seed: int):
     if not np.array_equal(labels, union_find(n, edges)):
         fail('device connected components != host union-find')
     cases = []
-    for name, gn, ge in cc_graphs(rng, edges):
+    t0 = time.perf_counter()
+    graphs = cc_graphs(rng, edges)
+    graphs_s = time.perf_counter() - t0
+    for name, gn, ge in graphs:
         cases.append(cc_case(torch, dev, name, gn, ge))
         emit(dict(phase='cc', **cases[-1]))
+    del graphs
+    torch.cuda.empty_cache()
     res = dict(phase='cc', path='models/cluster.py:_single', nodes=n,
                edges=int(len(edges)), path_s=path_s, path_launches=launches,
                labels_eq_union_find=True,
-               graphs_eq_plain_and_reference=[c['graph'] for c in cases])
+               graphs_eq_plain_and_reference=[c['graph'] for c in cases],
+               graphs_s=graphs_s,
+               # b_sorted_2m and c_beyond_l2_16m: their cases, and the
+               # making of every graph (most of it theirs).
+               added_s=graphs_s + sum(c['seconds'] for c in cases if c[
+                   'graph'] in ('b_sorted_2m', 'c_beyond_l2_16m')))
     emit(res)
     return res, cases
 
@@ -3028,8 +3096,9 @@ def main():
            f"{at['a_recipe_2m']['edges']} edges between ids < 64 apart",
         library=NO_LIBRARY['connected_components'],
         by_graph={name: {key: c.get(key) for key in (
-            'nodes', 'edges', 'ms', 'device_ms', 'plain_ms', 'plain_rounds',
-            'bound_ms', 'share_of_bound')} for name, c in at.items()})
+            'nodes', 'edges', 'ms', 'device_ms', 'parts', 'plain_ms',
+            'plain_rounds', 'bound_ms', 'share_of_bound')}
+            for name, c in at.items()})
     rows = [kx_row, k1_row, k9_row, k10_row, k2_row, k3_row, k4_row, k5_row,
             k8_row, k6_row, k7_row, cc_row]
     emit({'kernels': [with_shares(row) for row in rows],

@@ -49,6 +49,13 @@ def near_ids(n, draws, seed, gap=64):
                         axis=0).astype(np.int32)
 
 
+def build_edges_order(edges):
+    """The edges as `cluster`'s build_edges hands them to K11: self loops
+    dropped, each pair as (i, j) with i < j, unique, sorted by (i, j)."""
+    e = np.sort(np.asarray(edges).reshape(-1, 2), axis=1)
+    return np.unique(e[e[:, 0] != e[:, 1]], axis=0).astype(np.int32)
+
+
 def union_find(n, edges):
     """The host union-find's labels: each component's least member id."""
     parent = list(range(n))

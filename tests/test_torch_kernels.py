@@ -21,8 +21,8 @@ from back_half_cases import (CASES, K3_ARGS, K5_ARGS,  # noqa: E402
                              PARAMS, back_half_case, bands_case, chain_case,
                              last_chunk_case, long_segment_case,
                              propagate_case, sparse_cap_case, torch_args)
-from cc_cases import (least_member_labels, model_graphs,  # noqa: E402
-                      near_ids, random_graph, union_find)
+from cc_cases import (build_edges_order, least_member_labels,  # noqa
+                      model_graphs, near_ids, random_graph, star, union_find)
 from index_cases import index_genomes, padded  # noqa: E402
 from v2_cases import (CRAFTED, chain_election, clipped_election,  # noqa
                       crafted_case, distinct_election, election_case,
@@ -1486,10 +1486,69 @@ def test_k11_kernel_at_two_million_nodes(cuda_device, kind):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize('name,n,edges', CC_GRAPHS,
+                         ids=[g[0] for g in CC_GRAPHS])
+def test_k11_kernel_in_build_edges_order(cuda_device, name, n, edges):
+    """The graphs as `cluster` passes them: unique pairs i < j, sorted, so
+    that a warp's lanes share ends (and roots)."""
+    edges = build_edges_order(edges)
+    e = torch.from_numpy(edges).to(cuda_device)
+    got = tcc._cc_run(e, n)
+    assert torch.equal(got.long(), tcc.cc_plain(e.long(), n))
+    assert np.array_equal(got.cpu().numpy(), union_find(n, edges))
+
+
+def _k11_sorted_graph(kind):
+    if kind == 'random_sorted_2m':      # graph (b) in cluster's order
+        n, edges = random_graph(2_000_000, 8_000_000, seed=14)
+    elif kind == 'star_sorted':         # (k, n - 1): one shared root
+        n, edges = star(200_000)
+    else:                               # E >= 2n: sample, compress, skip
+        n, edges = random_graph(20_000, 100_000, seed=15)
+        if kind == 'sampled_given':
+            return n, edges
+    return n, build_edges_order(edges)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('kind', ['random_sorted_2m', 'star_sorted',
+                                  'sampled_given', 'sampled_sorted'])
+def test_k11_kernel_sorted_and_sampled(cuda_device, kind):
+    """The sorted giant component and star, and a graph of E >= 2n (the
+    sample, the compress and the skipped blocks) as given and sorted."""
+    n, edges = _k11_sorted_graph(kind)
+    e = torch.from_numpy(edges).to(cuda_device)
+    got = tcc._cc_run(e, n)
+    assert torch.equal(got.long(), tcc.cc_plain(e.long(), n))
+    assert np.array_equal(got.cpu().numpy(), least_member_labels(n, edges))
+
+
+@pytest.mark.gpu
+def test_k11_kernel_after_other_sizes_on_one_stream(cuda_device):
+    """Calls of other sizes and paths (every edge hooked once, or sampled
+    first; inside L2's access-policy window, whose edges exceed L2, or
+    not) in turn on one stream, each into labels whose memory the caching
+    allocator hands back poisoned from a tensor just freed."""
+    graphs = [random_graph(300_000, 1_500_000, seed=16), star(1_000),
+              random_graph(1_000_000, 7_000_000, seed=20),
+              near_ids(50_000, 40_000, seed=17),
+              (300_000, build_edges_order(random_graph(300_000, 900_000,
+                                                       seed=18)[1])),
+              random_graph(7, 30, seed=19), (5, np.zeros((0, 2), np.int32))]
+    for k, (n, edges) in enumerate(graphs * 2):
+        e = torch.from_numpy(edges).to(cuda_device)
+        poison = torch.full((n,), -7, dtype=torch.int32, device=cuda_device)
+        del poison
+        got = tcc._cc_run(e, n).cpu().numpy()
+        assert np.array_equal(got, least_member_labels(n, edges)
+                              if len(edges) else np.arange(n)), k
+
+
+@pytest.mark.gpu
 def test_k11_wrapper_raises_on_bad_arguments(cuda_device):
     """On the card K11's wrapper raises, and neither launches nor falls
-    back to the plain version, on an edge outside [0, n), the wrong dtype
-    or layout, and n >= 2^31."""
+    back to the plain version, on an edge outside [0, n), the wrong dtype,
+    layout or alignment, and n >= 2^31."""
     e = torch.tensor([[0, 1], [2, 5]], dtype=torch.int32, device=cuda_device)
     before = tcc._cc_run.launches
     with pytest.raises(ValueError, match=r'\[0, 5\)'):
@@ -1502,4 +1561,7 @@ def test_k11_wrapper_raises_on_bad_arguments(cuda_device):
         tcc._cc_run(e.t(), 6)
     with pytest.raises(ValueError, match='2\\^31'):
         tcc._cc_run(e, 2 ** 31)
+    with pytest.raises(ValueError, match='8-byte aligned'):
+        tcc._cc_run(torch.zeros(11, dtype=torch.int32,
+                                device=cuda_device)[1:].view(5, 2), 6)
     assert tcc._cc_run.launches == before

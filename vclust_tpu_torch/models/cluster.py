@@ -127,8 +127,8 @@ class _CSR:
 # ---------------------------------------------------------------------------
 
 def _single(n, edges, weights, adj, params, device):
-    # Large graphs: device min-label propagation (identical labels: the
-    # union-find below also converges to min member index).
+    # Large graphs: device union-find (K11; identical labels: each
+    # component's least member index, as the union-find below gives).
     if n >= _DEVICE_SINGLE_MIN_NODES and len(edges):
         from ..ops.cc import connected_components_device
         return connected_components_device(n, edges, device=device).tolist()

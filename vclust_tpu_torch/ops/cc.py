@@ -3,7 +3,9 @@ member index of its component.
 
 The port of the JAX package's ops/cc.py (`_cc_run`, an XLA program there).
 On CUDA tensors `_cc_run` launches K11 (csrc/cc.cu: union-find on the edge
-list, three launches, nothing read back between them); on CPU tensors it
+list, a sample of the edges hooked first and the edges inside the
+components it built skipped after, three or five launches, nothing read
+back between them); on CPU tensors it
 takes `cc_plain`, the min-label propagation written as torch ops: each
 round a scatter-min (`scatter_reduce`, 'amin') of the smaller end label
 over both edge ends, then two pointer jumps, repeated until no label
@@ -48,10 +50,12 @@ def _cc_run(edges: torch.Tensor, n: int, trusted: bool = False
     """K11 wrapper: int32 labels (the least member index of each component)
     from (E, 2) int32 edges, in any orientation, self loops and duplicates
     allowed. CPU tensors take `cc_plain`; CUDA tensors launch K11 or raise.
-    Raises for n outside [0, 2^31) and for an edge outside [0, n): on the
-    card that check reads the edges' least and largest id back to the
-    host before the launch, unless `trusted` (the caller has checked the
-    range, as connected_components_device does on the host)."""
+    K11 loads an edge 8 bytes at a time: on the card the edges must be
+    8-byte aligned. Raises for n outside [0, 2^31) and for an edge
+    outside [0, n): on the card that check reads the edges' least and
+    largest id back to the host before the launch, unless `trusted` (the
+    caller has checked the range, as connected_components_device does on
+    the host)."""
     dev = edges.device
     if dev.type not in ('cpu', 'cuda'):
         raise ValueError(f'unsupported device {dev}')
@@ -67,6 +71,8 @@ def _cc_run(edges: torch.Tensor, n: int, trusted: bool = False
                              f'[{lo}, {hi}]')
     if dev.type == 'cpu':
         return cc_plain(edges.long(), n).to(torch.int32)
+    if edges.data_ptr() % 8:
+        raise ValueError('K11 takes 8-byte aligned edges')
     labels = torch.empty(n, dtype=torch.int32, device=dev)
     if n:
         lib = cuda.library('cc', cuda.CC_SIGNATURES)
