@@ -55,6 +55,8 @@ from vclust_tpu.ops import align_tpu as ja            # noqa: E402
 from vclust_tpu_torch.models import align as talign   # noqa: E402
 from vclust_tpu_torch.models.input import Genome      # noqa: E402
 from vclust_tpu_torch.ops import align_gpu as ag      # noqa: E402
+from hybrid_cases import hybrid_genomes as _hybrid_genomes  # noqa: E402
+from hybrid_cases import write_hybrid_dir  # noqa: E402
 
 # Six pytest workers share the machine: one torch thread each.
 torch.set_num_threads(1)
@@ -340,36 +342,6 @@ def test_all2all_v2_matches_reference(contigs16, keep):
     assert (want[0][:, 0] > 0).sum() > len(pairs) // 8
 
 
-def _hybrid_genomes(cls=Genome):
-    """Seven genomes: a 3,300-base reference with an internal repeat, its
-    5% mutant, the reverse complement of a 4% mutant and a 3% mutant of
-    its first 1,400 bases (bucket 4,096); a random junk genome; and the
-    multi-contig case of tests/test_align_tpu.py at 1,500 + 1,000 + 1,200
-    bases, with a 4% mutant whose contigs are reordered: all in bucket
-    4,096."""
-    rng = np.random.default_rng(5)
-    acgt = np.frombuffer(b'ACGT', dtype='S1')
-
-    def mut(s, rate):
-        s = s.copy()
-        m = rng.random(len(s)) < rate
-        s[m] = acgt[rng.integers(0, 4, m.sum())]
-        return s
-
-    comp = bytes.maketrans(b'ACGT', b'TGCA')
-    a = acgt[rng.integers(0, 4, 3300)]
-    a[2500:3100] = a[300:900]
-    parts = [acgt[rng.integers(0, 4, n)] for n in (1500, 1000, 1200)]
-    mp = [mut(p, 0.04) for p in parts]
-    return [cls('a', [a.tobytes()]), cls('a.mut5', [mut(a, .05).tobytes()]),
-            cls('a.rc', [mut(a, .04).tobytes()[::-1].translate(comp)]),
-            cls('a.part', [mut(a[:1400], .03).tobytes()]),
-            cls('multi', [p.tobytes() for p in parts]),
-            cls('multi.mut', [mp[1].tobytes(), mp[0].tobytes(),
-                              mp[2].tobytes()]),
-            cls('junk', [acgt[rng.integers(0, 4, 3000)].tobytes()])]
-
-
 @pytest.fixture(scope='module')
 def hybrid(_jax_rows):
     """(codes, pairs, JAX (out, (rows, counts)), JAX AlignResult): the
@@ -561,15 +533,8 @@ def cli_runs(hybrid, tmp_path_factory):
     `tpu`."""
     from vclust_tpu.cli import main as jax_main
     from vclust_tpu_torch.cli import main as port_main
-    from vclust_tpu_torch.io.fasta import FastaRecord, write_fasta
     root = tmp_path_factory.mktemp('cli')
-    # A directory of one FASTA a genome, a record a contig.
-    gdir = root / 'genomes'
-    gdir.mkdir()
-    for g in _hybrid_genomes():
-        write_fasta(gdir / f'{g.name}.fna',
-                    [FastaRecord(f'{g.name}_{k}', f'{g.name}_{k}', s)
-                     for k, s in enumerate(g.seqs)])
+    gdir = write_hybrid_dir(root / 'genomes')
     outs = {}
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr('vclust_tpu.parallel.mesh.auto_mesh', lambda: None)

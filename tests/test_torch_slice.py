@@ -9,6 +9,7 @@ The JAX CLI runs once per corpus, shared by the tests of this file.
 
 import contextlib
 import io
+import json
 import sys
 
 import numpy as np
@@ -17,6 +18,7 @@ import torch
 
 from conftest import (DATASET_FILES, FASTA_FILE, GOLD_DIR, REPO,
                       run_vclust)
+from hybrid_cases import write_hybrid_dir
 
 sys.path.insert(0, str(REPO))
 
@@ -217,12 +219,37 @@ def test_cli_surface(tmp_path):
     assert code == 0 and 'torch' in out and 'csrc/occupancy.cu' in out
 
 
-def test_profile_trace(tmp_path, monkeypatch):
+@pytest.mark.parametrize('stage', ['prefilter', 'align_gpu'])
+def test_profile_trace(stage, tmp_path, monkeypatch):
+    """VCLUST_PROFILE writes the stage's Chrome trace with the tracer's
+    track (empty for the prefilter, which has no spans) and counters; on
+    the CPU the spans keep the host clock, and the trace says so."""
     monkeypatch.setenv('VCLUST_PROFILE', str(tmp_path / 'prof'))
-    code, _, err = run_port(['prefilter', '-i', FASTA_FILE, '-o',
-                             tmp_path / 'fltr.txt', '-v', '0'])
+    if stage == 'prefilter':
+        args = ['prefilter', '-i', FASTA_FILE, '-o', tmp_path / 'fltr.txt']
+    else:
+        args = ['align', '-i', write_hybrid_dir(tmp_path / 'genomes'), '-o',
+                tmp_path / 'ani.tsv', '--engine', 'gpu']
+    code, _, err = run_port(args + ['-v', '0'])
     assert code == 0, err
-    assert (tmp_path / 'prof' / 'prefilter.trace.json').stat().st_size
+    path = tmp_path / 'prof' / f'{args[0]}.trace.json'
+    trace = json.loads(path.read_text())
+    meta = trace['vclust']
+    assert 'host' in meta['clock']
+    events = trace['traceEvents']
+    track = [e for e in events if e.get('ph') == 'M'
+             and e.get('args', {}).get('name') == 'vclust host spans']
+    assert len(track) == 1
+    spans = [e for e in events if e.get('cat') == 'vclust']
+    assert {e['pid'] for e in spans} <= {track[0]['pid']}
+    if stage == 'prefilter':
+        assert not spans and meta['counters'] == {}
+        return
+    names = {e['name'] for e in spans}
+    assert {'job', 'pipe', 'index.fill', 'pipe.group',
+            'dispatch.launch'} <= names
+    assert meta['counters']['dispatches'] > 0
+    assert len(spans) == meta['spans']
 
 
 def test_single_linkage_device_route_matches_jax():

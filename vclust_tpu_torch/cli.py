@@ -469,15 +469,24 @@ VALIDATORS = {
 
 
 def _profiled(args, profile_dir: pathlib.Path):
+    """The stage under torch.profiler and the port's tracer: one Chrome
+    trace, <profile_dir>/<command>.trace.json, with the host's ops, the
+    card's kernels and copies, and the engine's spans as a track of their
+    own (utils/trace.py: on the card's timeline by the tracer's anchor,
+    else on the host clock), its counters under the key `vclust`."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from .utils import trace
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities) as prof:
-        HANDLERS[args.command](args)
+        with trace.recording() as rec:
+            HANDLERS[args.command](args)
     profile_dir.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(profile_dir / f'{args.command}.trace.json'))
+    path = profile_dir / f'{args.command}.trace.json'
+    prof.export_chrome_trace(str(path))
+    trace.write_chrome(rec, path)
 
 
 def main(argv=None):
@@ -506,8 +515,8 @@ def main(argv=None):
     try:
         profile_dir = os.environ.get('VCLUST_PROFILE')
         if profile_dir:
-            # Device-level tracing: wraps the stage in a torch.profiler
-            # trace (Chrome trace JSON, viewable in Perfetto).
+            # Device-level tracing: the stage in a torch.profiler trace
+            # with the engine's spans (Chrome trace JSON, for Perfetto).
             _profiled(args, pathlib.Path(profile_dir))
             get_logger().info(f'Profiler trace written to {profile_dir}')
         else:

@@ -72,6 +72,16 @@ package cuts each dispatch into one slice a shard instead: its sharded
 group run is one program across the devices, where here each slice
 would be launches of its own, so a cut multiplies the launches that
 bound small dispatches by the shard count.
+
+Under `utils.trace.recording()`, or while a torch.profiler records
+(`trace.job`), the engine records its layers as spans: `job` (an
+`all2all_gpu` call), `pipe` (an `_all2all_single` call), in it
+`pipe.group`, a group's `index.build` (`index.fill`, `index.upload`,
+`index.kernels`) and `pipe.rows`, a dispatch's `dispatch.upload` and
+`dispatch.launch`, then `pipe.to_host` and `pipe.scatter`; and two
+counters: `dispatches` (row-core calls) and `host_syncs` (calls that
+block the host on the card: each pageable copy to it, each tensor copied
+back, each synchronize; counted on the CPU too).
 """
 
 import os
@@ -86,6 +96,7 @@ from .lz_parse_py import AlignParams
 from ..core.seq import revcomp_codes
 from ..parallel.distributed import gather, replicate
 from ..parallel.mesh import local_shards, make_mesh
+from ..utils import trace
 from ..utils.device import resolve_device
 from ..utils.logging import get_logger
 
@@ -561,7 +572,8 @@ class GenomeIndex:
     and window rows, K10). Buckets build lazily, at exactly the bucket
     sizes the pairs need, and each (bucket, genome set) build is cached on
     the index. `prep_s` counts the host's seconds of the builds' padding,
-    reverse complements and uploads."""
+    reverse complements and uploads: the durations of their `index.fill`
+    and `index.upload` spans."""
 
     def __init__(self, codes_list: Sequence[np.ndarray], device=None):
         self.device = resolve_device(device)
@@ -588,22 +600,29 @@ class GenomeIndex:
             return cur
         members = sorted(need | (set(cur['rows']) if cur else set()))
         G = len(members)
-        t0 = time.perf_counter()
-        fwd = np.full((G, Lp), 4, dtype=np.int8)
-        rc = np.full((G, Lp), 4, dtype=np.int8)
-        rows = {}
-        for row, i in enumerate(members):
-            fwd[row, :self.lens[i]] = self.codes[i]
-            rc[row, :self.lens[i]] = revcomp_codes(self.codes[i])
-            rows[i] = row
-        fwd_d = torch.from_numpy(fwd).to(self.device)
-        rc_d = torch.from_numpy(rc).to(self.device)
-        self.prep_s += time.perf_counter() - t0
-        arena = empty_fn(G, self.device)
-        ch = _INDEX_ROWS_CHUNK
-        for lo in range(0, G, ch):
-            index_fn(fwd_d[lo:lo + ch], rc_d[lo:lo + ch],
-                     tuple(x[lo:lo + ch] for x in arena))
+        with trace.span('index.build', key=key, genomes=G):
+            t0 = time.perf_counter()
+            fwd = np.full((G, Lp), 4, dtype=np.int8)
+            rc = np.full((G, Lp), 4, dtype=np.int8)
+            rows = {}
+            for row, i in enumerate(members):
+                fwd[row, :self.lens[i]] = self.codes[i]
+                rc[row, :self.lens[i]] = revcomp_codes(self.codes[i])
+                rows[i] = row
+            t1 = time.perf_counter()
+            fwd_d = torch.from_numpy(fwd).to(self.device)
+            rc_d = torch.from_numpy(rc).to(self.device)
+            t2 = time.perf_counter()
+            trace.count('host_syncs', 2)
+            trace.add_span('index.fill', t0, t1)
+            trace.add_span('index.upload', t1, t2)
+            self.prep_s += (t1 - t0) + (t2 - t1)
+            with trace.span('index.kernels'):
+                arena = empty_fn(G, self.device)
+                ch = _INDEX_ROWS_CHUNK
+                for lo in range(0, G, ch):
+                    index_fn(fwd_d[lo:lo + ch], rc_d[lo:lo + ch],
+                             tuple(x[lo:lo + ch] for x in arena))
         d = dict(zip(names, arena))
         d.update(fwd=fwd_d, rows=rows)
         if cache:
@@ -1412,6 +1431,7 @@ def _row_core_v3(b, r_rows, rlens, q_rows, tband, smin,
     aggregates; with_alns also (R, K, MAXSEG, 6) records and (R, K)
     record counts before the cap; with debug the intermediates of the JAX
     package's debug dict, each with a leading R axis."""
+    trace.count('dispatches')
     g3 = _v3_geom(Lq, Lr)
     R = r_rows.shape[0]
     if q_rows.shape != (R, K):
@@ -1828,6 +1848,7 @@ def _row_core(b, r_rows, rlens, q_rows, qlens, *, Lq, Lr, K, mqd, mrd, reg,
     references; q_rows, qlens: (R, K) int32 of the queries. Returns what
     `_row_core_v3` returns; with debug the intermediates of the JAX
     package's debug dict, `votes` and `vb` included."""
+    trace.count('dispatches')
     C = SEEDS_PER_BLOCK if C is None else C
     R = r_rows.shape[0]
     if q_rows.shape != (R, K):
@@ -1957,142 +1978,154 @@ def _all2all_single(codes_list: Sequence[np.ndarray], pairs: np.ndarray,
     deal. Raises for genomes longer than MAX_TPU_LEN."""
     if pipe not in ('v2', 'v3'):
         raise ValueError(f'pipe={pipe!r}: expected v2 or v3')
-    params = params or AlignParams()
-    C = SEEDS_PER_BLOCK if seeds_per_block is None else seeds_per_block
-    mqd, mrd, reg = params.mqd, params.mrd, params.reg
-    idx = index or GenomeIndex(
-        codes_list, device=device if mesh is None else mesh.devices[0])
-    mesh = mesh or make_mesh(device=idx.device)
-    shards, n_shards = local_shards(mesh)
-    local = dict(shards)
-    lens = idx.lens
     pairs = np.asarray(pairs, dtype=np.int32).reshape(-1, 2)
+    with trace.span('pipe', pipe=pipe, pairs=len(pairs)):
+        params = params or AlignParams()
+        C = SEEDS_PER_BLOCK if seeds_per_block is None else seeds_per_block
+        mqd, mrd, reg = params.mqd, params.mrd, params.reg
+        idx = index or GenomeIndex(
+            codes_list, device=device if mesh is None else mesh.devices[0])
+        mesh = mesh or make_mesh(device=idx.device)
+        shards, n_shards = local_shards(mesh)
+        local = dict(shards)
+        lens = idx.lens
 
-    # Directed tasks grouped by the PAIR's max bucket (both sides padded
-    # to it), then by reference genome so each dispatch row shares its
-    # reference K ways.
-    groups: Dict[int, Dict[int, List]] = {}
-    for prow, (i, j) in enumerate(pairs):
-        i, j = int(i), int(j)
-        if i in idx.oversized or j in idx.oversized:
-            raise ValueError(
-                f'pair ({i}, {j}) touches a genome longer than '
-                f'{MAX_TPU_LEN} bases — beyond the device engine\'s '
-                f'position range; align it with the native engine')
-        kb = max(_pad_bucket(lens[i]), _pad_bucket(lens[j]))
-        for (qi, ri, col) in ((j, i, 0), (i, j, 3)):
-            groups.setdefault(kb, {}).setdefault(ri, []).append(
-                (qi, prow, col))
+        with trace.span('pipe.group'):
+            # Directed tasks grouped by the PAIR's max bucket (both sides
+            # padded to it), then by reference genome so each dispatch row
+            # shares its reference K ways.
+            groups: Dict[int, Dict[int, List]] = {}
+            for prow, (i, j) in enumerate(pairs):
+                i, j = int(i), int(j)
+                if i in idx.oversized or j in idx.oversized:
+                    raise ValueError(
+                        f'pair ({i}, {j}) touches a genome longer than '
+                        f'{MAX_TPU_LEN} bases — beyond the device engine\'s '
+                        f'position range; align it with the native engine')
+                kb = max(_pad_bucket(lens[i]), _pad_bucket(lens[j]))
+                for (qi, ri, col) in ((j, i, 0), (i, j, 3)):
+                    groups.setdefault(kb, {}).setdefault(ri, []).append(
+                        (qi, prow, col))
 
-    out = np.zeros((len(pairs), 6), dtype=np.int64)
-    dealt = 0
-    work = []      # (kb, by_ref_subset, cacheable)
-    for kb, by_ref in sorted(groups.items()):
-        if MAX_ARENA and len(_group_gids(by_ref)) > MAX_ARENA:
-            work += [(kb, sub, False)
-                     for sub in _split_group(by_ref, max(MAX_ARENA, 2))]
-        else:
-            work.append((kb, by_ref, True))
-    pending = []   # (device results, task map, record cap)
-    for kb, by_ref, cacheable in work:
-        gids = _group_gids(by_ref)
-        use_v3 = pipe == 'v3' and kb <= V3_MAX_BUCKET
-        b = (idx.ensure_v3(kb, gids, cache=cacheable) if use_v3
-             else idx.ensure(kb, gids, C, cache=cacheable))
-        K = K_QUERIES
-        max_tasks = max(len(ts) for ts in by_ref.values())
-        if max_tasks < K:
-            K = max(1, 1 << (max_tasks - 1).bit_length())
-        rows = []        # (ref_idx, [task, ...] of length <= K)
-        for ri in sorted(by_ref):
-            ts = by_ref[ri]
-            for lo in range(0, len(ts), K):
-                rows.append((ri, ts[lo:lo + K]))
-        n = len(rows)
-        r_rows = np.zeros(n, np.int32)
-        rlens = np.zeros(n, np.int32)
-        q_rows = np.zeros((n, K), np.int32)
-        qlens = np.zeros((n, K), np.int32)
-        # Per-task placement arrays double as the vectorized scatter-back
-        # map (task -> output row/direction).
-        t_w, t_i_, t_prow, t_col = [], [], [], []
-        for w, (ri, ts) in enumerate(rows):
-            r_rows[w] = b['rows'][ri]
-            rlens[w] = lens[ri]
-            for t_i, (qi, prow_, col_) in enumerate(ts):
-                q_rows[w, t_i] = b['rows'][qi]
-                qlens[w, t_i] = lens[qi]
-                t_w.append(w)
-                t_i_.append(t_i)
-                t_prow.append(prow_)
-                t_col.append(col_)
-        tmap = tuple(np.asarray(x, np.int64) for x in (t_w, t_i_, t_prow,
-                                                        t_col))
-        static = dict(Lq=kb, Lr=kb, K=K, mqd=mqd, mrd=mrd, reg=reg,
-                      with_alns=keep_alignments)
-        if use_v3:
-            B = _dispatch_rows(kb, K, idx.device, keep_alignments)
-        else:
-            B = _dispatch_rows_v2(kb, K, keep_alignments)
+            out = np.zeros((len(pairs), 6), dtype=np.int64)
+            dealt = 0
+            work = []      # (kb, by_ref_subset, cacheable)
+            for kb, by_ref in sorted(groups.items()):
+                if MAX_ARENA and len(_group_gids(by_ref)) > MAX_ARENA:
+                    work += [(kb, sub, False) for sub in
+                             _split_group(by_ref, max(MAX_ARENA, 2))]
+                else:
+                    work.append((kb, by_ref, True))
+        pending = []   # (device results, task map, record cap)
+        for kb, by_ref, cacheable in work:
+            gids = _group_gids(by_ref)
+            use_v3 = pipe == 'v3' and kb <= V3_MAX_BUCKET
+            b = (idx.ensure_v3(kb, gids, cache=cacheable) if use_v3
+                 else idx.ensure(kb, gids, C, cache=cacheable))
+            with trace.span('pipe.rows'):
+                K = K_QUERIES
+                max_tasks = max(len(ts) for ts in by_ref.values())
+                if max_tasks < K:
+                    K = max(1, 1 << (max_tasks - 1).bit_length())
+                rows = []        # (ref_idx, [task, ...] of length <= K)
+                for ri in sorted(by_ref):
+                    ts = by_ref[ri]
+                    for lo in range(0, len(ts), K):
+                        rows.append((ri, ts[lo:lo + K]))
+                n = len(rows)
+                r_rows = np.zeros(n, np.int32)
+                rlens = np.zeros(n, np.int32)
+                q_rows = np.zeros((n, K), np.int32)
+                qlens = np.zeros((n, K), np.int32)
+                # Per-task placement arrays double as the vectorized
+                # scatter-back map (task -> output row/direction).
+                t_w, t_i_, t_prow, t_col = [], [], [], []
+                for w, (ri, ts) in enumerate(rows):
+                    r_rows[w] = b['rows'][ri]
+                    rlens[w] = lens[ri]
+                    for t_i, (qi, prow_, col_) in enumerate(ts):
+                        q_rows[w, t_i] = b['rows'][qi]
+                        qlens[w, t_i] = lens[qi]
+                        t_w.append(w)
+                        t_i_.append(t_i)
+                        t_prow.append(prow_)
+                        t_col.append(col_)
+                tmap = tuple(np.asarray(x, np.int64)
+                             for x in (t_w, t_i_, t_prow, t_col))
+                static = dict(Lq=kb, Lr=kb, K=K, mqd=mqd, mrd=mrd, reg=reg,
+                              with_alns=keep_alignments)
+                if use_v3:
+                    B = _dispatch_rows(kb, K, idx.device, keep_alignments)
+                else:
+                    B = _dispatch_rows_v2(kb, K, keep_alignments)
 
-        def run(b, rr, rl, qr, ql):
-            if use_v3:
-                return _row_core_v3(b, rr, rl, qr, V3_TBAND, V3_SMIN,
-                                    **static)
-            return _row_core(b, rr, rl, qr, ql, C=C, **static)
+            def run(b, rr, rl, qr, ql):
+                if use_v3:
+                    return _row_core_v3(b, rr, rl, qr, V3_TBAND, V3_SMIN,
+                                        **static)
+                return _row_core(b, rr, rl, qr, ql, C=C, **static)
 
-        # Dispatches are dealt to the shards in turn, counted over the
-        # groups; a process runs those of its own shards.
-        arena = replicate(mesh, b)
-        results = []   # (first row, device results), in row order
-        for lo in range(0, n, B):
-            dev = local.get(dealt % n_shards)
-            dealt += 1
-            if dev is not None:
-                results.append((lo, run(arena[dev], *(
-                    torch.from_numpy(a[lo:lo + B]).to(dev)
-                    for a in (r_rows, rlens, q_rows, qlens)))))
-        pending.append((results, tmap, _maxseg(kb, reg)))
-    # Host copies of this process's dispatches, joined with every other
-    # process's in row order.
-    host = [[(lo, _to_host(r)) for lo, r in results]
-            for results, _, _ in pending]
-    everyone = gather(mesh, host)
-    pending = [(sorted((x for h in everyone for x in h[w]),
-                       key=lambda x: x[0]), tmap, maxseg)
-               for w, (_, tmap, maxseg) in enumerate(pending)]
-    task_alns = {}   # (prow, col) -> (n, 6) int32 records
-    saturated = []   # pairs whose records overflowed the cap (MAXSEG)
-    for results, tmap, maxseg in pending:
-        res = [r for _, r in results]
-        if keep_alignments:
-            flat, recs, nrec = (np.concatenate(x) for x in zip(*res))
-        else:
-            flat = np.concatenate(res)
-        t_w, t_i_, t_prow, t_col = tmap
-        out.reshape(-1, 2, 3)[t_prow, t_col // 3] = flat[t_w, t_i_]
-        if keep_alignments:
-            for w, ti, prow, col in zip(t_w, t_i_, t_prow, t_col):
-                rr = recs[w, ti]
-                task_alns[(int(prow), int(col))] = rr[rr[:, 0] >= 0]
-                if nrec[w, ti] > maxseg:
-                    saturated.append(tuple(pairs[prow]))
-    if not keep_alignments:
-        return out
-    if saturated:
-        # Aggregates (num_alns etc.) stay exact; only the emitted rows are
-        # capped, so the row count disagrees with num_alns for these pairs.
-        get_logger().warning(
-            f'{len(saturated)} directed pair(s) overflowed the per-pair '
-            f'alignment record cap; their --out-aln rows are truncated '
-            f'(aggregates remain exact). Affected id pairs: '
-            + ', '.join(f'({i},{j})' for i, j in saturated[:8])
-            + ('...' if len(saturated) > 8 else ''))
-    empty = np.empty((0, 6), np.int32)
-    blocks = [task_alns.get((prow, col), empty)
-              for prow in range(len(pairs)) for col in (0, 3)]
-    counts = np.array([len(blk) for blk in blocks], dtype=np.int64)
-    return out, (np.concatenate(blocks) if blocks else empty, counts)
+            # Dispatches are dealt to the shards in turn, counted over the
+            # groups; a process runs those of its own shards.
+            arena = replicate(mesh, b)
+            results = []   # (first row, device results), in row order
+            for lo in range(0, n, B):
+                dev = local.get(dealt % n_shards)
+                dealt += 1
+                if dev is None:
+                    continue
+                with trace.span('dispatch.upload'):
+                    args = [torch.from_numpy(a[lo:lo + B]).to(dev)
+                            for a in (r_rows, rlens, q_rows, qlens)]
+                trace.count('host_syncs', len(args))
+                with trace.span('dispatch.launch'):
+                    results.append((lo, run(arena[dev], *args)))
+            pending.append((results, tmap, _maxseg(kb, reg)))
+        # Host copies of this process's dispatches, joined with every other
+        # process's in row order.
+        with trace.span('pipe.to_host'):
+            host = [[(lo, _to_host(r)) for lo, r in results]
+                    for results, _, _ in pending]
+        with trace.span('pipe.scatter'):
+            everyone = gather(mesh, host)
+            pending = [(sorted((x for h in everyone for x in h[w]),
+                               key=lambda x: x[0]), tmap, maxseg)
+                       for w, (_, tmap, maxseg) in enumerate(pending)]
+            task_alns = {}   # (prow, col) -> (n, 6) int32 records
+            saturated = []   # pairs whose records overflowed the cap
+            for results, tmap, maxseg in pending:
+                res = [r for _, r in results]
+                if keep_alignments:
+                    flat, recs, nrec = (np.concatenate(x)
+                                        for x in zip(*res))
+                else:
+                    flat = np.concatenate(res)
+                t_w, t_i_, t_prow, t_col = tmap
+                out.reshape(-1, 2, 3)[t_prow, t_col // 3] = flat[t_w, t_i_]
+                if keep_alignments:
+                    for w, ti, prow, col in zip(t_w, t_i_, t_prow, t_col):
+                        rr = recs[w, ti]
+                        task_alns[(int(prow), int(col))] = \
+                            rr[rr[:, 0] >= 0]
+                        if nrec[w, ti] > maxseg:
+                            saturated.append(tuple(pairs[prow]))
+        if not keep_alignments:
+            return out
+        if saturated:
+            # Aggregates (num_alns etc.) stay exact; only the emitted rows
+            # are capped, so the row count disagrees with num_alns for these
+            # pairs.
+            get_logger().warning(
+                f'{len(saturated)} directed pair(s) overflowed the per-pair '
+                f'alignment record cap; their --out-aln rows are truncated '
+                f'(aggregates remain exact). Affected id pairs: '
+                + ', '.join(f'({i},{j})' for i, j in saturated[:8])
+                + ('...' if len(saturated) > 8 else ''))
+        empty = np.empty((0, 6), np.int32)
+        blocks = [task_alns.get((prow, col), empty)
+                  for prow in range(len(pairs)) for col in (0, 3)]
+        counts = np.array([len(blk) for blk in blocks], dtype=np.int64)
+        return out, (np.concatenate(blocks) if blocks else empty, counts)
 
 
 def _to_host(r):
@@ -2100,7 +2133,10 @@ def _to_host(r):
     numpy arrays; host arrays pass through."""
     if isinstance(r, tuple):
         return tuple(_to_host(x) for x in r)
-    return r.cpu().numpy() if torch.is_tensor(r) else r
+    if not torch.is_tensor(r):
+        return r
+    trace.count('host_syncs')
+    return r.cpu().numpy()
 
 
 def _merge_records(recs_all, recs_sub, rerun):
@@ -2143,59 +2179,61 @@ def all2all_gpu(codes_list: Sequence[np.ndarray], pairs: np.ndarray,
     package). A fixed sampling density is `_all2all_single`'s
     seeds_per_block. With `mesh`, every `_all2all_single` call runs over
     it."""
-    idx = index or GenomeIndex(
-        codes_list, device=device if mesh is None else mesh.devices[0])
     pairs = np.asarray(pairs, dtype=np.int32).reshape(-1, 2)
-    pipe = os.environ.get('VCLUST_ALIGN_PIPE', 'v3')
-    if pipe not in ('v2', 'v3'):
-        raise ValueError(f'VCLUST_ALIGN_PIPE={pipe!r}: expected v2 or v3')
+    with trace.job(pairs=len(pairs)):
+        idx = index or GenomeIndex(
+            codes_list, device=device if mesh is None else mesh.devices[0])
+        pipe = os.environ.get('VCLUST_ALIGN_PIPE', 'v3')
+        if pipe not in ('v2', 'v3'):
+            raise ValueError(f'VCLUST_ALIGN_PIPE={pipe!r}: expected v2 or v3')
 
-    # `mesh` only when there is one: the calls keep _all2all_single's
-    # positional form otherwise.
-    over = {} if mesh is None else {'mesh': mesh}
+        # `mesh` only when there is one: the calls keep _all2all_single's
+        # positional form otherwise.
+        over = {} if mesh is None else {'mesh': mesh}
 
-    def run(p, C, keep, pipe_='v2'):
-        return _all2all_single(codes_list, p, params, idx, keep, C, pipe_,
-                               **over)
+        def run(p, C, keep, pipe_='v2'):
+            return _all2all_single(codes_list, p, params, idx, keep, C, pipe_,
+                                   **over)
 
-    if pipe == 'v3':
-        res = run(pairs, SEEDS_PER_BLOCK, keep_alignments, 'v3')
-        if V3_RERUN_COV <= 0 or not len(pairs):
-            return res
-        out = res[0] if keep_alignments else res
+        if pipe == 'v3':
+            res = run(pairs, SEEDS_PER_BLOCK, keep_alignments, 'v3')
+            if V3_RERUN_COV <= 0 or not len(pairs):
+                return res
+            out = res[0] if keep_alignments else res
+            lens = idx.lens.astype(np.int64)
+            lj = np.maximum(lens[pairs[:, 1]], 1)   # the query of direction 1
+            li = np.maximum(lens[pairs[:, 0]], 1)
+            tani = (out[:, 1] + out[:, 4]) / (lj + li)
+            hard = (tani > 0.05) & ((out[:, 2] / lj < V3_RERUN_COV)
+                                    | (out[:, 5] / li < V3_RERUN_COV))
+            if not hard.any():
+                return res
+            sub = run(pairs[hard], SEEDS_PER_BLOCK, keep_alignments)
+            if not keep_alignments:
+                out[hard] = sub
+                return out
+            out[hard] = sub[0]
+            return out, _merge_records(res[1], sub[1], hard)
+        if (keep_alignments or not len(pairs)
+                or os.environ.get('VCLUST_ALIGN_TWO_PHASE') == '0'):
+            return run(pairs, SEEDS_PER_BLOCK, keep_alignments)
         lens = idx.lens.astype(np.int64)
-        lj = np.maximum(lens[pairs[:, 1]], 1)   # the query of direction 1
-        li = np.maximum(lens[pairs[:, 0]], 1)
-        tani = (out[:, 1] + out[:, 4]) / (lj + li)
-        hard = (tani > 0.05) & ((out[:, 2] / lj < V3_RERUN_COV)
-                                | (out[:, 5] / li < V3_RERUN_COV))
-        if not hard.any():
-            return res
-        sub = run(pairs[hard], SEEDS_PER_BLOCK, keep_alignments)
-        if not keep_alignments:
-            out[hard] = sub
-            return out
-        out[hard] = sub[0]
-        return out, _merge_records(res[1], sub[1], hard)
-    if (keep_alignments or not len(pairs)
-            or os.environ.get('VCLUST_ALIGN_TWO_PHASE') == '0'):
-        return run(pairs, SEEDS_PER_BLOCK, keep_alignments)
-    lens = idx.lens.astype(np.int64)
-    # Small buckets are bound by dispatch latency: the screen applies only
-    # to pairs whose bucket reaches TWO_PHASE_MIN_BUCKET.
-    kb = np.array([max(_pad_bucket(int(lens[i])), _pad_bucket(int(lens[j])))
-                   for i, j in pairs], dtype=np.int64)
-    big = kb >= TWO_PHASE_MIN_BUCKET
-    out = np.zeros((len(pairs), 6), dtype=np.int64)
-    if (~big).any():
-        out[~big] = run(pairs[~big], SEEDS_PER_BLOCK, False)
-    if big.any():
-        pb = pairs[big]
-        o1 = run(pb, PHASE1_C, False)
-        pair_len = lens[pb[:, 0]] + lens[pb[:, 1]]
-        tani1 = (o1[:, 1] + o1[:, 4]) / np.maximum(pair_len, 1)
-        band = (tani1 > RERUN_LO) & (tani1 < RERUN_HI)
-        if band.any():
-            o1[band] = run(pb[band], SEEDS_PER_BLOCK, False)
-        out[big] = o1
-    return out
+        # Small buckets are bound by dispatch latency: the screen applies
+        # only to pairs whose bucket reaches TWO_PHASE_MIN_BUCKET.
+        kb = np.array([max(_pad_bucket(int(lens[i])),
+                           _pad_bucket(int(lens[j]))) for i, j in pairs],
+                      dtype=np.int64)
+        big = kb >= TWO_PHASE_MIN_BUCKET
+        out = np.zeros((len(pairs), 6), dtype=np.int64)
+        if (~big).any():
+            out[~big] = run(pairs[~big], SEEDS_PER_BLOCK, False)
+        if big.any():
+            pb = pairs[big]
+            o1 = run(pb, PHASE1_C, False)
+            pair_len = lens[pb[:, 0]] + lens[pb[:, 1]]
+            tani1 = (o1[:, 1] + o1[:, 4]) / np.maximum(pair_len, 1)
+            band = (tani1 > RERUN_LO) & (tani1 < RERUN_HI)
+            if band.any():
+                o1[band] = run(pb[band], SEEDS_PER_BLOCK, False)
+            out[big] = o1
+        return out
